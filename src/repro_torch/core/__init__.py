@@ -1,0 +1,29 @@
+"""The paper's algorithms on the port's round engine.
+
+  problem.py   — sparse logreg problem, flat view + ceil(log2 n_k) buckets
+  scaling.py   — S_k / A sparsity statistics (§3.6.1)
+  engine.py    — the round: masks, per-bucket client passes, aggregation
+  solver.py    — the FederatedSolver protocol over a SolverState
+  registry.py  — make_solver("fsvrg", prob), defaults from repro_torch.configs
+  trainer.py   — the Trainer.fit round-loop driver
+  fsvrg.py     — Algorithm 4 (the paper's method)
+  baselines.py — distributed GD
+"""
+from repro_torch.core.problem import (ClientBucket, FederatedLogReg,
+                                      LogRegProblem, build_problem,
+                                      build_test_problem)
+from repro_torch.core.engine import EngineConfig, RoundEngine
+from repro_torch.core.solver import FederatedSolver, SolverState
+from repro_torch.core.registry import (available, get_spec, make_solver,
+                                       register)
+from repro_torch.core.trainer import FitResult, NonFiniteIterateError, Trainer
+from repro_torch.core.fsvrg import FSVRG, FSVRGConfig
+from repro_torch.core.baselines import DistributedGD
+
+__all__ = [
+    "ClientBucket", "FederatedLogReg", "LogRegProblem", "build_problem",
+    "build_test_problem", "EngineConfig", "RoundEngine", "FederatedSolver",
+    "SolverState", "available", "get_spec", "make_solver", "register",
+    "FitResult", "NonFiniteIterateError", "Trainer", "FSVRG", "FSVRGConfig",
+    "DistributedGD",
+]

@@ -1,0 +1,177 @@
+"""Federated SVRG — the paper's Algorithm 4, ported from the reference's
+``core/fsvrg.py``.
+
+One round:
+  1. server: compute ∇f(w^t) over all data      — 1 round of communication
+  2. each client k, in parallel:
+       w_k = w^t;  h_k = h / n_k
+       for t over a random permutation of P_k:
+         w_k ← w_k − h_k ( S_k [∇f_i(w_k) − ∇f_i(w^t)] + ∇f(w^t) )
+  3. server: w ← w^t + A Σ_k (n_k/n)(w_k − w^t)
+
+A bucket's Kb clients step together: step t of the pass is one batched
+step of every client, over its own permutation, and padded permutation
+slots are exact no-ops (their step size is 0).  The local step itself is
+the ``fsvrg_update`` kernel (the reference computes the same step inline).
+
+Not ported yet: the naive Algorithm 3 (its with-replacement sampling needs
+the bit-exact threefry of a later slice), and the streamed, cohort, virtual,
+participation-model, fault and guard options.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import scaling
+from repro_torch.core.engine import EngineConfig, RoundEngine
+from repro_torch.core.problem import ClientBucket, FederatedLogReg
+from repro_torch.core.registry import register
+from repro_torch.core.solver import FederatedSolver, SolverState
+from repro_torch.kernels import ops
+from repro_torch.utils.device import DeviceLike
+
+
+@dataclasses.dataclass(frozen=True)
+class FSVRGConfig:
+    stepsize: float = 1.0          # h; h_k = h/n_k per client
+    use_S: bool = True             # ablation switches of the four §3.6.2
+    use_A: bool = True             # modifications
+    use_local_stepsize: bool = True
+    use_weighted_agg: bool = True
+    # i.i.d. per-round client participation; aggregation reweights by the
+    # realized participating mass so the update stays unbiased
+    participation: float = 1.0
+    # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
+    aggregator: str = "dense"
+
+
+def client_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
+                      bucket: ClientBucket, lam: float, s_diag: torch.Tensor,
+                      h_k: torch.Tensor, perms: torch.Tensor,
+                      out: torch.Tensor, *,
+                      diff: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Algorithm 4, lines 5-9, for every client of a bucket at once, over
+    explicit per-client permutations ``perms`` (Kb, m_pad) — the
+    counterpart of the reference's ``_client_pass_keyed``.
+
+    ``s_diag`` is S_k, (Kb, d) or one shared (d,) row; ``h_k`` (Kb,) the
+    local step sizes.  The iterates w_k are stepped in place in ``out``
+    (Kb, d), which ends holding the deltas w_k − w0.  ``diff`` is an
+    optional (≥Kb, d) scratch, so a caller running many buckets allocates
+    it once.  Per step, in the reference's order of operations:
+
+        diff = λ(w_k − w0), then diff[x_i] += (g_new − g_old)·v_i
+        w_k  = fsvrg_update(w_k, S, g_new=diff, g_old=0, ḡ=∇f(w0),
+                            h=valid·h_k)
+
+    which is the reference's w_k − valid·h_k(S⊙diff + ∇f(w0)).
+    """
+    Kb, m_pad, nnz = bucket.idx.shape
+    d = w0.shape[0]
+    # the permuted rows, step-major: row t of client k is its row perms[k, t]
+    take = perms[..., None].expand(Kb, m_pad, nnz)
+    pidx = bucket.idx.gather(1, take).transpose(0, 1).contiguous()
+    pval = bucket.val.gather(1, take).transpose(0, 1).contiguous()
+    py = bucket.y.gather(1, perms).t().contiguous()               # (m_pad, Kb)
+    valid = (perms < bucket.n_k[:, None]).to(torch.float32).t()
+    h = (valid * h_k[None, :]).contiguous()                       # (m_pad, Kb)
+    # the anchor's per-example gradient scalars need only x·w0: all at once
+    z_old = (pval * w0[pidx]).sum(dim=-1)
+    g_old = -py * torch.sigmoid(-py * z_old)
+
+    wk = out
+    wk.copy_(w0.expand(Kb, d))
+    diff = torch.empty_like(wk) if diff is None else diff[:Kb]
+    zero = torch.zeros_like(w0)
+    for t in range(m_pad):
+        xi, vi, yi = pidx[t], pval[t], py[t]
+        z_new = (vi * wk.gather(1, xi)).sum(dim=1)
+        g_new = -yi * torch.sigmoid(-yi * z_new)
+        torch.sub(wk, w0, out=diff).mul_(lam)       # L2 part of the difference
+        diff.scatter_add_(1, xi, (g_new - g_old[t])[:, None] * vi)
+        ops.fsvrg_update(wk, s_diag, diff, zero, full_grad, h[t], out=wk)
+    return wk.sub_(w0)
+
+
+class FSVRG(FederatedSolver):
+    """Algorithm 4 on the :class:`~repro_torch.core.engine.RoundEngine`:
+    φ, A and every bucket's S_k are computed once here, then each round is
+    the full-gradient prelude plus the engine's round."""
+
+    name = "fsvrg"
+
+    def __init__(self, problem: FederatedLogReg,
+                 cfg: FSVRGConfig = FSVRGConfig(), *,
+                 device: DeviceLike = None):
+        self._bind(problem, device)
+        self.cfg = cfg
+        flat = problem.flat
+        dev = problem.device
+        d = problem.d
+        self.phi = scaling.global_feature_counts(flat) / flat.n
+        self.a_diag = (scaling.aggregation_diag(problem) if cfg.use_A
+                       else torch.ones((d,), device=dev))
+        # S_k depends only on the data, so it is cached once per solver
+        # (K·d floats) instead of being recomputed every round as in the
+        # reference; without use_S one shared row of ones stands for it
+        ones = torch.ones((d,), device=dev)
+        self.s_diags = [scaling.s_k_diag(self.phi, b.idx, b.val, b.n_k)
+                        if cfg.use_S else ones for b in problem.buckets]
+        # h_k = h / n_k as a tensor division (torch computes `h / tensor` as
+        # reciprocal(tensor) · h, which rounds differently)
+        self.h_k = []
+        for b in problem.buckets:
+            h = torch.full((b.num_clients,), float(cfg.stepsize), device=dev)
+            if cfg.use_local_stepsize:
+                h = h / b.n_k.to(torch.float32).clamp(min=1.0)
+            self.h_k.append(h)
+        # the step's scratch, shared by every bucket's pass
+        self._diff = torch.empty(
+            (max(b.num_clients for b in problem.buckets), d), device=dev)
+        self.engine = RoundEngine(
+            problem,
+            EngineConfig(
+                participation=cfg.participation,
+                weighting="nk" if cfg.use_weighted_agg else "uniform",
+                server_scaling="diag" if cfg.use_A else "none",
+                aggregator=cfg.aggregator,
+            ),
+            a_diag=self.a_diag,
+        )
+        # the full gradient is the round's own communication (Alg. 4 line 3)
+        prelude = lambda w: (self.problem.flat.grad(w),)
+        self._round_fast = self.engine.compile(self._pass, prelude=prelude)
+
+    def permutations(self, gen: torch.Generator, bucket_index: int,
+                     bucket: ClientBucket) -> torch.Tensor:
+        """Every client's random order of its m_pad slots (Alg. 4 line 6),
+        drawn batched from the round's generator: (Kb, m_pad) int64."""
+        u = torch.rand((bucket.num_clients, bucket.m_pad), generator=gen,
+                       device=bucket.idx.device)
+        return torch.argsort(u, dim=1)
+
+    def _pass(self, w, bi, bucket, gen, out, full_grad):
+        perms = self.permutations(gen, bi, bucket)
+        client_pass_keyed(w, full_grad, bucket, self.problem.flat.lam,
+                          self.s_diags[bi], self.h_k[bi], perms, out,
+                          diff=self._diff)
+
+    def round(self, state: SolverState,
+              gen: torch.Generator) -> SolverState:
+        return state.replace(w=self._round_fast(state.w, gen),
+                             round=state.round + 1)
+
+
+def _fsvrg_defaults():
+    from repro_torch.configs import get_fsvrg_config
+    return {"stepsize": get_fsvrg_config().stepsize}
+
+
+@register("fsvrg", defaults=_fsvrg_defaults,
+          description="Federated SVRG (Algorithm 4, all four modifications)")
+def _make_fsvrg(problem: FederatedLogReg, *, device: DeviceLike = None,
+                **kw) -> FSVRG:
+    return FSVRG(problem, FSVRGConfig(**kw), device=device)

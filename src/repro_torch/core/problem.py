@@ -1,0 +1,204 @@
+"""Federated finite-sum problem (eq. 1/7/8): sparse L2-regularized logistic
+regression in fixed-nnz sparse row format, partitioned over clients — the
+port of the reference's ``core/problem.py``.
+
+It provides the flat (all-data) objective and gradient, used for evaluation
+and FSVRG's full-gradient prelude, and a *bucketed* per-client layout:
+clients are grouped by ceil(log2 n_k) so each bucket pads to its own
+largest client, and a local pass runs over all of a bucket's clients at
+once with the client axis written out as the batch dimension.  The grouping
+(:func:`_equal_runs`, :func:`_split_by_rows`, :func:`_level_groups`) is the
+reference's numpy code, so both packages produce the same buckets in the
+same order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LogRegProblem:
+    """Flat sparse dataset + lambda, as tensors on one device."""
+
+    idx: torch.Tensor   # (n, nnz) int64
+    val: torch.Tensor   # (n, nnz) f32
+    y: torch.Tensor     # (n,) f32 {-1,+1}
+    lam: float
+    num_features: int
+
+    @property
+    def n(self) -> int:
+        return int(self.y.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.idx.device
+
+    def margins(self, w: torch.Tensor) -> torch.Tensor:
+        return (self.val * w[self.idx]).sum(dim=1)
+
+    def loss(self, w: torch.Tensor) -> torch.Tensor:
+        z = self.y * self.margins(w)
+        return F.softplus(-z).mean() + 0.5 * self.lam * torch.dot(w, w)
+
+    def grad(self, w: torch.Tensor) -> torch.Tensor:
+        z = self.y * self.margins(w)
+        g_scalar = -self.y * torch.sigmoid(-z) / self.n         # (n,)
+        g = torch.zeros_like(w).index_add_(
+            0, self.idx.reshape(-1), (g_scalar[:, None] * self.val).reshape(-1))
+        return g + self.lam * w
+
+    def error_rate(self, w: torch.Tensor) -> torch.Tensor:
+        # a zero margin predicts +1, as in the reference
+        preds = torch.where(self.margins(w) >= 0, 1.0, -1.0)
+        return (preds != self.y).to(torch.float32).mean()
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientBucket:
+    """Clients padded to a common example count m_pad.
+
+    idx/val: (Kb, m_pad, nnz); y: (Kb, m_pad); n_k: (Kb,) true sizes.
+    Padded rows have idx 0, val 0 and y 1, and are masked in local passes.
+    """
+
+    idx: torch.Tensor
+    val: torch.Tensor
+    y: torch.Tensor
+    n_k: torch.Tensor
+
+    @property
+    def num_clients(self) -> int:
+        return int(self.n_k.shape[0])
+
+    @property
+    def m_pad(self) -> int:
+        return int(self.y.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedLogReg:
+    """The problem as the algorithms see it: flat view + client buckets."""
+
+    flat: LogRegProblem
+    buckets: List[ClientBucket]
+    client_weights: torch.Tensor    # (K,) n_k / n, bucket-concatenated order
+    num_clients: int
+
+    @property
+    def d(self) -> int:
+        return self.flat.num_features
+
+    @property
+    def device(self) -> torch.device:
+        return self.flat.device
+
+
+def _equal_runs(order, sorted_keys) -> List[List[int]]:
+    """Contiguous runs of equal key in a stably key-sorted index order."""
+    if len(order) == 0:
+        return []
+    starts = np.flatnonzero(np.r_[True, sorted_keys[1:] != sorted_keys[:-1]])
+    ends = np.r_[starts[1:], len(order)]
+    return [[int(k) for k in order[s:e]] for s, e in zip(starts, ends)]
+
+
+def _split_by_rows(groups: List[List[int]], sizes,
+                   max_bucket_rows: Optional[int]) -> List[List[int]]:
+    """Split any group whose padded row count Kb·m_pad would exceed
+    ``max_bucket_rows`` into consecutive sub-groups under the cap (a single
+    client is never split).  Member order is preserved."""
+    if max_bucket_rows is None:
+        return groups
+    out: List[List[int]] = []
+    for members in groups:
+        cur: List[int] = []
+        cur_pad = 0
+        for k in members:
+            m_pad = max(cur_pad, int(sizes[k]))
+            if cur and (len(cur) + 1) * m_pad > max_bucket_rows:
+                out.append(cur)
+                cur, cur_pad = [k], int(sizes[k])
+            else:
+                cur.append(k)
+                cur_pad = m_pad
+        if cur:
+            out.append(cur)
+    return out
+
+
+def _level_groups(sizes, max_bucket_rows: Optional[int]) -> List[List[int]]:
+    """The canonical client grouping: stable-sort by ceil(log2 n_k), one
+    group per level, split under ``max_bucket_rows``."""
+    levels = np.ceil(np.log2(np.maximum(sizes, 1))).astype(np.int64)
+    order = np.argsort(levels, kind="stable")
+    return _split_by_rows(_equal_runs(order, levels[order]), sizes,
+                          max_bucket_rows)
+
+
+def _bucket(flat: LogRegProblem, starts: torch.Tensor, n_k: torch.Tensor,
+            m_pad: int) -> ClientBucket:
+    """Gather the rows of clients starting at flat rows ``starts`` (with
+    ``n_k`` rows each) into a bucket padded to ``m_pad``."""
+    dev = flat.device
+    pos = torch.arange(m_pad, dtype=torch.int64, device=dev)
+    keep = pos[None, :] < n_k[:, None]                      # (Kb, m_pad)
+    rows = torch.where(keep, starts[:, None] + pos[None, :], 0)
+    idx = torch.where(keep[..., None], flat.idx[rows], 0)
+    val = torch.where(keep[..., None], flat.val[rows], 0.0)
+    y = torch.where(keep, flat.y[rows], 1.0)
+    return ClientBucket(idx, val, y, n_k)
+
+
+def build_problem(ds, lam: Optional[float] = None, *,
+                  max_bucket_rows: Optional[int] = None,
+                  device: DeviceLike = None) -> FederatedLogReg:
+    """ds: a ``repro_torch.data.FederatedDataset``; the problem's tensors
+    live on ``device`` (default: the CUDA card).
+
+    ``max_bucket_rows`` caps each bucket's padded row count Kb·m_pad by
+    splitting oversized groups, as in the reference."""
+    dev = resolve_device(device)
+    n = ds.num_examples
+    lam = (1.0 / n) if lam is None else lam
+    flat = LogRegProblem(
+        idx=ds.idx.to(dev, torch.int64), val=ds.val.to(dev, torch.float32),
+        y=ds.y.to(dev, torch.float32), lam=float(lam),
+        num_features=int(ds.num_features))
+
+    sizes = np.asarray(ds.client_sizes, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    buckets: List[ClientBucket] = []
+    weights: List[np.ndarray] = []
+    for members in _level_groups(sizes, max_bucket_rows):
+        mem = np.asarray(members, np.int64)
+        buckets.append(_bucket(
+            flat, torch.as_tensor(starts[mem], device=dev),
+            torch.as_tensor(sizes[mem], device=dev), int(sizes[mem].max())))
+        weights.append(sizes[mem] / n)
+
+    return FederatedLogReg(
+        flat=flat, buckets=buckets,
+        client_weights=torch.as_tensor(
+            np.concatenate(weights).astype(np.float32), device=dev),
+        num_clients=int(ds.num_clients),
+    )
+
+
+def build_test_problem(ds, lam: Optional[float] = None, *,
+                       device: DeviceLike = None) -> LogRegProblem:
+    dev = resolve_device(device)
+    n = ds.num_examples
+    lam = (1.0 / n) if lam is None else lam
+    return LogRegProblem(
+        idx=ds.test_idx.to(dev, torch.int64),
+        val=ds.test_val.to(dev, torch.float32),
+        y=ds.test_y.to(dev, torch.float32), lam=float(lam),
+        num_features=int(ds.num_features))

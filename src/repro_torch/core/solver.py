@@ -1,0 +1,75 @@
+"""The `FederatedSolver` protocol — one front door for every round-based
+algorithm, ported from the reference's ``core/solver.py``:
+
+  * ``init(w0) -> SolverState`` — the iterate ``w``, per-client auxiliary
+    state ``aux`` (empty for stateless algorithms) and the ``round`` count;
+  * ``round(state, gen) -> SolverState`` — one round of communication,
+    drawing its randomness from the round's ``torch.Generator``;
+    deterministic solvers ignore it;
+  * ``name`` — the registry name;
+  * ``fit(rounds, ...)`` — a wrapper over
+    :class:`repro_torch.core.trainer.Trainer`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.problem import FederatedLogReg
+from repro_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverState:
+    """Everything a solver carries between rounds.
+
+    w     : (d,) the server iterate.
+    aux   : per-client auxiliary state, one entry per bucket, or ().
+    round : the round count; the Trainer seeds round r's generator from
+            ``(seed, r)``, so a restored state resumes the same draws.
+    """
+
+    w: torch.Tensor
+    aux: Any = ()
+    round: int = 0
+
+    def replace(self, **kw) -> "SolverState":
+        return dataclasses.replace(self, **kw)
+
+
+class FederatedSolver:
+    """Base class of round-based federated algorithms.
+
+    Subclasses set ``name`` and implement :meth:`round`.  Constructors take
+    the problem first and a ``device`` (default: the CUDA card), which must
+    be the device the problem lives on."""
+
+    name: str = "solver"
+    problem: FederatedLogReg
+    device: torch.device
+
+    def _bind(self, problem: FederatedLogReg, device: DeviceLike) -> None:
+        self.problem = problem
+        self.device = resolve_device(device)
+        if problem.device.type != self.device.type:
+            raise ValueError(f"the problem lives on {problem.device}, the "
+                             f"solver was asked for {self.device}")
+
+    def init(self, w0: Optional[torch.Tensor] = None) -> SolverState:
+        """Fresh solver state at iterate ``w0`` (zeros by default)."""
+        if w0 is None:
+            w0 = torch.zeros((self.problem.d,), device=self.problem.device)
+        return SolverState(w=w0)
+
+    def round(self, state: SolverState,
+              gen: torch.Generator) -> SolverState:
+        raise NotImplementedError
+
+    def fit(self, rounds: int, *, seed: int = 0, w0=None, state=None,
+            eval_fn=None, **trainer_kw):
+        """Run ``rounds`` rounds through the shared Trainer driver."""
+        from repro_torch.core.trainer import Trainer
+        return Trainer(self, rounds=rounds, seed=seed, eval_fn=eval_fn,
+                       **trainer_kw).fit(w0=w0, state=state)

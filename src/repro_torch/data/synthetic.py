@@ -1,0 +1,263 @@
+"""Synthetic federated sparse-logreg data with the paper's §4 statistics —
+the port of the reference's ``data/synthetic.py``.
+
+The O(K) size draw and the O(d) ground truth come from numpy exactly as in
+the reference (:func:`_power_law_sizes` and :func:`train_split_sizes` are
+copied verbatim, drawn from ``np.random.default_rng(seed)`` in the same
+order), so client sizes and ``w_true`` are bit-equal to the reference's.
+
+The per-client sampler is the reference's, batched on the device and fed
+by one ``torch.Generator`` (``utils.device``'s data stream):
+
+* vocabulary: Gumbel top-k over the global log popularity — weighted
+  sampling without replacement;
+* mixture over the vocabulary: a normalized Weibull(0.3) draw;
+* label bias: a logistic draw of std 1.5;
+* each row: ``n_own`` inverse-CDF draws from the client's mixture and
+  ``nnz − n_own`` from the global zipf popularity, after the always-on bias
+  (0) and unknown-word (1) features; repeated features in a row get value
+  0; the label is Bernoulli(sigmoid(0.7·margin + bias));
+* the chronological 75/25 split per client.
+
+The rows are drawn from torch's generator, not JAX's threefry, so they
+differ from the reference's rows; their structure and statistics agree.
+Not ported yet: ``VirtualDataset``, ``make_client_batch`` and
+``drifted_dataset``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import numpy as np
+import torch
+
+from repro_torch.utils.device import (DATA_STREAM, DeviceLike, generator,
+                                      resolve_device)
+
+#: logistic(0, s) has std s·π/√3 — this scale gives the label bias std 1.5
+_BIAS_SCALE = 1.5 * math.sqrt(3.0) / math.pi
+
+#: clients per batch of the vocabulary draw (a (block, d) score matrix)
+_PARAM_BLOCK = 2048
+#: rows per batch of the row sampler
+_ROW_BLOCK = 1 << 16
+
+
+@dataclasses.dataclass
+class FederatedDataset:
+    """Sparse design matrix in fixed-nnz row format, partitioned by client
+    and stored client-contiguous; row tensors live on one device."""
+
+    idx: torch.Tensor           # (n, nnz) int64 feature indices
+    val: torch.Tensor           # (n, nnz) float32 (0 marks a repeat)
+    y: torch.Tensor             # (n,) float32 in {-1, +1}
+    client_of: torch.Tensor     # (n,) int64
+    client_sizes: np.ndarray    # (K,) int32 train sizes (host)
+    num_features: int
+
+    test_idx: torch.Tensor
+    test_val: torch.Tensor
+    test_y: torch.Tensor
+    test_client_of: torch.Tensor
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.client_sizes)
+
+    @property
+    def num_examples(self) -> int:
+        return int(self.y.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSpec:
+    """What :func:`generate` draws with numpy before the per-client sampler:
+    the reference's ``VirtualDataset`` fields less its JAX key."""
+
+    full_sizes: np.ndarray     # (K,) int64, train + test rows per client
+    client_sizes: np.ndarray   # (K,) int32, train rows per client
+    w_true: np.ndarray         # (d,) float32 ground-truth weights
+    log_pop: np.ndarray        # (d-2,) float32 log zipf popularity
+    global_cdf: np.ndarray     # (d-2,) float32 zipf CDF
+    num_features: int
+    nnz: int
+    vocab_size: int
+    n_own: int
+
+
+def _power_law_sizes(rng, K, n_total, n_min, n_max, alpha=1.6):
+    """Power-law client sizes with Σ n_k == clip(n_total, K·n_min, K·n_max).
+
+    The clipped mass is redistributed over the unsaturated clients
+    (largest-first for a deficit, smallest-first for a surplus) and the float
+    sizes are integerized largest-remainder style, so the realized total is
+    exact whenever ``K·n_min <= n_total <= K·n_max``.
+    """
+    target = float(np.clip(n_total, K * n_min, K * n_max))
+    raw = np.clip((rng.pareto(alpha, size=K) + 1.0) * n_min, n_min, n_max)
+    sizes = np.clip(raw / raw.sum() * target, n_min, n_max)
+    gap = target - sizes.sum()
+    order = np.argsort(-sizes if gap > 0 else sizes, kind="stable")
+    for k in order:
+        if abs(gap) < 0.5:
+            break
+        if gap > 0:
+            take = min(gap, n_max - sizes[k])
+        else:
+            take = max(gap, n_min - sizes[k])
+        sizes[k] += take
+        gap -= take
+
+    base = np.clip(np.floor(sizes).astype(np.int64), n_min, n_max)
+    rem = int(round(target)) - int(base.sum())
+    frac_order = np.argsort(-(sizes - base), kind="stable")
+    step = 1 if rem > 0 else -1
+    while rem != 0:
+        adjustable = False
+        for k in frac_order:
+            if rem == 0:
+                break
+            if n_min <= base[k] + step <= n_max:
+                base[k] += step
+                rem -= step
+                adjustable = True
+        if not adjustable:      # every client saturated: nearest feasible
+            break
+    return base
+
+
+def train_split_sizes(sizes) -> np.ndarray:
+    """The chronological 75/25 split: train gets ``max(1, floor(0.75 n_k))``
+    capped at n_k − 1, so every client with n_k >= 2 keeps at least one
+    train and one test example."""
+    sizes = np.asarray(sizes, np.int64)
+    tr = np.maximum(1, (0.75 * sizes).astype(np.int64))
+    return np.where(sizes >= 2, np.minimum(tr, sizes - 1), tr)
+
+
+def data_spec(cfg, seed: int = 0) -> DataSpec:
+    """The numpy draws of :func:`generate`, in the reference's order."""
+    rng = np.random.default_rng(seed)
+    K, d = cfg.num_clients, cfg.num_features
+    nnz = min(cfg.nnz_per_example, d - 2)
+
+    sizes = _power_law_sizes(rng, K, cfg.num_examples,
+                             cfg.min_client_examples, cfg.max_client_examples)
+    # ground-truth weights: heavy-tailed so rare features carry signal
+    w_true = rng.standard_normal(d) * (rng.random(d) < 0.3)
+    # global feature popularity (zipf over non-special features)
+    ranks = np.arange(2, d)
+    global_pop = 1.0 / ranks ** 1.1
+    global_pop /= global_pop.sum()
+    gcdf = np.cumsum(global_pop)
+    gcdf[-1] = 1.0
+    return DataSpec(
+        full_sizes=sizes.astype(np.int64),
+        client_sizes=train_split_sizes(sizes).astype(np.int32),
+        w_true=w_true.astype(np.float32),
+        log_pop=np.log(global_pop).astype(np.float32),
+        global_cdf=gcdf.astype(np.float32),
+        num_features=d, nnz=nnz,
+        vocab_size=min(max(8, int(0.02 * d)), d - 2),
+        n_own=int(0.8 * nnz),
+    )
+
+
+def _uniform(gen, shape, lo: float, hi: float, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=device)
+    return u * (hi - lo) + lo
+
+
+def _client_params(gen, log_pop: torch.Tensor, vocab_size: int, count: int):
+    """``count`` clients' (vocab, mixture CDF, label bias)."""
+    dev = log_pop.device
+    u = torch.rand((count, log_pop.shape[0]), generator=gen, device=dev)
+    gumbel = -torch.log(-torch.log(u))
+    vocab = torch.topk(log_pop + gumbel, vocab_size, dim=1).indices + 2
+    u = _uniform(gen, (count, vocab_size), 1e-7, 1.0, dev)
+    raw = (-torch.log(u)) ** (1.0 / 0.3)
+    cdf = torch.cumsum(raw / raw.sum(dim=1, keepdim=True), dim=1)
+    cdf[:, -1] = 1.0
+    ub = _uniform(gen, (count,), 1e-6, 1.0 - 1e-6, dev)
+    bias = _BIAS_SCALE * torch.log(ub / (1.0 - ub))
+    return vocab, cdf, bias
+
+
+def _rows(gen, client_of, vocab, cdf, bias, w_true, global_cdf, nnz: int,
+          n_own: int):
+    """One batch of rows (idx, val, y), row i drawn for client
+    ``client_of[i]``."""
+    m = client_of.shape[0]
+    dev = client_of.device
+    V = vocab.shape[1]
+    u_own = torch.rand((m, n_own), generator=gen, device=dev)
+    pos = torch.searchsorted(cdf[client_of], u_own, right=True).clamp_(max=V - 1)
+    own = vocab[client_of].gather(1, pos)
+    dg = global_cdf.shape[0]
+    u_glob = torch.rand((m, nnz - n_own), generator=gen, device=dev)
+    glob = torch.searchsorted(global_cdf, u_glob, right=True).clamp_(max=dg - 1)
+    special = torch.tensor([0, 1], dtype=torch.int64, device=dev).expand(m, 2)
+    idx = torch.cat([special, own, glob + 2], dim=1)
+    # repeated features within a row keep their slot with value 0: in
+    # stable sorted order every repeat after the first is flagged, then the
+    # flags are sent back to the original positions
+    srt, order = torch.sort(idx, dim=1, stable=True)
+    dup = torch.zeros_like(idx, dtype=torch.bool)
+    dup[:, 1:] = srt[:, 1:] == srt[:, :-1]
+    repeat = torch.zeros_like(dup).scatter_(1, order, dup)
+    val = (~repeat).to(torch.float32)
+    margin = (val * w_true[idx]).sum(dim=1)
+    p = torch.sigmoid(0.7 * margin + bias[client_of])
+    u_y = torch.rand((m,), generator=gen, device=dev)
+    y = torch.where(u_y < p, 1.0, -1.0).to(torch.float32)
+    return idx, val, y
+
+
+def generate(cfg, seed: int = 0, *,
+             device: DeviceLike = None) -> FederatedDataset:
+    """cfg: a ``repro_torch.configs.LogRegConfig`` (possibly ``.scaled()``).
+
+    Draws the whole dataset on ``device`` (default: the CUDA card) from the
+    data stream of ``seed``: :func:`data_spec`'s numpy draws, then client
+    parameters in blocks of ``_PARAM_BLOCK`` clients and rows in blocks of
+    ``_ROW_BLOCK``."""
+    dev = resolve_device(device)
+    spec = data_spec(cfg, seed)
+    gen = generator(seed, DATA_STREAM, dev)
+    K = len(spec.full_sizes)
+    log_pop = torch.as_tensor(spec.log_pop, device=dev)
+    gcdf = torch.as_tensor(spec.global_cdf, device=dev)
+    w_true = torch.as_tensor(spec.w_true, device=dev)
+
+    parts = [_client_params(gen, log_pop, spec.vocab_size,
+                            min(_PARAM_BLOCK, K - k0))
+             for k0 in range(0, K, _PARAM_BLOCK)]
+    vocab, cdf, bias = (torch.cat(p) for p in zip(*parts))
+
+    sizes = torch.as_tensor(spec.full_sizes, dtype=torch.int64, device=dev)
+    n = int(spec.full_sizes.sum())
+    client_of = torch.repeat_interleave(
+        torch.arange(K, dtype=torch.int64, device=dev), sizes)
+    width = spec.nnz + 2
+    idx = torch.empty((n, width), dtype=torch.int64, device=dev)
+    val = torch.empty((n, width), dtype=torch.float32, device=dev)
+    y = torch.empty((n,), dtype=torch.float32, device=dev)
+    for i0 in range(0, n, _ROW_BLOCK):
+        i1 = min(i0 + _ROW_BLOCK, n)
+        idx[i0:i1], val[i0:i1], y[i0:i1] = _rows(
+            gen, client_of[i0:i1], vocab, cdf, bias, w_true, gcdf, spec.nnz,
+            spec.n_own)
+
+    # chronological split: a client's first client_sizes[k] rows train
+    starts = torch.cumsum(sizes, 0) - sizes
+    pos = torch.arange(n, device=dev) - starts[client_of]
+    tr_sizes = torch.as_tensor(spec.client_sizes, dtype=torch.int64,
+                               device=dev)
+    tr = pos < tr_sizes[client_of]
+    te = ~tr
+    return FederatedDataset(
+        idx=idx[tr], val=val[tr], y=y[tr], client_of=client_of[tr],
+        client_sizes=spec.client_sizes, num_features=spec.num_features,
+        test_idx=idx[te], test_val=val[te], test_y=y[te],
+        test_client_of=client_of[te],
+    )

@@ -1,0 +1,137 @@
+"""Build the port's CUDA kernels and load them through ``ctypes``.
+
+Each source under ``csrc/`` has a plain C interface (``extern "C"``
+launchers that return a ``cudaError_t``), so it is compiled by ``nvcc``
+alone into its own shared library — seconds per file, where a source that
+includes PyTorch's headers takes minutes.  All missing libraries are built
+at first use, one ``nvcc`` per source, all started together, into
+``build/repro_torch_ext/`` at the repository root (listed in
+``.gitignore``).  A library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and a stale one never loaded.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
+
+#: library name -> source file under csrc/
+SOURCES = {
+    "fused_aggregate": "fused_aggregate.cu",
+    "fsvrg_update": "fsvrg_update.cu",
+}
+
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+#: C signatures of the launchers (all return int = cudaError_t)
+SIGNATURES = {
+    "fused_aggregate": ("fused_aggregate_launch",
+                        [_P, _I, _P, _P, _P, _P, _F, _P, _P, _L, _L, _L, _I,
+                         _P]),
+    "fsvrg_update": ("fsvrg_update_launch",
+                     [_P, _P, _P, _P, _P, _I, _P, _F, _P, _L, _L, _L, _L, _L,
+                      _L, _P]),
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler PyTorch would use (``CUDA_HOME``), else ``nvcc`` on
+    the ``PATH``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{tag}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Build every library that is missing, all ``nvcc`` runs at once.
+
+    Returns the seconds each build took (0.0 for one already built).  The
+    compiler's ``-Xptxas=-v`` report (registers, spills) is kept beside each
+    library as ``<library>.log``.  Raises with the compiler's output if a
+    build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in SOURCES if not library_path(n).exists()]
+    seconds = {n: 0.0 for n in SOURCES}
+    if not todo:
+        return seconds
+    nvcc = nvcc_path()
+    procs: List = []
+    t0 = time.perf_counter()
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failures = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_bytes(log)
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n"
+                            f"{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for ``name``'s library ('' if not built here)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text(errors="replace") if log.exists() else ""
+
+
+def launcher(name: str):
+    """The C launcher of library ``name``, built and loaded on first use."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(library_path(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = lib
+    return getattr(lib, SIGNATURES[name][0])
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")

@@ -1,0 +1,77 @@
+"""The one door to the port's kernels, dispatching on the tensors' device.
+
+A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA tensor
+goes to the hand-written Hopper kernel, which raises on what it does not
+take — there is no fallback from the card to the plain version.  Each
+kernel counts its launches (:func:`launch_counts`), so a run can show that
+its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+from repro_torch.kernels import fsvrg_update as _fu
+from repro_torch.kernels import ref
+from repro_torch.kernels import scaled_aggregate as _sa
+
+Scalar = Union[float, torch.Tensor]
+
+#: kernel name -> the CUDA wrapper that carries its ``launches`` count
+KERNELS = {
+    "fused_aggregate": _sa.fused_aggregate,
+    "fsvrg_update": _fu.fsvrg_update,
+}
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far in this process, by kernel."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def fsvrg_update(w: torch.Tensor, s: torch.Tensor, g_new: torch.Tensor,
+                 g_old: torch.Tensor, g_bar: torch.Tensor, h: Scalar, *,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if _on_cpu(w):
+        return ref.fsvrg_update_ref(w, s, g_new, g_old, g_bar, h, out=out)
+    return _fu.fsvrg_update(w, s, g_new, g_old, g_bar, h, out=out)
+
+
+def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
+                    weights: torch.Tensor, a_diag: torch.Tensor,
+                    scale: Scalar = 1.0) -> torch.Tensor:
+    if _on_cpu(deltas):
+        return ref.fused_aggregate_ref(w_t, deltas, weights, a_diag, scale)
+    return _sa.fused_aggregate(w_t, deltas, weights, a_diag, scale)
+
+
+def fused_accumulate(acc: torch.Tensor, deltas: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(deltas):
+        return ref.fused_accumulate_ref(acc, deltas, weights)
+    return _sa.fused_accumulate(acc, deltas, weights)
+
+
+def fused_epilogue(w_t: torch.Tensor, acc: torch.Tensor, a_diag: torch.Tensor,
+                   scale: Scalar = 1.0) -> torch.Tensor:
+    if _on_cpu(acc):
+        return ref.fused_epilogue_ref(w_t, acc, a_diag, scale)
+    return _sa.fused_epilogue(w_t, acc, a_diag, scale)
+
+
+def scaled_aggregate(w_t: torch.Tensor, w_ks: torch.Tensor,
+                     weights: torch.Tensor,
+                     a_diag: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(w_ks):
+        return ref.scaled_aggregate_ref(w_t, w_ks, weights, a_diag)
+    return _sa.scaled_aggregate(w_t, w_ks, weights, a_diag)

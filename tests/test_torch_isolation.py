@@ -1,0 +1,71 @@
+"""The port stands alone, and runs on the card unless asked not to.
+
+``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
+reference package — the machine with the card has no JAX — and every
+entry point raises without CUDA unless the caller passes ``device="cpu"``.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_logreg_config  # noqa: E402
+from repro_torch.core import build_problem, make_solver  # noqa: E402
+from repro_torch.data import generate  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = _port_files()
+    assert len(files) > 15 and all(f.exists() for f in files)
+    bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
+           for f in files for line, root in _imported_roots(f)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
+    cfg = get_logreg_config().scaled(0.001)
+    ds = generate(cfg, 0, device="cpu")
+    prob = build_problem(ds, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_problem(ds)
+    for name in ("fsvrg", "gd"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_solver(name, prob)
+        assert make_solver(name, prob, device="cpu").device.type == "cpu"
+
+
+def test_only_cpu_and_cuda_devices():
+    prob = build_problem(generate(get_logreg_config().scaled(0.001), 0,
+                                  device="cpu"), device="cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        make_solver("gd", prob, device="meta")

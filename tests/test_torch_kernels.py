@@ -1,0 +1,195 @@
+"""The port's kernels against the reference's kernels.
+
+On the CPU, ``repro_torch.kernels.ops`` runs each kernel's plain PyTorch
+version; it is held against the reference's jnp oracle
+(``repro.kernels.ref``) and its Pallas kernel in interpret mode
+(``repro.kernels.ops``) on the same numpy inputs, at the sizes and
+tolerances of ``tests/test_kernel_parity.py``.  The CUDA kernels themselves
+are held against the plain versions on the card by ``test_torch_cuda.py``
+and ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import fsvrg_update as cuda_fsvrg_update  # noqa: E402
+from repro_torch.kernels import scaled_aggregate as cuda_aggregate  # noqa: E402
+
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    # test_kernel_parity.py's _tol: the f32 / bf16 rounding of the result
+    return 1e-6 if name == "f32" else 0.05
+
+
+def _both(x, name):
+    """One numpy array as a jnp and a torch array of the same dtype (bf16
+    rounds to nearest even in both)."""
+    jdt, tdt = DTYPES[name]
+    return jnp.asarray(x, jdt), torch.tensor(x).to(tdt)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 127, 999, 1000])
+def test_fsvrg_update_matches_reference(d, dtype):
+    rng = np.random.default_rng(d)
+    arrs = [rng.standard_normal(d).astype(np.float32) for _ in range(5)]
+    j, t = zip(*[_both(a, dtype) for a in arrs])
+    h = 0.7
+    out = ops.fsvrg_update(*t, h)
+    assert out.dtype == DTYPES[dtype][1] and out.shape == (d,)
+    tol = _tol(dtype)
+    for expect in (jref.fsvrg_update_ref(*j, h), jops.fsvrg_update(*j, h)):
+        np.testing.assert_allclose(_f32(out), _f32(expect), rtol=tol,
+                                   atol=tol * 10)
+
+
+def test_fsvrg_update_batched_and_broadcast_forms():
+    """(R, d) rows with per-row h, and g_old / ḡ / S as shared (d,) rows,
+    equal a row-by-row loop over the reference's 1-D oracle."""
+    R, d = 6, 257
+    rng = np.random.default_rng(7)
+    w, s, gn, go, gb = (rng.standard_normal((R, d)).astype(np.float32)
+                        for _ in range(5))
+    h = rng.uniform(0.1, 1.0, R).astype(np.float32)
+    T = torch.tensor
+    for s_row, go_row, gb_row in [(False, False, False), (False, True, True),
+                                  (True, True, False)]:
+        s_in = s[0] if s_row else s
+        go_in = go[0] if go_row else go
+        gb_in = gb[0] if gb_row else gb
+        out = ops.fsvrg_update(T(w), T(s_in), T(gn), T(go_in), T(gb_in), T(h))
+        for r in range(R):
+            pick = lambda a, shared: a if shared else a[r]
+            expect = jref.fsvrg_update_ref(
+                jnp.asarray(w[r]), jnp.asarray(pick(s_in, s_row)),
+                jnp.asarray(gn[r]), jnp.asarray(pick(go_in, go_row)),
+                jnp.asarray(pick(gb_in, gb_row)), float(h[r]))
+            np.testing.assert_allclose(out[r].numpy(), np.asarray(expect),
+                                       rtol=1e-6, atol=1e-5)
+    # a scalar h on a batch is the same h on every row
+    out = ops.fsvrg_update(T(w), T(s), T(gn), T(go), T(gb), 0.3)
+    rows = torch.stack([ops.fsvrg_update(T(w[r]), T(s[r]), T(gn[r]), T(go[r]),
+                                         T(gb[r]), 0.3) for r in range(R)])
+    torch.testing.assert_close(out, rows, rtol=0, atol=0)
+
+
+def test_fsvrg_update_zero_h_rows_are_exact_noops():
+    """h = 0 leaves a row bit for bit as it was — how the client pass
+    masks padded permutation slots — and ``out=w`` updates in place."""
+    R, d = 5, 1000
+    rng = np.random.default_rng(3)
+    w, s, gn, gb = (torch.tensor(rng.standard_normal((R, d)),
+                                 dtype=torch.float32) for _ in range(4))
+    h = torch.tensor([0.0, 0.5, 0.0, 0.25, 0.0])
+    w0 = w.clone()
+    out = ops.fsvrg_update(w, s, gn, torch.zeros(d), gb, h, out=w)
+    assert out is w
+    for r in (0, 2, 4):
+        assert torch.equal(w[r], w0[r])
+    for r in (1, 3):
+        assert not torch.equal(w[r], w0[r])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 127, 999, 1000])
+@pytest.mark.parametrize("K", [1, 8, 9, 33])
+def test_fused_aggregate_matches_reference(K, d, dtype):
+    rng = np.random.default_rng(K * 1000 + d)
+    wt = rng.standard_normal(d).astype(np.float32)
+    deltas = rng.standard_normal((K, d)).astype(np.float32)
+    wts = rng.dirichlet(np.ones(K)).astype(np.float32)
+    a = (np.abs(rng.standard_normal(d)) + 0.5).astype(np.float32)
+    scale = 1.3
+    jd, td = _both(deltas, dtype)
+    out = ops.fused_aggregate(torch.tensor(wt), td, torch.tensor(wts),
+                              torch.tensor(a), scale)
+    assert out.dtype == torch.float32 and out.shape == (d,)
+    tol = 1e-5 if dtype == "f32" else 0.05     # test_kernel_parity.py's
+    args = (jnp.asarray(wt), jd, jnp.asarray(wts), jnp.asarray(a), scale)
+    for expect in (jref.fused_aggregate_ref(*args), jops.fused_aggregate(*args)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_aggregate_wrappers_match_reference(dtype):
+    """fused_accumulate, fused_epilogue and scaled_aggregate — the thin
+    wrappers over the same kernel — against the reference's."""
+    K, d = 9, 999
+    rng = np.random.default_rng(11)
+    acc = rng.standard_normal(d).astype(np.float32)
+    deltas = rng.standard_normal((K, d)).astype(np.float32)
+    wts = rng.dirichlet(np.ones(K)).astype(np.float32)
+    a = (np.abs(rng.standard_normal(d)) + 0.5).astype(np.float32)
+    tol = 1e-5 if dtype == "f32" else 0.05
+    jd, td = _both(deltas, dtype)
+    T, J = torch.tensor, jnp.asarray
+    cases = [
+        (ops.fused_accumulate(T(acc), td, T(wts)),
+         (jref.fused_accumulate_ref(J(acc), jd, J(wts)),
+          jops.fused_accumulate(J(acc), jd, J(wts)))),
+        (ops.fused_epilogue(T(acc), T(deltas[0]), T(a), 0.8),
+         (jref.fused_epilogue_ref(J(acc), J(deltas[0]), J(a), 0.8),
+          jops.fused_epilogue(J(acc), J(deltas[0]), J(a), 0.8))),
+        (ops.scaled_aggregate(T(acc), td, T(wts), T(a)),
+         (jref.scaled_aggregate_ref(J(acc), jd, J(wts), J(a)),
+          jops.scaled_aggregate(J(acc), jd, J(wts), J(a)))),
+    ]
+    for out, expects in cases:
+        for expect in expects:
+            np.testing.assert_allclose(out.numpy(), np.asarray(expect),
+                                       rtol=tol, atol=tol)
+
+
+def test_plain_versions_are_what_ops_runs_on_cpu():
+    """On the CPU ops is the plain version exactly, and counts no launch."""
+    rng = np.random.default_rng(5)
+    x = [torch.tensor(rng.standard_normal((4, 33)), dtype=torch.float32)
+         for _ in range(3)]
+    wts = torch.tensor(rng.dirichlet(np.ones(4)), dtype=torch.float32)
+    before = ops.launch_counts()
+    assert torch.equal(ops.fused_aggregate(x[0][0], x[1], wts, x[2][0], 0.5),
+                       ref.fused_aggregate_ref(x[0][0], x[1], wts, x[2][0],
+                                               0.5))
+    assert torch.equal(
+        ops.fsvrg_update(x[0], x[1], x[2], x[0][0], x[1][0], wts),
+        ref.fsvrg_update_ref(x[0], x[1], x[2], x[0][0], x[1][0], wts))
+    assert ops.launch_counts() == before
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers take CUDA tensors only: ops, not the wrappers,
+    decides that a CPU tensor goes to the plain version."""
+    v = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_aggregate.fused_aggregate(v, v[None], torch.ones(1), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fsvrg_update.fsvrg_update(v, v, v, v, v, 0.5)
+
+
+def test_aggregate_splits_fill_the_card_at_paper_shape():
+    """At the paper's K = 10,000, d = 20,002 the K axis is cut so that
+    several hundred blocks are in flight; small K is never over-cut."""
+    splits = cuda_aggregate.splits_for(10_000, 20_002)
+    blocks = splits * -(-20_002 // cuda_aggregate.COLS)
+    assert 500 <= blocks <= 2 * cuda_aggregate.TARGET_BLOCKS
+    assert cuda_aggregate.splits_for(1, 20_002) == 1
+    assert cuda_aggregate.splits_for(33, 1) == 2
+    for K, d in [(9, 999), (10_000, 20_002), (6_478, 20_002), (1, 1)]:
+        s = cuda_aggregate.splits_for(K, d)
+        rows = -(-K // s)
+        assert (s - 1) * rows < K <= s * rows      # no empty split
