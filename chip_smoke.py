@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path on one CUDA card and check it.
+"""Run the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,24 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. record the machine: torch and CUDA versions, ``nvcc --version``, whether
    ``import triton`` works, the card's name and power limit;
-2. build the kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, all at once) and print the build seconds and register report;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged small ones, with the stated tolerance;
-4. run the main path at the paper's full width — ``generate`` of the §4
-   config (K = 10,000 clients, d = 20,002 features, n = 2,166,693
-   examples) → ``build_problem`` → ``make_solver("fsvrg",
-   aggregator="pallas")`` → ``Trainer`` for 3 rounds — with the launch
-   counts set to 0 just before and read just after; then the same FSVRG on
-   a small problem on the card and on the CPU (plain versions) with the
-   same data and draws, which must agree;
+2. build the five kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all at once) and print the build seconds and each
+   library's register and spill report;
+3. hold each kernel, and the three aggregation wrappers, against its plain
+   PyTorch version on the card, at the main paths' shapes and at ragged
+   small ones, with the stated tolerance;
+4. run the four solvers of Fig. 2 that the port has kernels for at the
+   paper's full width — ``generate`` of the §4 config (K = 10,000 clients,
+   d = 20,002 features, n = 2,166,693 examples) and ``build_problem`` once,
+   then ``make_solver("fsvrg" | "fedavg" | "dane" | "cocoa",
+   aggregator="pallas")`` → ``Trainer`` for 3 rounds each — with the launch
+   counts set to 0 just before each solver and read just after; then each
+   solver on a small problem on the card and on the CPU (plain versions)
+   with the same data and draws, which must agree;
 5. time each kernel, its plain version and a PyTorch yardstick with CUDA
-   events at the main path's shapes, beside the bound (the least time the
-   card could take), and break one full-width round into its parts;
+   events at the main paths' shapes, beside the bound (the least time the
+   card could take), break one full-width round of each solver into its
+   parts, and trace one round of each solver for the device's idle share;
 6. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -43,11 +47,24 @@ F32_FLOP_PER_S = 67e12
 TPU_KERNELS = {
     "fused_aggregate": "src/repro/kernels/scaled_aggregate.py:66",
     "fsvrg_update": "src/repro/kernels/fsvrg_update.py:36",
+    "fedavg_update": "src/repro/kernels/fedavg_update.py:39",
+    "dane_update": "src/repro/kernels/dane_update.py:51",
+    "cocoa_sdca_update": "src/repro/kernels/cocoa_sdca.py:55",
 }
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "fused_aggregate": "src/repro_torch/kernels/csrc/fused_aggregate.cu",
-    "fsvrg_update": "src/repro_torch/kernels/csrc/fsvrg_update.cu",
+    "fused_aggregate": CSRC + "fused_aggregate.cu",
+    "fsvrg_update": CSRC + "fsvrg_update.cu",
+    "fedavg_update": CSRC + "fedavg_update.cu",
+    "dane_update": CSRC + "dane_update.cu",
+    "cocoa_sdca_update": CSRC + "cocoa_sdca.cu",
 }
+#: solver -> the local-step kernel its client pass launches
+STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
+               "dane": "dane_update", "cocoa": "cocoa_sdca_update"}
+# about 20 f32 operations a Newton step (log and divisions counted as one)
+# and 5 for the start: the SDCA solve's work per coordinate at 12 steps
+SDCA_OPS_PER_COORD = 5 + 12 * 20
 
 
 def require(cond: bool, msg: str) -> None:
@@ -72,14 +89,19 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_logreg_config
-    from repro_torch.core import (FSVRG, FSVRGConfig, Trainer, build_problem,
-                                  make_solver)
+    from repro_torch.core import (DANE, FSVRG, CoCoAPlus, FedAvg, Trainer,
+                                  build_problem, make_solver)
+    from repro_torch.core.problem import LogRegProblem
     from repro_torch.data import generate
     from repro_torch.kernels import _build, ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 yardsticks
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
+    t_start = time.perf_counter()
+
+    def phase(name):
+        log(f"[phase] {name} at {time.perf_counter() - t_start:.1f} s")
 
     # -- 1. the machine ---------------------------------------------------- #
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -96,16 +118,20 @@ def main() -> int:
     log(f"[machine] card: {smi}  (device_count {torch.cuda.device_count()})")
 
     # -- 2. build ---------------------------------------------------------- #
+    phase("build")
     t0 = time.perf_counter()
     seconds = _build.build_all()
-    log(f"[build] {time.perf_counter() - t0:.2f} s in all; per library "
+    log(f"[build] {len(seconds)} libraries, {time.perf_counter() - t0:.2f} s "
+        "in all; per library "
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    require(len(seconds) == len(SOURCES), "not every kernel was built")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions --------------------------- #
+    phase("checks")
     g = torch.Generator(device=dev).manual_seed(SEED)
     max_err = {}
 
@@ -118,28 +144,50 @@ def main() -> int:
         require(bool((err <= bound).all()), f"{name} {label} disagrees")
         return worst
 
+    def randn(shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(dt)
+
+    def rand(shape):
+        return torch.rand(shape, device=dev, generator=g)
+
     K, d = 10_000, 20_002
+    R = 6_478                            # the largest bucket's clients
     # summation order: the kernel adds K in splits of fused multiply-adds,
     # the plain version reduces in torch's order
     for KK, dd, dt in [(K, d, torch.float32), (33, 999, torch.float32),
                        (K, d, torch.bfloat16)]:
-        deltas = (torch.randn((KK, dd), device=dev, generator=g) * 0.01).to(dt)
-        wts = torch.rand(KK, device=dev, generator=g)
+        deltas = randn((KK, dd), dt, 0.01)
+        wts = rand(KK)
         wts /= wts.sum()
-        w_t = torch.randn(dd, device=dev, generator=g)
-        a = torch.rand(dd, device=dev, generator=g) * 3 + 1
+        w_t = randn(dd)
+        a = rand(dd) * 3 + 1
         s = torch.tensor(1.25, device=dev)
-        err = compare("fused_aggregate", f"K={KK} d={dd} {dt}",
+        label = f"K={KK} d={dd} {dt}"
+        err = compare("fused_aggregate", label,
                       ops.fused_aggregate(w_t, deltas, wts, a, s),
                       ref.fused_aggregate_ref(w_t, deltas, wts, a, s),
                       1e-5, 1e-6)
         if (KK, dd, dt) == (K, d, torch.float32):
             max_err["fused_aggregate"] = err
+        if dt == torch.float32:
+            # the three wrappers over the same kernel
+            acc = randn(dd)
+            compare("fused_accumulate", label,
+                    ops.fused_accumulate(acc, deltas, wts),
+                    ref.fused_accumulate_ref(acc, deltas, wts), 1e-5, 1e-6)
+            compare("fused_epilogue", f"d={dd}",
+                    ops.fused_epilogue(w_t, acc, a, 0.8),
+                    ref.fused_epilogue_ref(w_t, acc, a, 0.8), 1e-6, 1e-6)
+            w_ks = deltas + w_t
+            # w_k − w^t re-rounds each delta at the scale of |w^t| ~ 4
+            compare("scaled_aggregate", label,
+                    ops.scaled_aggregate(w_t, w_ks, wts, a),
+                    ref.scaled_aggregate_ref(w_t, w_ks, wts, a), 1e-5, 1e-5)
+            del w_ks
         del deltas
-    # FMA contraction in the kernel vs separate roundings in the plain
-    # version: a few ulp of the f32 operands (|S·diff| reaches ~20); bf16
+    # FMA contraction in the kernels vs separate roundings in the plain
+    # versions: a few ulp of the f32 operands (|S·diff| reaches ~20); bf16
     # outputs may round apart by one bf16 ulp (2^-8 relative)
-    R = 6_478                            # the largest bucket's clients
     for label, shape, shared, dt, tol in [
             ("1-D d=20002 scalar h", (d,), False, torch.float32, 1e-5),
             ("batched R=6478 per-row h", (R, d), False, torch.float32, 1e-5),
@@ -147,13 +195,10 @@ def main() -> int:
              torch.float32, 1e-5),
             ("broadcast R=33 d=999 bf16", (33, 999), True, torch.bfloat16,
              1e-2)]:
-        w, S, gn = (torch.randn(shape, device=dev, generator=g).to(dt)
-                    for _ in range(3))
+        w, S, gn = (randn(shape, dt) for _ in range(3))
         row = shape[-1:] if shared else shape
-        go, gb = (torch.randn(row, device=dev, generator=g).to(dt)
-                  for _ in range(2))
-        h = (torch.rand(shape[0], device=dev, generator=g) if len(shape) == 2
-             else 0.37)
+        go, gb = (randn(row, dt) for _ in range(2))
+        h = rand(shape[0]) if len(shape) == 2 else 0.37
         if len(shape) == 2:
             h[::5] = 0.0                 # masked slots are exact no-ops
         got = ops.fsvrg_update(w, S, gn, go, gb, h)
@@ -164,9 +209,59 @@ def main() -> int:
         if label.startswith("broadcast R=6478"):
             max_err["fsvrg_update"] = err
         del w, S, gn, got
+    # FedAvg's and DANE's steps: per-row h = valid·h with h = 0 rows (the
+    # padded slots), DANE's w^t one shared row, as on the main paths
+    lam = 1.0 / 2_166_693
+    for label, shape, dt, tol in [
+            ("R=6478 d=20002 per-row h (main-path form)", (R, d),
+             torch.float32, 1e-5),
+            ("1-D d=20002 scalar h", (d,), torch.float32, 1e-5),
+            ("R=33 d=999 bf16", (33, 999), torch.bfloat16, 1e-2)]:
+        w, gr, a = (randn(shape, dt) for _ in range(3))
+        w_t = randn(shape[-1:], dt)
+        if len(shape) == 2:
+            h = rand(shape[0]) * 0.1
+            h[::5] = 0.0
+        else:
+            h = 0.1
+        got = ops.fedavg_update(w, gr, h, lam)
+        err = compare("fedavg_update", label, got,
+                      ref.fedavg_update_ref(w, gr, h, lam), tol, tol)
+        if len(shape) == 2:
+            require(torch.equal(got[::5], w[::5]), "h = 0 rows changed")
+            if dt == torch.float32:
+                max_err["fedavg_update"] = err
+        del got
+        got = ops.dane_update(w, gr, a, w_t, 0.3, lam, 3.0)
+        err = compare("dane_update", label.replace(" per-row h", "")
+                      .replace(" scalar h", ""), got,
+                      ref.dane_update_ref(w, gr, a, w_t, 0.3, lam, 3.0),
+                      tol, tol)
+        if len(shape) == 2 and dt == torch.float32:
+            max_err["dane_update"] = err
+        del w, gr, a, got
+    # the SDCA solve: the main path's margins reach |m| ~ 10 and its
+    # curvature c = σ′||x||²/(2λn) ~ 10⁴; padding slots are a fixed point
+    for n_coord, dt, tol in [(R, torch.float32, 1e-5), (1, torch.float32, 1e-5),
+                             (127, torch.float32, 1e-5),
+                             (127, torch.bfloat16, 1e-2)]:
+        b0 = (rand(n_coord) * (1 - 2e-6) + 1e-6).to(dt)
+        m = randn(n_coord, dt, 10.0)
+        c = (rand(n_coord) * 2e4).to(dt)
+        c[::4] = 0.0
+        err = compare("cocoa_sdca_update", f"N={n_coord} {dt}",
+                      ops.cocoa_sdca_update(b0, m, c),
+                      ref.cocoa_sdca_update_ref(b0, m, c), tol, tol)
+        if n_coord == R:
+            max_err["cocoa_sdca_update"] = err
+        pad = torch.full((n_coord,), 0.5, device=dev, dtype=dt)
+        zero = torch.zeros_like(pad)
+        require(torch.equal(ops.cocoa_sdca_update(pad, zero, zero), pad),
+                "padding slots moved")
     torch.cuda.empty_cache()
 
-    # -- 4. the main path at full width ------------------------------------ #
+    # -- 4. the main paths at full width ----------------------------------- #
+    phase("main paths")
     cfg = get_logreg_config()
     log(f"[main] config {cfg.name}: K={cfg.num_clients} d={cfg.num_features}"
         f" n={cfg.num_examples} nnz={cfg.nnz_per_example}")
@@ -180,89 +275,149 @@ def main() -> int:
     sync()
     t_build = time.perf_counter() - t0
     m_pads = [b.m_pad for b in prob.buckets]
+    steps = sum(m_pads)
     log(f"[main] generate {t_gen:.2f} s ({ds.num_examples} train rows);"
         f" build_problem {t_build:.2f} s: {len(prob.buckets)} buckets,"
         " Kb×m_pad " + ", ".join(f"{b.num_clients}×{b.m_pad}"
                                   for b in prob.buckets)
-        + f"; Σ m_pad {sum(m_pads)}")
-    t0 = time.perf_counter()
-    solver = make_solver("fsvrg", prob, aggregator="pallas")
-    sync()
-    log(f"[main] make_solver {time.perf_counter() - t0:.2f} s")
+        + f"; Σ m_pad {steps}")
     f0 = float(prob.flat.loss(torch.zeros(prob.d, device=dev)))
 
-    eval_s, round_end = [], [0.0]
+    def local_steps(name, solver):
+        """Batched local steps (= launches of the step kernel) a round."""
+        if name == "fedavg":
+            return solver.cfg.local_epochs * steps
+        if name == "dane":
+            return solver.cfg.local_steps * len(prob.buckets)
+        return steps
 
-    def eval_fn(w):
+    # the prelude's full gradients, counted where they are computed
+    grads = [0]
+    plain_grad = LogRegProblem.grad
+
+    def counted_grad(self, w):
+        grads[0] += 1
+        return plain_grad(self, w)
+
+    LogRegProblem.grad = counted_grad
+    runs = {}
+    for name in STEP_KERNEL:
+        t0 = time.perf_counter()
+        solver = make_solver(name, prob, aggregator="pallas")
         sync()
-        t = time.perf_counter()
-        f = float(prob.flat.loss(w))
-        eval_s.append(time.perf_counter() - t)
-        return {"f": f}
+        t_make = time.perf_counter() - t0
+        eval_s, round_s, round_end = [], [], [0.0]
 
-    round_s = []
+        def eval_fn(w):
+            sync()
+            t = time.perf_counter()
+            f = float(prob.flat.loss(w))
+            eval_s.append(time.perf_counter() - t)
+            return {"f": f}
 
-    def callback(state, r):
+        def callback(state, r):
+            sync()
+            now = time.perf_counter()
+            round_s.append(now - round_end[0] - eval_s[-1])
+            round_end[0] = now
+
+        torch.cuda.reset_peak_memory_stats()
         sync()
-        now = time.perf_counter()
-        round_s.append(now - round_end[0] - eval_s[-1])
-        round_end[0] = now
+        grads[0] = 0
+        ops.reset_launch_counts()
+        round_end[0] = time.perf_counter()
+        res = Trainer(solver, rounds=ROUNDS, seed=SEED, eval_fn=eval_fn,
+                      callback=callback).fit()
+        sync()
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hist = [h["f"] for h in res.history]
+        runs[name] = dict(solver=solver, res=res, launches=launches,
+                          round_s=round_s, eval_s=eval_s)
+        kernel = STEP_KERNEL[name]
+        expected = ROUNDS * local_steps(name, solver)
+        log(f"[main] {name}: make_solver {t_make:.2f} s; loss: round 0 "
+            f"{f0:.6f} -> " + " -> ".join(f"{f:.6f}" for f in hist))
+        log(f"[main] {name}: seconds per round " + ", ".join(
+            f"{s:.3f}" for s in round_s) + f"; peak device memory "
+            f"{peak_gb:.2f} GB; full gradients {grads[0]}")
+        log(f"[main] {name}: launches {launches} (expected {kernel} "
+            f"{expected}, fused_aggregate {ROUNDS})")
+        require(all(f == f and abs(f) != float("inf") for f in hist),
+                f"{name}: non-finite loss")
+        if name in ("fsvrg", "fedavg"):
+            require(all(f < f0 for f in hist),
+                    f"{name}: the loss did not fall below round 0's")
+        elif name == "cocoa":
+            # CoCoA+ ascends the dual; its primal loss is not monotone with
+            # σ′ = K here (the reference's own loss rises after round 1 at
+            # K = 100 and 200 too), so the check is the first round's fall
+            # and the primal–dual invariant w = (1/λn) Σ_k X_k α_k
+            require(hist[0] < f0, "cocoa: round 1 did not lower the loss")
+            w_dual = torch.zeros(prob.d, dtype=torch.float64, device=dev)
+            for b, alpha in zip(prob.buckets, res.state.aux):
+                w_dual.index_add_(0, b.idx.reshape(-1), (
+                    b.val.double() * alpha.double()[..., None]).reshape(-1))
+            w_dual /= prob.flat.lam * prob.flat.n
+            err = float((res.w.double() - w_dual).abs().max())
+            scale = float(w_dual.abs().max())
+            log(f"[main] cocoa: w vs (1/λn) Σ_k X_k α_k (f64): max_abs_err "
+                f"{err:.3e}, max |w| {scale:.3e} (tolerance 1e-4·max|w|: "
+                "f32 sums over 3 rounds)")
+            require(err <= 1e-4 * scale,
+                    "cocoa: w drifted from (1/λn) Σ_k X_k α_k")
+        # DANE's losses are logged, not held: the paper reports it
+        # converging poorly on this data
+        require(res.w.shape == (prob.d,)
+                and bool(torch.isfinite(res.w).all()), f"{name}: bad iterate")
+        require(launches[kernel] == expected,
+                f"{name}: {kernel} was not launched once per local step")
+        require(launches["fused_aggregate"] == ROUNDS,
+                f"{name}: fused_aggregate was not launched once per round")
+        require(all(v == 0 for k, v in launches.items()
+                    if k not in (kernel, "fused_aggregate")),
+                f"{name}: launched another solver's kernel")
+        require(grads[0] == (ROUNDS if name in ("fsvrg", "dane") else 0),
+                f"{name}: not one full gradient per round")
+    LogRegProblem.grad = plain_grad
 
-    torch.cuda.reset_peak_memory_stats()
-    sync()
-    ops.reset_launch_counts()
-    round_end[0] = time.perf_counter()
-    res = Trainer(solver, rounds=ROUNDS, seed=SEED, eval_fn=eval_fn,
-                  callback=callback).fit()
-    sync()
-    launches = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    hist = [h["f"] for h in res.history]
-    log(f"[main] loss: round 0 {f0:.6f} -> " + " -> ".join(
-        f"{f:.6f}" for f in hist))
-    log("[main] seconds per round: " + ", ".join(f"{s:.3f}" for s in round_s)
-        + f"; peak device memory {peak_gb:.2f} GB")
-    log(f"[main] launches: {launches} (expected fsvrg_update "
-        f"{ROUNDS}×Σ m_pad = {ROUNDS * sum(m_pads)}, fused_aggregate {ROUNDS})")
-    require(all(f == f and abs(f) != float("inf") for f in hist),
-            "non-finite loss")
-    require(hist[-1] < f0 and all(f < f0 for f in hist),
-            "the loss did not fall below round 0's")
-    require(res.w.shape == (prob.d,) and bool(torch.isfinite(res.w).all()),
-            "bad iterate")
-    require(launches["fsvrg_update"] == ROUNDS * sum(m_pads),
-            "fsvrg_update was not launched once per local step")
-    require(launches["fused_aggregate"] == ROUNDS,
-            "fused_aggregate was not launched once per round")
+    # each solver on a small problem, kernels on the card vs plain versions
+    # on the CPU, same data and the same permutations (drawn on the CPU
+    # from one generator per round and bucket)
+    def shared_draws(cls):
+        class SharedDraws(cls):
+            def round(self, state, gen):
+                self._r = state.round
+                return super().round(state, gen)
 
-    # the same FSVRG on a small problem, kernels on the card vs plain
-    # versions on the CPU, same data and same permutations (drawn on the
-    # CPU from one generator per round and bucket)
-    class SharedDraws(FSVRG):
-        def round(self, state, gen):
-            self._r = state.round
-            return super().round(state, gen)
+            def permutations(self, gen, bucket_index, bucket):
+                cpu = torch.Generator().manual_seed(1000 * self._r
+                                                    + bucket_index)
+                return super().permutations(cpu, bucket_index, bucket)
+        return SharedDraws
 
-        def permutations(self, gen, bucket_index, bucket):
-            cpu = torch.Generator().manual_seed(1000 * self._r + bucket_index)
-            u = torch.rand((bucket.num_clients, bucket.m_pad), generator=cpu)
-            return torch.argsort(u, dim=1).to(bucket.idx.device)
-
+    classes = {"fsvrg": shared_draws(FSVRG), "fedavg": shared_draws(FedAvg),
+               "dane": DANE, "cocoa": shared_draws(CoCoAPlus)}
     small = generate(get_logreg_config().scaled(0.002), seed=SEED,
                      device="cpu")
-    ws = []
-    for device in ("cpu", "cuda"):
-        p = build_problem(small, device=device)
-        sv = SharedDraws(p, FSVRGConfig(aggregator="pallas"), device=device)
-        ws.append(Trainer(sv, rounds=ROUNDS, seed=SEED).fit().w.cpu())
-    scale = float(ws[0].abs().max())
-    err = float((ws[1] - ws[0]).abs().max())
-    log(f"[main] small problem (scale 0.002) card vs CPU after {ROUNDS} "
-        f"rounds: max_abs_err {err:.3e}, max |w| {scale:.3e} "
-        "(tolerance 1e-4·max|w|: summation order and FMA contraction)")
-    require(err <= 1e-4 * scale, "card and CPU runs disagree")
+    for name, cls in classes.items():
+        ws = []
+        for device in ("cpu", "cuda"):
+            p = build_problem(small, device=device)
+            cfg_s = make_solver(name, p, device=device,
+                                aggregator="pallas").cfg
+            sv = cls(p, cfg=cfg_s, device=device)
+            ws.append(Trainer(sv, rounds=ROUNDS, seed=SEED).fit().w.cpu())
+        scale = float(ws[0].abs().max())
+        err = float((ws[1] - ws[0]).abs().max())
+        log(f"[main] {name} small problem (scale 0.002) card vs CPU after "
+            f"{ROUNDS} rounds: max_abs_err {err:.3e}, max |w| {scale:.3e} "
+            "(tolerance 1e-4·max|w|: summation order and FMA contraction)")
+        require(err <= 1e-4 * scale, f"{name}: card and CPU runs disagree")
 
     # -- 5. timing ----------------------------------------------------------- #
+    phase("timing")
+
     def cuda_ms(fn, iters=20, warmup=3):
         for _ in range(warmup):
             fn()
@@ -282,113 +437,189 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
+    def row(name, kernel_fn, plain_fn, nbytes, flops, library_fn=None):
+        b_ms, b_by = bound(nbytes, flops)
+        return dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=TPU_KERNELS[name],
+            # over the four main-path runs (fused_aggregate runs in each)
+            launches=sum(r["launches"][name] for r in runs.values()),
+            max_abs_err=max_err[name], ms=cuda_ms(kernel_fn),
+            plain_ms=cuda_ms(plain_fn), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if library_fn is None else cuda_ms(library_fn))
+
+    def report(r):
+        lib = r["library_ms"]
+        log(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            + ("null" if lib is None else f"{lib:.4f} ms")
+            + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+
+    # one full-width round of each solver, in parts: the prelude (the full
+    # gradient, FSVRG and DANE), each bucket's client pass, aggregation
+    K, d = prob.num_clients, prob.d
+    for name, run_ in runs.items():
+        solver, res = run_["solver"], run_["res"]
+        w = res.w
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        sync()
+        t = time.perf_counter()
+        ctx = (prob.flat.grad(w),) if name in ("fsvrg", "dane") else ()
+        sync()
+        prelude_s = time.perf_counter() - t
+        deltas = torch.empty((K, d), device=dev)
+        eng = solver.engine
+        pass_s = []
+        for bi, (wi, b) in enumerate(zip(eng._offsets, prob.buckets)):
+            out = deltas[wi:wi + b.num_clients]
+            sync()
+            t = time.perf_counter()
+            if name == "cocoa":
+                solver._pass(w, bi, b, res.state.aux[bi], gen, out)
+            else:
+                solver._pass(w, bi, b, gen, out, *ctx)
+            sync()
+            pass_s.append(time.perf_counter() - t)
+        sync()
+        t = time.perf_counter()
+        eng.aggregate(w, deltas)
+        sync()
+        agg_s = time.perf_counter() - t
+        if name == "fsvrg":
+            fsvrg_deltas = deltas      # timed below under fused_aggregate
+        del deltas
+        n_steps = local_steps(name, solver)
+        eval_s = run_["eval_s"]
+        log(f"[time] {name}: one full-width round, in parts: prelude "
+            f"{prelude_s:.4f} s, client passes {sum(pass_s):.3f} s over "
+            f"{n_steps} batched local steps ({sum(pass_s) / n_steps * 1e6:.1f}"
+            " µs a step; by bucket " + ", ".join(f"{s:.3f}" for s in pass_s)
+            + f" s), aggregation {agg_s:.4f} s, loss eval "
+            f"{sum(eval_s) / len(eval_s):.4f} s")
+        torch.cuda.empty_cache()
+
     rows = []
-    # fused_aggregate at the main path's shape: this run's own deltas
-    w = res.w
+    fsvrg = runs["fsvrg"]["solver"]
+    w = runs["fsvrg"]["res"].w
     fg = prob.flat.grad(w)
-    deltas = torch.empty((prob.num_clients, prob.d), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    eng = solver.engine
+    eng = fsvrg.engine
+    # fused_aggregate at the main path's shape, over FSVRG's round's deltas
+    deltas = fsvrg_deltas
+    del fsvrg_deltas
     wts = torch.cat([eng.bucket_weights(wi, b.num_clients)
                      for wi, b in zip(eng._offsets, prob.buckets)])
-    sync()
-    pass_s = []
-    for bi, (wi, b) in enumerate(zip(eng._offsets, prob.buckets)):
-        t = time.perf_counter()
-        solver._pass(w, bi, b, gen, deltas[wi:wi + b.num_clients], fg)
-        sync()
-        pass_s.append(time.perf_counter() - t)
-    a = solver.a_diag
-    K, d = prob.num_clients, prob.d
-    nb, flops = (K * d * 4 + K * 4 + 3 * d * 4), 2 * K * d + 3 * d
-    b_ms, b_by = bound(nb, flops)
-    rows.append(dict(
-        name="fused_aggregate", route="cuda", source=SOURCES["fused_aggregate"],
-        replaces=TPU_KERNELS["fused_aggregate"],
-        launches=launches["fused_aggregate"],
-        max_abs_err=max_err["fused_aggregate"],
-        ms=cuda_ms(lambda: ops.fused_aggregate(w, deltas, wts, a, 1.0)),
-        plain_ms=cuda_ms(lambda: ref.fused_aggregate_ref(w, deltas, wts, a,
-                                                         1.0)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.addcmul(
-            w, a, torch.mv(deltas.t(), wts), value=1.0))))
-    t = time.perf_counter()
-    eng.aggregate(w, deltas)
-    sync()
-    agg_s = time.perf_counter() - t
+    a = fsvrg.a_diag
+    rows.append(row(
+        "fused_aggregate", lambda: ops.fused_aggregate(w, deltas, wts, a, 1.0),
+        lambda: ref.fused_aggregate_ref(w, deltas, wts, a, 1.0),
+        K * d * 4 + K * 4 + 3 * d * 4, 2 * K * d + 3 * d,
+        lambda: torch.addcmul(w, a, torch.mv(deltas.t(), wts), value=1.0)))
+    # the three wrappers of the same kernel (not kernels of their own, so
+    # not in the kernels line): kernel, plain, yardstick and bound
+    acc = fg.clone()
+    for name, k_fn, p_fn, nb, lib_fn in [
+            ("fused_accumulate",
+             lambda: ops.fused_accumulate(acc, deltas, wts),
+             lambda: ref.fused_accumulate_ref(acc, deltas, wts),
+             (K * d + 2 * d) * 4,
+             lambda: torch.addmv(acc, deltas.t(), wts)),
+            ("fused_epilogue",
+             lambda: ops.fused_epilogue(w, acc, a, 0.5),
+             lambda: ref.fused_epilogue_ref(w, acc, a, 0.5),
+             4 * d * 4,
+             lambda: torch.addcmul(w, a, acc, value=0.5)),
+            ("scaled_aggregate",
+             lambda: ops.scaled_aggregate(w, deltas, wts, a),
+             lambda: ref.scaled_aggregate_ref(w, deltas, wts, a),
+             (K * d + 3 * d) * 4, None)]:
+        b_ms, b_by = bound(nb, 0)
+        k_ms, p_ms = cuda_ms(k_fn, iters=10), cuda_ms(p_fn, iters=10)
+        l_ms = None if lib_fn is None else cuda_ms(lib_fn, iters=10)
+        log(f"[time] wrapper {name}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, library "
+            + ("null (no single call)" if l_ms is None else f"{l_ms:.4f} ms")
+            + f", bound {b_ms:.4f} ms ({b_by}); {b_ms / k_ms:.1%} of the "
+            "bound")
     del deltas
     torch.cuda.empty_cache()
 
-    # fsvrg_update in the main path's form at the largest bucket's shape
+    # the local steps at the largest bucket's shape, in the main paths' form
     big = max(range(len(prob.buckets)),
               key=lambda i: prob.buckets[i].num_clients)
     Kb = prob.buckets[big].num_clients
     wk = w.expand(Kb, d).contiguous()
-    S = solver.s_diags[big]
-    diff = torch.randn((Kb, d), device=dev, generator=g) * 1e-3
+    S = fsvrg.s_diags[big]
+    diff = randn((Kb, d), scale=1e-3)
     zero = torch.zeros(d, device=dev)
-    hk = solver.h_k[big] * 1e-3
-    nb = 16 * Kb * d + 2 * 4 * d + 4 * Kb
-    b_ms, b_by = bound(nb, 5 * Kb * d)
-    rows.append(dict(
-        name="fsvrg_update", route="cuda", source=SOURCES["fsvrg_update"],
-        replaces=TPU_KERNELS["fsvrg_update"],
-        launches=launches["fsvrg_update"],
-        max_abs_err=max_err["fsvrg_update"],
-        ms=cuda_ms(lambda: ops.fsvrg_update(wk, S, diff, zero, fg, hk,
-                                            out=wk)),
-        plain_ms=cuda_ms(lambda: ref.fsvrg_update_ref(wk, S, diff, zero, fg,
-                                                      hk, out=wk)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    hk = fsvrg.h_k[big] * 1e-3
+    rows.append(row(
+        "fsvrg_update",
+        lambda: ops.fsvrg_update(wk, S, diff, zero, fg, hk, out=wk),
+        lambda: ref.fsvrg_update_ref(wk, S, diff, zero, fg, hk, out=wk),
+        16 * Kb * d + 2 * 4 * d + 4 * Kb, 5 * Kb * d))
+    lam = prob.flat.lam
+    h_row = torch.full((Kb,), 1e-3, device=dev)
+    h_row[::5] = 0.0
+    rows.append(row(
+        "fedavg_update",
+        lambda: ops.fedavg_update(wk, diff, h_row, lam, out=wk),
+        lambda: ref.fedavg_update_ref(wk, diff, h_row, lam, out=wk),
+        12 * Kb * d + 4 * Kb, 3 * Kb * d))
+    a_k = randn((Kb, d), scale=1e-3)
+    dane_cfg = runs["dane"]["solver"].cfg
+    rows.append(row(
+        "dane_update",
+        lambda: ops.dane_update(wk, diff, a_k, w, 1e-3, lam, dane_cfg.mu,
+                                out=wk),
+        lambda: ref.dane_update_ref(wk, diff, a_k, w, 1e-3, lam, dane_cfg.mu,
+                                    out=wk),
+        16 * Kb * d + 4 * d, 7 * Kb * d))
+    del wk, diff, a_k
+    b0 = rand(Kb) * 0.9 + 0.05
+    m = randn(Kb, scale=3.0)
+    c = rand(Kb) * 1e4
+    rows.append(row(
+        "cocoa_sdca_update", lambda: ops.cocoa_sdca_update(b0, m, c),
+        lambda: ref.cocoa_sdca_update_ref(b0, m, c),
+        4 * 4 * Kb, SDCA_OPS_PER_COORD * Kb))
     for r in rows:
-        log(f"[time] {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library "
-            + ("n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
-            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-            f"{r['bound_ms'] / r['ms']:.1%} of the bound")
-
-    sync()
-    t = time.perf_counter()
-    prob.flat.grad(w)
-    sync()
-    prelude_s = time.perf_counter() - t
-    steps = sum(m_pads)
-    log("[time] one full-width round, in parts: prelude (full gradient) "
-        f"{prelude_s:.4f} s, client passes {sum(pass_s):.3f} s over {steps} "
-        f"local steps ({sum(pass_s) / steps * 1e6:.1f} µs a step; by bucket "
-        + ", ".join(f"{s:.3f}" for s in pass_s) + " s), aggregation "
-        f"{agg_s:.4f} s, loss eval {sum(eval_s) / len(eval_s):.4f} s")
-    log(f"[time] fsvrg_update at the largest bucket × its {m_pads[big]} steps "
-        f"= {rows[1]['ms'] * m_pads[big] / 1e3:.3f} s of that bucket's "
-        f"{pass_s[big]:.3f} s")
+        report(r)
+    require(sorted(r["name"] for r in rows) == sorted(SOURCES),
+            "the kernels line misses a kernel")
+    torch.cuda.empty_cache()
 
     # the device's busy share of a round: the device's kernel times for one
-    # more full-width round, traced by the profiler (device activity only:
-    # tracing the host's ~200k operator calls too takes minutes), over the
-    # unprofiled rounds' wall time
+    # more full-width round of each solver, traced by the profiler (device
+    # activity only: tracing the host's operator calls too takes minutes),
+    # over the unprofiled rounds' wall time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solver.round(res.state, torch.Generator(device=dev).manual_seed(SEED))
-        sync()
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.self_device_time_total, reverse=True)
-    busy_s = sum(e.self_device_time_total for e in events) / 1e6
-    wall_s = sum(round_s) / len(round_s)
-    if events:
-        log(f"[profile] one round under the profiler "
-            f"({time.perf_counter() - t:.1f} s to trace): device busy "
-            f"{busy_s:.3f} s of the unprofiled {wall_s:.3f} s round -> "
-            f"device idle share {1 - busy_s / wall_s:.1%}")
-    else:
-        log("[profile] device idle share: not measured (the profiler saw no "
-            "device time)")
-    for e in events[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:7d}× {e.key[:90]}")
+    phase("profile")
+    for name, run_ in runs.items():
+        solver, res = run_["solver"], run_["res"]
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solver.round(res.state,
+                         torch.Generator(device=dev).manual_seed(SEED))
+            sync()
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.self_device_time_total, reverse=True)
+        busy_s = sum(e.self_device_time_total for e in events) / 1e6
+        wall_s = sum(run_["round_s"]) / len(run_["round_s"])
+        if events:
+            log(f"[profile] {name}: one round under the profiler "
+                f"({time.perf_counter() - t:.1f} s to trace): device busy "
+                f"{busy_s:.3f} s of the unprofiled {wall_s:.3f} s round -> "
+                f"device idle share {1 - busy_s / wall_s:.1%}")
+        else:
+            log(f"[profile] {name}: device idle share: not measured (the "
+                "profiler saw no device time)")
+        for e in events[:8]:
+            log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
+                f"{e.count:7d}× {e.key[:90]}")
+    phase("done")
 
     # -- 6. the result -------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)

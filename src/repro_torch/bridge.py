@@ -3,7 +3,8 @@ dataset and solver state on a chosen device.
 
 The tests build the same problem in both packages by handing the
 reference's ``FederatedDataset`` (numpy arrays) to :func:`dataset_from_arrays`
-and the reference's iterate to :func:`state_from_array`.  Anything with the
+and the reference's iterate and per-client state to
+:func:`state_from_array`.  Anything with the
 same attribute names works: nothing here imports the reference.
 """
 from __future__ import annotations
@@ -43,9 +44,12 @@ def dataset_from_arrays(ds, device: DeviceLike = None) -> FederatedDataset:
     )
 
 
-def state_from_array(w, round_index: int = 0,
-                     device: DeviceLike = None) -> SolverState:
-    """A stateless solver's state at iterate ``w`` and round
-    ``round_index``."""
-    return SolverState(w=tensor_from_array(w, torch.float32, device),
-                       round=int(round_index))
+def state_from_array(w, round_index: int = 0, device: DeviceLike = None, *,
+                     aux=()) -> SolverState:
+    """A solver's state at iterate ``w`` and round ``round_index``; ``aux``
+    is the per-client state as one array per bucket (CoCoA+'s α blocks),
+    or () for a stateless solver."""
+    return SolverState(
+        w=tensor_from_array(w, torch.float32, device),
+        aux=tuple(tensor_from_array(a, torch.float32, device) for a in aux),
+        round=int(round_index))

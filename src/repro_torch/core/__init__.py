@@ -8,6 +8,9 @@
   trainer.py   — the Trainer.fit round-loop driver
   fsvrg.py     — Algorithm 4 (the paper's method)
   baselines.py — distributed GD
+  fedavg.py    — Federated Averaging
+  dane.py      — DANE (Algorithm 2), GD and Prop.-1 SVRG local solvers
+  cocoa.py     — CoCoA+ (local SDCA, dual blocks through round_with_state)
 """
 from repro_torch.core.problem import (ClientBucket, FederatedLogReg,
                                       LogRegProblem, build_problem,
@@ -19,11 +22,15 @@ from repro_torch.core.registry import (available, get_spec, make_solver,
 from repro_torch.core.trainer import FitResult, NonFiniteIterateError, Trainer
 from repro_torch.core.fsvrg import FSVRG, FSVRGConfig
 from repro_torch.core.baselines import DistributedGD
+from repro_torch.core.fedavg import FedAvg, FedAvgConfig
+from repro_torch.core.dane import DANE, DANEConfig
+from repro_torch.core.cocoa import CoCoAConfig, CoCoAPlus
 
 __all__ = [
     "ClientBucket", "FederatedLogReg", "LogRegProblem", "build_problem",
     "build_test_problem", "EngineConfig", "RoundEngine", "FederatedSolver",
     "SolverState", "available", "get_spec", "make_solver", "register",
     "FitResult", "NonFiniteIterateError", "Trainer", "FSVRG", "FSVRGConfig",
-    "DistributedGD",
+    "DistributedGD", "FedAvg", "FedAvgConfig", "DANE", "DANEConfig",
+    "CoCoAPlus", "CoCoAConfig",
 ]

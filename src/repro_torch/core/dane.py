@@ -1,0 +1,200 @@
+"""DANE — Distributed Approximate Newton (Algorithm 2) on the round engine,
+ported from the reference's ``core/dane.py``.
+
+Local subproblem (eq. 10):
+
+    w_k = argmin_w F_k(w) − (∇F_k(w^t) − η∇f(w^t))ᵀ w + (µ/2)||w − w^t||²
+
+Each round's prelude is the full gradient ∇f(w^t) (Alg. 2 step 1, its own
+round of communication); the engine averages the clients' solutions
+uniformly (Alg. 2 step 3).  Two inexact local solvers, each run for every
+client of a bucket at once:
+
+  * ``local_solver="gd"`` — ``local_steps`` gradient steps on the
+    subproblem, each step the ``dane_update`` kernel.  Deterministic.
+  * ``local_solver="svrg"`` — the Proposition-1 construction: one epoch of
+    generic SVRG on the explicitly materialized subproblem (η = 1, µ = 0),
+    over ``svrg_steps`` sampled examples per client.
+
+Not ported yet: ``DANERidge`` and ``dane_svrg_round`` (they need
+``build_dense_problem``), and the streamed, cohort, virtual,
+participation-model, fault and guard options.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.engine import EngineConfig, RoundEngine
+from repro_torch.core.problem import ClientBucket, FederatedLogReg
+from repro_torch.core.registry import register
+from repro_torch.core.solver import FederatedSolver, SolverState
+from repro_torch.kernels import ops
+from repro_torch.utils.device import DeviceLike
+
+_SOLVERS = ("gd", "svrg")
+
+
+@dataclasses.dataclass(frozen=True)
+class DANEConfig:
+    """Knobs of Algorithm 2 and its local solvers."""
+
+    eta: float = 1.0               # η: full-gradient weight in a_k (eq. 10)
+    mu: float = 0.0                # µ: prox coefficient (eq. 10)
+    local_solver: str = "gd"       # "gd" | "svrg" (the Prop.-1 construction)
+    local_steps: int = 50          # GD solver: iterations on the subproblem
+    local_lr: float = 1.0          # GD solver: stepsize
+    svrg_stepsize: float = 0.05    # SVRG solver: stepsize h
+    svrg_steps: int = 25           # SVRG solver: samples m per epoch
+    participation: float = 1.0     # i.i.d. per-round client participation
+    # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
+    aggregator: str = "dense"
+
+    def __post_init__(self):
+        if self.local_solver not in _SOLVERS:
+            raise ValueError(f"local_solver must be one of {_SOLVERS}")
+
+
+def data_grad(wk: torch.Tensor, bucket: ClientBucket,
+              out: torch.Tensor) -> torch.Tensor:
+    """The sparse data part of ∇F_k at every client's iterate, written to
+    ``out`` (Kb, d): Σ_i (−y_i σ(−y_i x_iᵀw_k)) x_i / n_k over the client's
+    valid rows.  ``wk`` is (Kb, d), or one (d,) iterate shared by all."""
+    Kb, m_pad, _ = bucket.idx.shape
+    flat_idx = bucket.idx.reshape(Kb, -1)
+    wk = wk.expand(Kb, -1)
+    nkf = bucket.n_k.to(torch.float32).clamp(min=1.0)
+    valid = (torch.arange(m_pad, device=wk.device)[None, :]
+             < bucket.n_k[:, None]).to(torch.float32)
+    z = bucket.y * (bucket.val * wk.gather(1, flat_idx).reshape(
+        bucket.idx.shape)).sum(dim=-1)
+    gs = -bucket.y * torch.sigmoid(-bucket.y * z) * valid / nkf[:, None]
+    return out.zero_().scatter_add_(
+        1, flat_idx, (gs[..., None] * bucket.val).reshape(Kb, -1))
+
+
+def dane_gd_pass(w0: torch.Tensor, full_grad: torch.Tensor,
+                 bucket: ClientBucket, lam: float, cfg: DANEConfig,
+                 out: torch.Tensor, *, g: Optional[torch.Tensor] = None,
+                 a: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``local_steps`` GD steps on subproblem (10) for every client of a
+    bucket — the counterpart of the reference's ``_dane_gd_pass``.
+
+    The iterates are stepped in place in ``out`` (Kb, d), which ends
+    holding the deltas w_k − w0.  ``g`` and ``a`` are optional (≥Kb, d)
+    scratches for the data gradient and a_k = ∇F_k(w^t) − η∇f(w^t)."""
+    Kb = bucket.num_clients
+    d = w0.shape[0]
+    g = torch.empty_like(out) if g is None else g[:Kb]
+    a = torch.empty_like(out) if a is None else a[:Kb]
+    data_grad(w0, bucket, a)
+    a += lam * w0
+    a -= cfg.eta * full_grad
+    wk = out
+    wk.copy_(w0.expand(Kb, d))
+    for _ in range(cfg.local_steps):
+        data_grad(wk, bucket, g)
+        ops.dane_update(wk, g, a, w0, cfg.local_lr, lam, cfg.mu, out=wk)
+    return wk.sub_(w0)
+
+
+def dane_svrg_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
+                         bucket: ClientBucket, lam: float, cfg: DANEConfig,
+                         samples: torch.Tensor,
+                         out: torch.Tensor) -> torch.Tensor:
+    """Proposition 1: one epoch of generic SVRG on subproblem (10) *as a
+    subproblem* (η = 1, µ = 0), for every client of a bucket over explicit
+    sample indices ``samples`` (Kb, m) — the counterpart of the reference's
+    ``_dane_svrg_pass_keyed``.  a_k and the linear term are materialized,
+    as in the reference.  Writes the deltas w_k − w0 into ``out``."""
+    Kb = bucket.num_clients
+    d = w0.shape[0]
+    rows = torch.arange(Kb, device=w0.device)
+
+    def fk_grad(wk):
+        return data_grad(wk, bucket, torch.empty_like(out)) + lam * wk
+
+    f0 = fk_grad(w0)
+    a_k = f0 - full_grad                               # η = 1
+    anchor = f0 - a_k                                  # = ∇f(w^t), materialized
+
+    def fi_grad(wk, xi, vi, yi):
+        z = (vi * wk.expand(Kb, d).gather(1, xi)).sum(dim=1)
+        gs = -yi * torch.sigmoid(-yi * z)
+        return torch.zeros_like(out).scatter_add_(1, xi,
+                                                  gs[:, None] * vi) + lam * wk
+
+    wk = w0.expand(Kb, d)
+    for t in range(samples.shape[1]):
+        i = samples[:, t]
+        xi, vi, yi = bucket.idx[rows, i], bucket.val[rows, i], bucket.y[rows, i]
+        gi_new = fi_grad(wk, xi, vi, yi) - a_k
+        gi_old = fi_grad(w0, xi, vi, yi) - a_k
+        wk = wk - cfg.svrg_stepsize * (gi_new - gi_old + anchor)
+    return torch.sub(wk, w0, out=out)
+
+
+class DANE(FederatedSolver):
+    """Algorithm 2 on the :class:`~repro_torch.core.engine.RoundEngine`:
+    the full-gradient prelude, the local solver's pass, and uniform 1/K
+    averaging ("averages the solutions")."""
+
+    name = "dane"
+
+    def __init__(self, problem: FederatedLogReg,
+                 cfg: DANEConfig = DANEConfig(), *,
+                 device: DeviceLike = None):
+        self._bind(problem, device)
+        self.cfg = cfg
+        if cfg.local_solver == "gd":
+            # the steps' scratches (data gradient, a_k), shared by buckets
+            shape = (max(b.num_clients for b in problem.buckets), problem.d)
+            self._g = torch.empty(shape, device=problem.device)
+            self._a = torch.empty(shape, device=problem.device)
+        self.engine = RoundEngine(
+            problem,
+            EngineConfig(participation=cfg.participation, weighting="uniform",
+                         aggregator=cfg.aggregator),
+        )
+        prelude = lambda w: (self.problem.flat.grad(w),)
+        self._round_fast = self.engine.compile(self._pass, prelude=prelude)
+
+    def samples(self, gen: torch.Generator, bucket_index: int,
+                bucket: ClientBucket) -> torch.Tensor:
+        """The SVRG solver's sample indices, uniform over each client's
+        rows, drawn batched from the round's generator: (Kb, m) int64."""
+        u = torch.rand((bucket.num_clients, self.cfg.svrg_steps),
+                       generator=gen, device=gen.device).to(bucket.idx.device)
+        n_k = bucket.n_k.clamp(min=1)
+        return torch.floor(u * n_k[:, None]).to(torch.int64).clamp(
+            max=n_k[:, None] - 1)
+
+    def _pass(self, w, bi, bucket, gen, out, full_grad):
+        lam = self.problem.flat.lam
+        if self.cfg.local_solver == "gd":
+            dane_gd_pass(w, full_grad, bucket, lam, self.cfg, out, g=self._g,
+                         a=self._a)
+        else:
+            dane_svrg_pass_keyed(w, full_grad, bucket, lam, self.cfg,
+                                 self.samples(gen, bi, bucket), out)
+
+    def round(self, state: SolverState,
+              gen: torch.Generator) -> SolverState:
+        return state.replace(w=self._round_fast(state.w, gen),
+                             round=state.round + 1)
+
+
+def _dane_defaults():
+    from repro_torch.configs import get_dane_config
+    c = get_dane_config()
+    return {"eta": c.eta, "mu": c.mu, "local_steps": c.local_steps,
+            "local_lr": c.local_lr}
+
+
+@register("dane", defaults=_dane_defaults,
+          description="DANE (Algorithm 2) with inexact GD/SVRG local solvers")
+def _make_dane(problem: FederatedLogReg, *, device: DeviceLike = None,
+               **kw) -> DANE:
+    return DANE(problem, DANEConfig(**kw), device=device)

@@ -15,18 +15,24 @@ One round:
      fused aggregation kernel over the stacked deltas
      (``aggregator="pallas"``, the reference's name for its kernel path).
 
+Algorithms with per-client state across rounds (CoCoA+'s dual blocks) use
+:meth:`RoundEngine.round_with_state`: each bucket's pass also receives and
+returns its bucket's state, and under partial participation a client left
+out of the round keeps its old state.
+
 Randomness: the round's ``torch.Generator`` is drawn from in a fixed order
 — first the participation masks of every bucket (once per round, shared by
 every consumer), then whatever the client passes draw, bucket by bucket.
 
 Not ported yet: streamed (``client_chunk``), cohort and virtual rounds,
-participation and fault models, aggregator guards, and the dual-state
-hook.  ``compile`` is the same eager round as ``reference`` for now.
+participation and fault models, and aggregator guards.  ``compile`` and
+``compile_with_state`` are the same eager rounds as ``reference`` and
+``reference_with_state`` for now.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +42,12 @@ from repro_torch.kernels import ops
 #: client_pass(w, bucket_index, bucket, gen, out, *ctx) writes the bucket's
 #: (Kb, d) deltas w_k − w into ``out``
 ClientPassFn = Callable[..., None]
+
+#: state_pass(w, bucket_index, bucket, state, gen, out, *ctx) writes the
+#: bucket's deltas into ``out`` and returns its new state, a new tensor
+#: whose leading axis is the bucket's client axis (CoCoA+'s α, (Kb, m_pad));
+#: the old state is left as it was
+StateClientPassFn = Callable[..., torch.Tensor]
 
 _WEIGHTINGS = ("nk", "uniform", "sum")
 _SCALINGS = ("none", "diag")
@@ -171,6 +183,31 @@ class RoundEngine:
             client_pass(w, bi, b, gen, deltas[wi:wi + b.num_clients], *ctx)
         return self.aggregate(w, deltas, masks)
 
+    def round_with_state(self, w: torch.Tensor,
+                         states: Sequence[torch.Tensor], gen: torch.Generator,
+                         client_pass: StateClientPassFn, *ctx
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """:meth:`round` for algorithms with per-client state: bucket i's
+        pass receives ``states[i]`` and returns its new state.
+
+        The round's masks are drawn once and serve both consumers: a client
+        whose aggregation weight they zero also keeps its old state, bit
+        for bit, so primal and dual views never diverge."""
+        masks = self.participation_masks(gen)
+        deltas = torch.empty((self.problem.num_clients, self.problem.d),
+                             dtype=w.dtype, device=w.device)
+        new_states: List[torch.Tensor] = []
+        for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
+            old = states[bi]
+            new = client_pass(w, bi, b, old, gen,
+                              deltas[wi:wi + b.num_clients], *ctx)
+            if masks is not None:
+                sel = masks[bi].reshape((b.num_clients,)
+                                        + (1,) * (new.dim() - 1))
+                new = torch.where(sel > 0, new, old)
+            new_states.append(new)
+        return self.aggregate(w, deltas, masks), new_states
+
     def reference(self, client_pass: ClientPassFn, *,
                   prelude: Optional[Callable] = None) -> Callable:
         """``round(w, gen) -> w_next``: the prelude's results are appended
@@ -187,3 +224,23 @@ class RoundEngine:
         """The round solvers dispatch.  For now the same eager round as
         :meth:`reference`; capturing it in a CUDA graph is later work."""
         return self.reference(client_pass, prelude=prelude)
+
+    def reference_with_state(self, client_pass: StateClientPassFn, *,
+                             prelude: Optional[Callable] = None) -> Callable:
+        """``round(w, states, gen) -> (w_next, new_states)`` over
+        :meth:`round_with_state`, the prelude's results appended to the
+        client pass's arguments as in :meth:`reference`."""
+
+        def reference_round(w: torch.Tensor, states, gen: torch.Generator):
+            ctx = tuple(prelude(w)) if prelude is not None else ()
+            w2, new_states = self.round_with_state(w, list(states), gen,
+                                                   client_pass, *ctx)
+            return w2, tuple(new_states)
+
+        return reference_round
+
+    def compile_with_state(self, client_pass: StateClientPassFn, *,
+                           prelude: Optional[Callable] = None) -> Callable:
+        """The state round solvers dispatch: for now the same eager round
+        as :meth:`reference_with_state`, as :meth:`compile` is."""
+        return self.reference_with_state(client_pass, prelude=prelude)

@@ -31,7 +31,7 @@ from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.kernels import ops
-from repro_torch.utils.device import DeviceLike
+from repro_torch.utils.device import DeviceLike, random_permutations
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,9 +149,8 @@ class FSVRG(FederatedSolver):
                      bucket: ClientBucket) -> torch.Tensor:
         """Every client's random order of its m_pad slots (Alg. 4 line 6),
         drawn batched from the round's generator: (Kb, m_pad) int64."""
-        u = torch.rand((bucket.num_clients, bucket.m_pad), generator=gen,
-                       device=bucket.idx.device)
-        return torch.argsort(u, dim=1)
+        return random_permutations(gen, (bucket.num_clients, bucket.m_pad),
+                                   bucket.idx.device)
 
     def _pass(self, w, bi, bucket, gen, out, full_grad):
         perms = self.permutations(gen, bi, bucket)

@@ -1,6 +1,6 @@
 """String-keyed solver registry: ``make_solver("fsvrg", problem)`` — the
-port of the reference's ``core/registry.py``, with the two solvers of the
-main path (``fsvrg``, ``gd``).  Defaults come from
+port of the reference's ``core/registry.py``, with the solvers of Fig. 2
+(``fsvrg``, ``gd``, ``fedavg``, ``dane``, ``cocoa``).  Defaults come from
 :mod:`repro_torch.configs`; ``make_solver``'s ``device`` defaults to the
 CUDA card, as every entry point's does.
 """
@@ -49,6 +49,9 @@ def register(name: str, *, defaults: Optional[DefaultsFn] = None,
 def _populate() -> None:
     """Import the algorithm modules so their ``register`` calls run."""
     import repro_torch.core.baselines  # noqa: F401  (gd)
+    import repro_torch.core.cocoa      # noqa: F401  (cocoa)
+    import repro_torch.core.dane       # noqa: F401  (dane)
+    import repro_torch.core.fedavg     # noqa: F401  (fedavg)
     import repro_torch.core.fsvrg      # noqa: F401  (fsvrg)
 
 

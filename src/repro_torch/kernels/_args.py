@@ -1,0 +1,81 @@
+"""Argument checks shared by the CUDA wrappers.
+
+Each check raises ``ValueError`` naming its kernel on what the kernel does
+not take, before any pointer reaches the C launcher.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+#: tensor dtype -> the launchers' dtype code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def require(kernel: str, cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{kernel}: {msg}")
+
+
+def batch(kernel: str, w: torch.Tensor) -> Tuple[int, int]:
+    """Check the iterate ``w``: a non-empty contiguous (d,) or (R, d) CUDA
+    tensor of f32 or bf16.  Returns (R, d), R = 1 for a vector."""
+    require(kernel, isinstance(w, torch.Tensor) and w.is_cuda,
+            "w must be a CUDA tensor")
+    require(kernel, w.dtype in DTYPES,
+            f"w must be float32 or bfloat16, got {w.dtype}")
+    require(kernel, w.dim() in (1, 2) and w.is_contiguous() and w.numel() > 0,
+            "w must be a non-empty contiguous (d,) or (R, d) tensor, got "
+            f"{tuple(w.shape)}")
+    return (w.shape[0] if w.dim() == 2 else 1), w.shape[-1]
+
+
+def operand(kernel: str, x: torch.Tensor, name: str, w: torch.Tensor,
+            may_share_row: bool) -> int:
+    """Check one input against w; return its row stride in elements (d, or
+    0 for a (d,) row shared by all rows of a 2-D w)."""
+    require(kernel, isinstance(x, torch.Tensor) and x.device == w.device,
+            f"{name} must be a tensor on {w.device}")
+    require(kernel, x.dtype == w.dtype, f"{name} must have w's dtype {w.dtype}")
+    require(kernel, x.is_contiguous(), f"{name} must be contiguous")
+    if x.shape == w.shape:
+        return w.shape[-1]
+    require(kernel, may_share_row and w.dim() == 2
+            and x.shape == w.shape[-1:],
+            f"{name} has shape {tuple(x.shape)}, expected {tuple(w.shape)}"
+            + (f" or ({w.shape[-1]},)" if may_share_row else ""))
+    return 0
+
+
+def step_size(kernel: str, h: Union[float, torch.Tensor], w: torch.Tensor
+              ) -> Tuple[Optional[int], float, int]:
+    """A float, a one-value f32 tensor, or one f32 value per row of a 2-D
+    ``w``, as the launchers take it: (pointer or None, value, stride)."""
+    if not isinstance(h, torch.Tensor):
+        return None, float(h), 0
+    require(kernel, h.device == w.device and h.dtype == torch.float32
+            and h.is_contiguous(), "a tensor h must be contiguous float32 on "
+            "w's device")
+    R = w.shape[0] if w.dim() == 2 else 1
+    require(kernel, h.numel() == 1 or (w.dim() == 2 and h.shape == (R,)),
+            f"h must hold one value or one per row ({R},), got "
+            f"{tuple(h.shape)}")
+    return h.data_ptr(), 0.0, int(h.numel() > 1)
+
+
+def output(kernel: str, out: Optional[torch.Tensor],
+           w: torch.Tensor) -> torch.Tensor:
+    """``out`` checked to be a contiguous tensor like ``w`` (it may be ``w``
+    itself), or a new one."""
+    if out is None:
+        return torch.empty_like(w)
+    require(kernel, out.shape == w.shape and out.dtype == w.dtype
+            and out.device == w.device and out.is_contiguous(),
+            "out must be a contiguous tensor like w")
+    return out
+
+
+def stream(x: torch.Tensor) -> int:
+    """PyTorch's current stream on ``x``'s card, as the launchers take it."""
+    return torch.cuda.current_stream(x.device).cuda_stream

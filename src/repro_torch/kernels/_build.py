@@ -30,6 +30,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
 SOURCES = {
     "fused_aggregate": "fused_aggregate.cu",
     "fsvrg_update": "fsvrg_update.cu",
+    "fedavg_update": "fedavg_update.cu",
+    "dane_update": "dane_update.cu",
+    "cocoa_sdca": "cocoa_sdca.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -48,6 +51,11 @@ SIGNATURES = {
     "fsvrg_update": ("fsvrg_update_launch",
                      [_P, _P, _P, _P, _P, _I, _P, _F, _P, _L, _L, _L, _L, _L,
                       _L, _P]),
+    "fedavg_update": ("fedavg_update_launch",
+                      [_P, _P, _I, _P, _F, _F, _P, _L, _L, _L, _P]),
+    "dane_update": ("dane_update_launch",
+                    [_P, _P, _P, _P, _I, _F, _F, _F, _P, _L, _L, _L, _P]),
+    "cocoa_sdca": ("cocoa_sdca_launch", [_P, _P, _P, _I, _P, _L, _I, _P]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -12,6 +12,9 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from repro_torch.kernels import cocoa_sdca as _cs
+from repro_torch.kernels import dane_update as _du
+from repro_torch.kernels import fedavg_update as _fa
 from repro_torch.kernels import fsvrg_update as _fu
 from repro_torch.kernels import ref
 from repro_torch.kernels import scaled_aggregate as _sa
@@ -22,6 +25,9 @@ Scalar = Union[float, torch.Tensor]
 KERNELS = {
     "fused_aggregate": _sa.fused_aggregate,
     "fsvrg_update": _fu.fsvrg_update,
+    "fedavg_update": _fa.fedavg_update,
+    "dane_update": _du.dane_update,
+    "cocoa_sdca_update": _cs.cocoa_sdca_update,
 }
 
 
@@ -45,6 +51,29 @@ def fsvrg_update(w: torch.Tensor, s: torch.Tensor, g_new: torch.Tensor,
     if _on_cpu(w):
         return ref.fsvrg_update_ref(w, s, g_new, g_old, g_bar, h, out=out)
     return _fu.fsvrg_update(w, s, g_new, g_old, g_bar, h, out=out)
+
+
+def fedavg_update(w: torch.Tensor, g: torch.Tensor, h: Scalar, lam: float, *,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if _on_cpu(w):
+        return ref.fedavg_update_ref(w, g, h, lam, out=out)
+    return _fa.fedavg_update(w, g, h, lam, out=out)
+
+
+def dane_update(w: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+                w_t: torch.Tensor, lr: float, lam: float, mu: float, *,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if _on_cpu(w):
+        return ref.dane_update_ref(w, g, a, w_t, lr, lam, mu, out=out)
+    return _du.dane_update(w, g, a, w_t, lr, lam, mu, out=out)
+
+
+def cocoa_sdca_update(beta0: torch.Tensor, mcoef: torch.Tensor,
+                      ccoef: torch.Tensor,
+                      newton_iters: int = 12) -> torch.Tensor:
+    if _on_cpu(beta0):
+        return ref.cocoa_sdca_update_ref(beta0, mcoef, ccoef, newton_iters)
+    return _cs.cocoa_sdca_update(beta0, mcoef, ccoef, newton_iters)
 
 
 def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,

@@ -45,6 +45,74 @@ def fsvrg_update_ref(w: torch.Tensor, s: torch.Tensor, g_new: torch.Tensor,
     return out.copy_(res)
 
 
+def _f32_scalar(x: Scalar, w: torch.Tensor) -> torch.Tensor:
+    """A step-size scalar as the reference holds it: an f32 value (a 0-d
+    tensor for a float), or one f32 value per row as an (R, 1) column for
+    an (R, d) ``w``."""
+    if isinstance(x, torch.Tensor):
+        return _row_scalar(x, w)
+    return torch.tensor(float(x), dtype=_F32, device=w.device)
+
+
+def fedavg_update_ref(w: torch.Tensor, g: torch.Tensor, h: Scalar,
+                      lam: Scalar, *,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(1 − h·λ)·w − h·g, computed in f32, cast to w's dtype.
+
+    ``w``, ``g`` are (d,) or (R, d); ``h`` is a scalar or, for an (R, d)
+    ``w``, one step size per row (h = 0 leaves a row as it was); ``λ`` is a
+    scalar.  The scalars are f32, as in the reference.  With ``out`` the
+    result is written there (it may be ``w`` itself)."""
+    h = _f32_scalar(h, w)
+    lam = _f32_scalar(lam, w)
+    res = ((1.0 - h * lam) * _f32(w) - h * _f32(g)).to(w.dtype)
+    if out is None:
+        return res
+    return out.copy_(res)
+
+
+def dane_update_ref(w: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+                    w_t: torch.Tensor, lr: Scalar, lam: Scalar, mu: Scalar, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(1 − lr(λ+µ))·w − lr·g + lr·a + lr·µ·w_t, computed in f32, cast to
+    w's dtype.
+
+    ``w``, ``g``, ``a`` are (d,) or (R, d); ``w_t`` has that shape or is
+    one (d,) row shared by all R rows; ``lr``, ``λ``, ``µ`` are f32
+    scalars, as in the reference.  With ``out`` the result is written there
+    (it may be ``w`` itself)."""
+    lr, lam, mu = (_f32_scalar(x, w) for x in (lr, lam, mu))
+    res = ((1.0 - lr * (lam + mu)) * _f32(w) - lr * _f32(g)
+           + lr * _f32(a) + lr * mu * _f32(w_t)).to(w.dtype)
+    if out is None:
+        return res
+    return out.copy_(res)
+
+
+#: the clip of the dual coordinate β to the open box (0, 1)
+SDCA_EPS = 1e-6
+
+
+def cocoa_sdca_update_ref(beta0: torch.Tensor, mcoef: torch.Tensor,
+                          ccoef: torch.Tensor,
+                          newton_iters: int = 12) -> torch.Tensor:
+    """Clipped-Newton solve of the per-coordinate SDCA dual subproblem
+
+        min_β  m(β − β₀) + c(β − β₀)² + β log β + (1 − β) log(1 − β),
+
+    ``newton_iters`` steps from β = clip(sigmoid(−m)), every iterate clipped
+    to [1e-6, 1 − 1e-6]; in f32, cast to β₀'s dtype.  All three inputs are
+    1-D of one length; padding slots hold β₀ = ½, m = c = 0."""
+    eps = SDCA_EPS
+    b0, m, c = _f32(beta0), _f32(mcoef), _f32(ccoef)
+    b = torch.clamp(torch.sigmoid(-m), eps, 1.0 - eps)
+    for _ in range(newton_iters):
+        gb = m + 2.0 * c * (b - b0) + torch.log(b / (1.0 - b))
+        hb = 2.0 * c + 1.0 / (b * (1.0 - b))
+        b = torch.clamp(b - gb / hb, eps, 1.0 - eps)
+    return b.to(beta0.dtype)
+
+
 def fused_aggregate_ref(w_t: torch.Tensor, deltas: torch.Tensor,
                         weights: torch.Tensor, a_diag: torch.Tensor,
                         scale: Scalar = 1.0) -> torch.Tensor:

@@ -16,18 +16,15 @@ from typing import Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _args, _build
 
 COLS = 256            # columns per block (csrc/fused_aggregate.cu)
 TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
 MIN_ROWS = 32         # fewest rows of K one split walks
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"fused_aggregate: {msg}")
+    _args.require("fused_aggregate", cond, msg)
 
 
 def _vector(x: torch.Tensor, n: int, name: str, device) -> None:
@@ -61,7 +58,7 @@ def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
     _require(deltas.dim() == 2 and deltas.is_contiguous(),
              "deltas must be a contiguous (K, d) matrix, got "
              f"{tuple(deltas.shape)}")
-    _require(deltas.dtype in _DTYPES,
+    _require(deltas.dtype in _args.DTYPES,
              f"deltas must be float32 or bfloat16, got {deltas.dtype}")
     K, d = deltas.shape
     _require(K >= 1 and d >= 1, "deltas must be non-empty")
@@ -82,11 +79,10 @@ def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
     out = torch.empty((d,), dtype=torch.float32, device=dev)
     launch = _build.launcher("fused_aggregate")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(deltas.data_ptr(), _DTYPES[deltas.dtype],
+        err = launch(deltas.data_ptr(), _args.DTYPES[deltas.dtype],
                      weights.data_ptr(), w_t.data_ptr(), a_diag.data_ptr(),
                      scale_ptr, scale_value, partial.data_ptr(),
-                     out.data_ptr(), K, d, rows, splits, stream)
+                     out.data_ptr(), K, d, rows, splits, _args.stream(deltas))
     _build.check(err, "fused_aggregate")
     fused_aggregate.launches += 1
     return out

@@ -59,3 +59,12 @@ def generator(seed: int, stream: int,
     g = torch.Generator(device=device if device is not None else "cpu")
     g.manual_seed(stream_seed(seed, stream))
     return g
+
+
+def random_permutations(gen: torch.Generator, shape,
+                        device: torch.device) -> torch.Tensor:
+    """Independent random orders of ``range(shape[-1])``, one per leading
+    index: ``argsort`` of uniforms drawn from ``gen`` on its own device,
+    moved to ``device``.  int64."""
+    u = torch.rand(tuple(shape), generator=gen, device=gen.device)
+    return torch.argsort(u, dim=-1).to(device)

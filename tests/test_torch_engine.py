@@ -111,3 +111,79 @@ def test_masks_are_drawn_once_per_round_from_the_generator(problems):
         assert set(x.unique().tolist()) <= {0.0, 1.0}
     assert RoundEngine(pp, EngineConfig()).participation_masks(
         torch.Generator()) is None
+
+
+def _state_passes(rp):
+    """The same deterministic state pass in both packages: deltas
+    (Σ_j s_kj)·w per client, new state 2s + 1 + bucket index."""
+
+    def ref_pass(w, bi, b, s_b, kb):
+        return s_b.sum(axis=1)[:, None] * w[None, :], 2.0 * s_b + 1.0 + bi
+
+    def port_pass(w, bi, b, s_b, gen, out):
+        torch.mul(s_b.sum(dim=1)[:, None], w[None, :], out=out)
+        return 2.0 * s_b + 1.0 + bi
+
+    return ref_pass, port_pass
+
+
+@pytest.mark.parametrize("aggregator", ["dense", "pallas"])
+@pytest.mark.parametrize("participation", [1.0, 0.5])
+def test_round_with_state_matches_reference(problems, participation,
+                                             aggregator):
+    """round_with_state with the reference's masks injected: every frozen
+    client's state is bit-identical to its old state, every participant's
+    is its pass's new state, and the new iterate matches the reference's
+    round_with_state on the same inputs (rtol 1e-5: summation order)."""
+    rp, pp = problems
+    rng = np.random.default_rng(12)
+    states = [rng.standard_normal((b.num_clients, 3)).astype(np.float32)
+              for b in rp.buckets]
+    w = (rng.standard_normal(rp.d) * 0.1).astype(np.float32)
+    kw = dict(weighting="sum", participation=participation,
+              aggregator=aggregator)
+    ref = RefRoundEngine(rp, RefEngineConfig(**kw))
+    port = RoundEngine(pp, EngineConfig(**kw))
+    ref_pass, port_pass = _state_passes(rp)
+    key = jax.random.PRNGKey(5)
+    w_ref, s_ref = ref.round_with_state(jnp.asarray(w),
+                                        [jnp.asarray(s) for s in states],
+                                        key, ref_pass)
+    masks = ref.participation_masks(key)
+    if masks is not None:
+        masks = [torch.tensor(np.asarray(m)) for m in masks]
+        assert 0 < sum(float(m.sum()) for m in masks) < pp.num_clients
+        port.participation_masks = lambda gen: masks
+    old = [torch.tensor(s) for s in states]
+    w_got, s_got = port.round_with_state(torch.tensor(w), old,
+                                         torch.Generator(), port_pass)
+    for bi, (o, new, expect) in enumerate(zip(old, s_got, s_ref)):
+        sel = (torch.ones(o.shape[0]) if masks is None else masks[bi]) > 0
+        assert torch.equal(new[~sel], o[~sel])          # frozen: bit-exact
+        assert torch.equal(new[sel], 2.0 * o[sel] + 1.0 + bi)
+        np.testing.assert_array_equal(new.numpy(), np.asarray(expect))
+    np.testing.assert_allclose(w_got.numpy(), np.asarray(w_ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_reference_and_compile_with_state_take_the_prelude(problems):
+    """The prelude's results reach the state pass; the compiled round is
+    the reference round."""
+    _, pp = problems
+    eng = RoundEngine(pp, EngineConfig(weighting="sum"))
+    seen = []
+
+    def pass_(w, bi, b, s_b, gen, out, extra):
+        seen.append(extra)
+        out.zero_()
+        return s_b + extra
+
+    states = tuple(torch.zeros(b.num_clients, 2) for b in pp.buckets)
+    w = torch.ones(pp.d)
+    outs = [f(pass_, prelude=lambda w: (float(w.sum()),))(w, states,
+                                                          torch.Generator())
+            for f in (eng.reference_with_state, eng.compile_with_state)]
+    assert seen == [float(pp.d)] * (2 * len(pp.buckets))
+    for w2, s2 in outs:
+        assert torch.equal(w2, w) and isinstance(s2, tuple)
+        assert all(torch.equal(s, torch.full_like(s, pp.d)) for s in s2)

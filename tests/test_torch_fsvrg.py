@@ -197,10 +197,12 @@ def test_fsvrg_options_match_reference_for_one_round(small_problem,
 
 
 def test_registry_names():
+    """The solvers of Fig. 2; the dense-layout ones wait for
+    build_dense_problem."""
     from repro_torch.core import available
-    assert available() == ("fsvrg", "gd")
+    assert available() == ("cocoa", "dane", "fedavg", "fsvrg", "gd")
     with pytest.raises(KeyError, match="unknown solver"):
-        make_solver("fedavg", None)
+        make_solver("dane_ridge", None)
 
 
 def test_trainer_eval_every_and_fail_fast(port_problem):

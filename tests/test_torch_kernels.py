@@ -4,7 +4,8 @@ On the CPU, ``repro_torch.kernels.ops`` runs each kernel's plain PyTorch
 version; it is held against the reference's jnp oracle
 (``repro.kernels.ref``) and its Pallas kernel in interpret mode
 (``repro.kernels.ops``) on the same numpy inputs, at the sizes and
-tolerances of ``tests/test_kernel_parity.py``.  The CUDA kernels themselves
+tolerances of ``tests/test_kernel_parity.py`` (f32: rtol 1e-6 / atol 1e-5;
+bf16: 0.05 / 0.5, the rounding of the result).  The CUDA kernels themselves
 are held against the plain versions on the card by ``test_torch_cuda.py``
 and ``chip_smoke.py``.
 """
@@ -17,6 +18,9 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import cocoa_sdca as cuda_cocoa_sdca  # noqa: E402
+from repro_torch.kernels import dane_update as cuda_dane_update  # noqa: E402
+from repro_torch.kernels import fedavg_update as cuda_fedavg_update  # noqa: E402
 from repro_torch.kernels import fsvrg_update as cuda_fsvrg_update  # noqa: E402
 from repro_torch.kernels import scaled_aggregate as cuda_aggregate  # noqa: E402
 
@@ -106,6 +110,123 @@ def test_fsvrg_update_zero_h_rows_are_exact_noops():
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [1, 127, 999, 1000])
+def test_fedavg_update_matches_reference(d, dtype):
+    rng = np.random.default_rng(100 + d)
+    (jw, tw), (jg, tg) = (_both(rng.standard_normal(d).astype(np.float32),
+                                dtype) for _ in range(2))
+    h, lam = 0.3, 0.05
+    out = ops.fedavg_update(tw, tg, h, lam)
+    assert out.dtype == DTYPES[dtype][1] and out.shape == (d,)
+    tol = _tol(dtype)
+    for expect in (jref.fedavg_update_ref(jw, jg, h, lam),
+                   jops.fedavg_update(jw, jg, h, lam)):
+        np.testing.assert_allclose(_f32(out), _f32(expect), rtol=tol,
+                                   atol=tol * 10)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 127, 999, 1000])
+def test_dane_update_matches_reference(d, dtype):
+    rng = np.random.default_rng(200 + d)
+    j, t = zip(*[_both(rng.standard_normal(d).astype(np.float32), dtype)
+                 for _ in range(4)])
+    lr, lam, mu = 0.4, 0.03, 0.2
+    out = ops.dane_update(*t, lr, lam, mu)
+    assert out.dtype == DTYPES[dtype][1] and out.shape == (d,)
+    tol = _tol(dtype)
+    for expect in (jref.dane_update_ref(*j, lr, lam, mu),
+                   jops.dane_update(*j, lr, lam, mu)):
+        np.testing.assert_allclose(_f32(out), _f32(expect), rtol=tol,
+                                   atol=tol * 10)
+
+
+def _sdca_inputs(rng, d):
+    """test_kernel_parity.py's inputs: β₀ inside the box, m ~ N(0, 1),
+    c = |N(0, 1)|/2."""
+    return (rng.uniform(0.05, 0.95, d).astype(np.float32),
+            rng.standard_normal(d).astype(np.float32),
+            (np.abs(rng.standard_normal(d)) * 0.5).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 127, 999, 1000])
+def test_cocoa_sdca_update_matches_reference(d, dtype):
+    j, t = zip(*[_both(x, dtype)
+                 for x in _sdca_inputs(np.random.default_rng(300 + d), d)])
+    out = ops.cocoa_sdca_update(*t)
+    assert out.dtype == DTYPES[dtype][1] and out.shape == (d,)
+    tol = _tol(dtype)
+    for expect in (jref.cocoa_sdca_update_ref(*j),
+                   jops.cocoa_sdca_update(*j)):
+        np.testing.assert_allclose(_f32(out), _f32(expect), rtol=tol,
+                                   atol=tol * 10)
+    assert 0.0 < _f32(out).min() and _f32(out).max() < 1.0
+
+
+def test_cocoa_sdca_update_padding_and_clip():
+    """The reference's padding values (β₀ = ½, m = c = 0) are a fixed point
+    at ½; coordinates driven to either clip — |m| up to 40, c from 0 to the
+    main path's ≈ 10⁴ — agree with the reference's oracle.  Held at atol
+    1e-6: near the clip the Newton steps take log and 1/(β(1−β)) of
+    β ≈ 1e-6, where torch's and XLA's log may differ by an ulp (observed:
+    2.3e-10; 6.0e-8 on the parity inputs at d = 1000)."""
+    pad = torch.tensor([0.5, 0.5]), torch.zeros(2), torch.zeros(2)
+    assert torch.equal(ops.cocoa_sdca_update(*pad), torch.full((2,), 0.5))
+    rng = np.random.default_rng(17)
+    d = 400
+    b0 = rng.choice([1e-6, 0.5, 1.0 - 1e-6, 0.3], d).astype(np.float32)
+    m = (rng.choice([-1.0, 1.0], d) * rng.uniform(5.0, 40.0, d)).astype(
+        np.float32)
+    c = rng.choice([0.0, 1e-3, 1.0, 1e4], d).astype(np.float32)
+    out = ops.cocoa_sdca_update(torch.tensor(b0), torch.tensor(m),
+                                torch.tensor(c))
+    expect = jref.cocoa_sdca_update_ref(jnp.asarray(b0), jnp.asarray(m),
+                                        jnp.asarray(c))
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect), rtol=0,
+                               atol=1e-6)
+    near = (out.numpy() < 1e-4) | (out.numpy() > 1.0 - 1e-4)
+    assert near.mean() > 0.2
+    assert out.min() >= np.float32(1e-6) and out.max() <= np.float32(1 - 1e-6)
+
+
+def test_fedavg_and_dane_updates_batched_forms():
+    """(R, d) rows with per-row h (FedAvg) or a shared w^t row (DANE) equal
+    a row-by-row loop over the reference's 1-D oracles; h = 0 rows are
+    exact no-ops, and ``out=w`` updates in place."""
+    R, d = 6, 257
+    rng = np.random.default_rng(8)
+    w, g, a, wt = (rng.standard_normal((R, d)).astype(np.float32)
+                   for _ in range(4))
+    h = rng.uniform(0.1, 1.0, R).astype(np.float32)
+    h[::2] = 0.0
+    T, J = torch.tensor, jnp.asarray
+    lam = 0.05
+    out = ops.fedavg_update(T(w), T(g), T(h), lam)
+    for r in range(R):
+        expect = jref.fedavg_update_ref(J(w[r]), J(g[r]), float(h[r]), lam)
+        np.testing.assert_allclose(out[r].numpy(), np.asarray(expect),
+                                   rtol=1e-6, atol=1e-6)
+    assert torch.equal(out[::2], T(w[::2]))
+    tw = T(w)
+    assert ops.fedavg_update(tw, T(g), T(h), lam, out=tw) is tw
+    assert torch.equal(tw, out)
+    lr, mu = 0.3, 3.0
+    for shared in (False, True):
+        wt_in = wt[0] if shared else wt
+        out = ops.dane_update(T(w), T(g), T(a), T(wt_in), lr, lam, mu)
+        for r in range(R):
+            expect = jref.dane_update_ref(J(w[r]), J(g[r]), J(a[r]),
+                                          J(wt_in if shared else wt[r]), lr,
+                                          lam, mu)
+            np.testing.assert_allclose(out[r].numpy(), np.asarray(expect),
+                                       rtol=1e-6, atol=1e-6)
+    # lr = 0 is an exact no-op too
+    assert torch.equal(ops.dane_update(T(w), T(g), T(a), T(wt[0]), 0.0, lam,
+                                       mu), T(w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 127, 999, 1000])
 @pytest.mark.parametrize("K", [1, 8, 9, 33])
 def test_fused_aggregate_matches_reference(K, d, dtype):
     rng = np.random.default_rng(K * 1000 + d)
@@ -168,7 +289,17 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     assert torch.equal(
         ops.fsvrg_update(x[0], x[1], x[2], x[0][0], x[1][0], wts),
         ref.fsvrg_update_ref(x[0], x[1], x[2], x[0][0], x[1][0], wts))
+    assert torch.equal(ops.fedavg_update(x[0], x[1], wts, 0.1),
+                       ref.fedavg_update_ref(x[0], x[1], wts, 0.1))
+    assert torch.equal(ops.dane_update(x[0], x[1], x[2], x[0][0], 0.3, 0.1, 2.),
+                       ref.dane_update_ref(x[0], x[1], x[2], x[0][0], 0.3,
+                                           0.1, 2.))
+    b0 = torch.sigmoid(x[0][0])
+    assert torch.equal(ops.cocoa_sdca_update(b0, x[1][0], x[2][0].abs()),
+                       ref.cocoa_sdca_update_ref(b0, x[1][0], x[2][0].abs()))
     assert ops.launch_counts() == before
+    assert set(before) == {"fused_aggregate", "fsvrg_update", "fedavg_update",
+                           "dane_update", "cocoa_sdca_update"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -179,6 +310,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_aggregate.fused_aggregate(v, v[None], torch.ones(1), v)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fsvrg_update.fsvrg_update(v, v, v, v, v, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fedavg_update.fedavg_update(v, v, 0.5, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_dane_update.dane_update(v, v, v, v, 0.5, 0.1, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cocoa_sdca.cocoa_sdca_update(v, v, v)
 
 
 def test_aggregate_splits_fill_the_card_at_paper_shape():
