@@ -7,12 +7,15 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. record the machine: torch and CUDA versions, ``nvcc --version``, whether
    ``import triton`` works, the card's name and power limit;
-2. build the five kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the six kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print the build seconds and each
    library's register and spill report;
 3. hold each kernel, and the three aggregation wrappers, against its plain
    PyTorch version on the card, at the main paths' shapes and at ragged
-   small ones, with the stated tolerance;
+   small ones, with the stated tolerance (``robust_aggregate`` also at
+   m = 0, 1, 2, heavy ties, the f32 floor of trim·m, bf16 deltas and
+   non-finite valid rows); then the card's threefry draws, fleet masks and
+   fault kinds against the CPU's, bit for bit;
 4. run the four solvers of Fig. 2 that the port has kernels for at the
    paper's full width — ``generate`` of the §4 config (K = 10,000 clients,
    d = 20,002 features, n = 2,166,693 examples) and ``build_problem`` once,
@@ -21,11 +24,20 @@ Phases, in order (any failure raises and exits non-zero):
    counts set to 0 just before each solver and read just after; then each
    solver on a small problem on the card and on the CPU (plain versions)
    with the same data and draws, which must agree;
-5. time each kernel, its plain version and a PyTorch yardstick with CUDA
+5. the fault-tolerant rounds at full width: a fleet trace, delta faults
+   (NaN / sign / scale / replay) and a guard — FSVRG with the trimmed
+   mean, FedAvg with the median (both through ``robust_aggregate``),
+   CoCoA+ with the clip guard — 3 rounds each, counts set to 0 just before
+   each and read just after, the robust kernel's m checked against the
+   realized cohort minus the poisoned clients every round; the same faults
+   unguarded must stop FSVRG in round 0; then the three on a small problem
+   on the card and on the CPU, which must agree;
+6. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
-   card could take), break one full-width round of each solver into its
-   parts, and trace one round of each solver for the device's idle share;
-6. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
+   card could take), break one full-width round of each plain solver into
+   its parts, and trace one plain round of each solver for the device's
+   idle share;
+7. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -50,6 +62,7 @@ TPU_KERNELS = {
     "fedavg_update": "src/repro/kernels/fedavg_update.py:39",
     "dane_update": "src/repro/kernels/dane_update.py:51",
     "cocoa_sdca_update": "src/repro/kernels/cocoa_sdca.py:55",
+    "robust_aggregate": "src/repro/kernels/robust_aggregate.py:67",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -58,6 +71,7 @@ SOURCES = {
     "fedavg_update": CSRC + "fedavg_update.cu",
     "dane_update": CSRC + "dane_update.cu",
     "cocoa_sdca_update": CSRC + "cocoa_sdca.cu",
+    "robust_aggregate": CSRC + "robust_aggregate.cu",
 }
 #: solver -> the local-step kernel its client pass launches
 STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
@@ -65,6 +79,13 @@ STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
 # about 20 f32 operations a Newton step (log and divisions counted as one)
 # and 5 for the start: the SDCA solve's work per coordinate at 12 steps
 SDCA_OPS_PER_COORD = 5 + 12 * 20
+#: the fault-tolerant runs: solver -> its guard; all share one fleet trace
+#: and one fault mix (the reference's campaign defaults, scaled up)
+GUARDED = {"fsvrg": dict(aggregator_guard="trimmed_mean", guard_trim=0.1),
+           "fedavg": dict(aggregator_guard="median"),
+           "cocoa": dict(aggregator_guard="clip")}
+FAULT_RATES = dict(nan_rate=0.01, sign_rate=0.05, scale_rate=0.02,
+                   replay_rate=0.02)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -89,11 +110,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_logreg_config
-    from repro_torch.core import (DANE, FSVRG, CoCoAPlus, FedAvg, Trainer,
+    from repro_torch.core import (DANE, FSVRG, CoCoAPlus, FedAvg,
+                                  NonFiniteIterateError, Trainer,
                                   build_problem, make_solver)
     from repro_torch.core.problem import LogRegProblem
     from repro_torch.data import generate
+    from repro_torch.fleet import (DeltaFaults, FleetTrace,
+                                   TraceParticipation, fault_counts,
+                                   fleet_masks)
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import robust_aggregate as ra_kernel
+    from repro_torch.utils import threefry
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 yardsticks
     dev = torch.device("cuda")
@@ -258,7 +285,104 @@ def main() -> int:
         zero = torch.zeros_like(pad)
         require(torch.equal(ops.cocoa_sdca_update(pad, zero, zero), pad),
                 "padding slots moved")
+    # the order-statistic update: valid ≈ 40 % from the fleet trace's
+    # round 0 at the main path's K; the window's sum is taken in another
+    # order than the plain version's
+    trace = FleetTrace(seed=SEED)
+    ids_k = torch.arange(K, device=dev)
+    valid_k = fleet_masks(trace, 0, ids_k).returned > 0
+    m_trace = int(valid_k.sum())
+
+    def robust(label, w_t, x, v, a, trim, mode, exact=False):
+        got = ops.robust_aggregate(w_t, x, v, a, trim, mode)
+        require(ra_kernel.robust_aggregate.last_m == int((v > 0).sum()),
+                f"robust_aggregate {label}: m read back wrong")
+        expect = ref.robust_aggregate_ref(w_t, x, v, a, trim, mode)
+        if exact:
+            require(torch.equal(got, expect), f"robust_aggregate {label} "
+                    "is not the plain version bit for bit")
+            log(f"[check] robust_aggregate {label}: bit-equal")
+            return 0.0
+        both_nan = torch.isnan(got) & torch.isnan(expect)
+        err = torch.where(both_nan, 0.0, (got - expect).abs())
+        bound = 1e-6 + 1e-5 * expect.abs()
+        ok = bool(((err <= bound) | (got == expect) | both_nan).all())
+        worst = float(err.nan_to_num(0.0, posinf=0.0).max())
+        log(f"[check] robust_aggregate {label}: max_abs_err {worst:.3e} "
+            "(tolerance 1e-06 + 1e-05·|plain|; NaN and ±inf where the "
+            "plain version has them)")
+        require(ok, f"robust_aggregate {label} disagrees")
+        return worst
+
+    deltas = randn((K, d), scale=0.01)
+    w_t, a = randn(d), rand(d) * 3 + 1
+    for mode in ("trimmed_mean", "median"):
+        err = robust(f"K={K} d={d} m={m_trace} {mode}", w_t, deltas,
+                     valid_k, a, 0.1, mode)
+        max_err["robust_aggregate"] = max(max_err.get("robust_aggregate",
+                                                      0.0), err)
+    del deltas
+    for KK in (1, 127, 999):
+        for dd in (1, 127, 999):
+            x, w1, a1 = randn((KK, dd)), randn(dd), rand(dd) + 0.5
+            v = rand(KK) < 0.6
+            for mode in ("trimmed_mean", "median"):
+                robust(f"K={KK} d={dd} m={int(v.sum())} {mode}", w1, x, v,
+                       a1, 0.25, mode)
+    x, w1, a1 = randn((150, 513)), randn(513), rand(513) + 0.5
+    every = torch.ones(150, dtype=torch.bool, device=dev)
+    sparse = x * (rand((150, 513)) < 0.05)
+    odd = torch.arange(150, device=dev) % 3 > 0
+    bad = x.clone()
+    bad[3, :40] = float("inf")
+    bad[4, 20:60] = float("-inf")
+    bad[5, 50:90] = float("nan")
+    bad[6:9, :5] = float("nan")
+    require(ref.robust_window(150, 0.42, "trimmed_mean") == (62, 88),
+            "the f32 floor of 0.42·150 is not 62")
+    for mode in ("trimmed_mean", "median"):
+        robust(f"m=0 {mode}", w1, x, torch.zeros_like(every), a1, 0.1, mode,
+               exact=True)
+        require(torch.equal(ops.robust_aggregate(
+            w1, x, torch.zeros_like(every), a1, 0.1, mode), w1),
+            "m = 0 moved w^t")
+        for m in (1, 2):
+            v = torch.zeros_like(every)
+            v[[7, 100][:m]] = True
+            robust(f"m={m} {mode}", w1, x, v, a1, 0.1, mode)
+        robust(f"heavy ties (95 % zeros) {mode}", w1, sparse, every, a1,
+               0.1, mode)
+        robust(f"trim=0.42 m=150 (lo=62) {mode}", w1, x, every, a1, 0.42,
+               mode)
+        robust(f"bf16 deltas {mode}", w1, x.to(torch.bfloat16), odd, a1,
+               0.25, mode)
+        for v, label in ((every, "all valid"), (odd, "2/3 valid")):
+            robust(f"valid rows holding ±inf/NaN, {label}, {mode}", w1, bad,
+                   v, a1, 0.25, mode)
     torch.cuda.empty_cache()
+
+    # the card's threefry and everything drawn from it: the CPU's bits
+    ids_c = torch.arange(K)
+    key = threefry.fold_in(threefry.PRNGKey(SEED), 997)
+    kc, kg = threefry.fold_in(key, ids_c), threefry.fold_in(key, ids_k)
+    require(all(torch.equal(x, y.cpu()) for x, y in zip(kc, kg)),
+            "fold_in on the card differs from the CPU")
+    for shape, lo, hi in (((), 0.0, 1.0), ((64,), -1.0, 1.0)):
+        require(torch.equal(threefry.uniform(kc, shape, lo, hi),
+                            threefry.uniform(kg, shape, lo, hi).cpu()),
+                f"uniform {shape} on the card differs from the CPU")
+    faults = DeltaFaults(seed=SEED, **FAULT_RATES)
+    for r in range(ROUNDS):
+        mc, mg = fleet_masks(trace, r, ids_c), fleet_masks(trace, r, ids_k)
+        require(torch.equal(mc.available, mg.available.cpu())
+                and torch.equal(mc.returned, mg.returned.cpu()),
+                f"fleet masks of round {r} differ between card and CPU")
+        require(torch.equal(faults.kinds(r, ids_c),
+                            faults.kinds(r, ids_k).cpu()),
+                f"fault kinds of round {r} differ between card and CPU")
+    log(f"[check] threefry fold_in / uniform, fleet masks and fault kinds "
+        f"at K={K}, rounds 0-{ROUNDS - 1}: card == CPU bit for bit "
+        f"(round 0 returns {m_trace} clients)")
 
     # -- 4. the main paths at full width ----------------------------------- #
     phase("main paths")
@@ -299,13 +423,10 @@ def main() -> int:
         grads[0] += 1
         return plain_grad(self, w)
 
-    LogRegProblem.grad = counted_grad
-    runs = {}
-    for name in STEP_KERNEL:
-        t0 = time.perf_counter()
-        solver = make_solver(name, prob, aggregator="pallas")
-        sync()
-        t_make = time.perf_counter() - t0
+    def drive(name, solver, on_round=None):
+        """Run ``solver`` for ROUNDS rounds with the launch counts set to
+        0 just before and read just after; seconds per round exclude the
+        loss evaluation; ``on_round(state, r)`` runs after each round."""
         eval_s, round_s, round_end = [], [], [0.0]
 
         def eval_fn(w):
@@ -319,7 +440,10 @@ def main() -> int:
             sync()
             now = time.perf_counter()
             round_s.append(now - round_end[0] - eval_s[-1])
-            round_end[0] = now
+            if on_round is not None:
+                on_round(state, r)
+            sync()
+            round_end[0] = time.perf_counter()
 
         torch.cuda.reset_peak_memory_stats()
         sync()
@@ -330,17 +454,28 @@ def main() -> int:
                       callback=callback).fit()
         sync()
         launches = ops.launch_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        hist = [h["f"] for h in res.history]
-        runs[name] = dict(solver=solver, res=res, launches=launches,
-                          round_s=round_s, eval_s=eval_s)
+        return dict(solver=solver, res=res, launches=launches,
+                    round_s=round_s, eval_s=eval_s,
+                    hist=[h["f"] for h in res.history],
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    grads=grads[0])
+
+    LogRegProblem.grad = counted_grad
+    runs = {}
+    for name in STEP_KERNEL:
+        t0 = time.perf_counter()
+        solver = make_solver(name, prob, aggregator="pallas")
+        sync()
+        t_make = time.perf_counter() - t0
+        run_ = runs[name] = drive(name, solver)
+        res, launches, hist = run_["res"], run_["launches"], run_["hist"]
         kernel = STEP_KERNEL[name]
         expected = ROUNDS * local_steps(name, solver)
         log(f"[main] {name}: make_solver {t_make:.2f} s; loss: round 0 "
             f"{f0:.6f} -> " + " -> ".join(f"{f:.6f}" for f in hist))
         log(f"[main] {name}: seconds per round " + ", ".join(
-            f"{s:.3f}" for s in round_s) + f"; peak device memory "
-            f"{peak_gb:.2f} GB; full gradients {grads[0]}")
+            f"{s:.3f}" for s in run_["round_s"]) + f"; peak device memory "
+            f"{run_['peak_gb']:.2f} GB; full gradients {run_['grads']}")
         log(f"[main] {name}: launches {launches} (expected {kernel} "
             f"{expected}, fused_aggregate {ROUNDS})")
         require(all(f == f and abs(f) != float("inf") for f in hist),
@@ -377,9 +512,8 @@ def main() -> int:
         require(all(v == 0 for k, v in launches.items()
                     if k not in (kernel, "fused_aggregate")),
                 f"{name}: launched another solver's kernel")
-        require(grads[0] == (ROUNDS if name in ("fsvrg", "dane") else 0),
+        require(run_["grads"] == (ROUNDS if name in ("fsvrg", "dane") else 0),
                 f"{name}: not one full gradient per round")
-    LogRegProblem.grad = plain_grad
 
     # each solver on a small problem, kernels on the card vs plain versions
     # on the CPU, same data and the same permutations (drawn on the CPU
@@ -400,14 +534,21 @@ def main() -> int:
                "dane": DANE, "cocoa": shared_draws(CoCoAPlus)}
     small = generate(get_logreg_config().scaled(0.002), seed=SEED,
                      device="cpu")
-    for name, cls in classes.items():
-        ws = []
+
+    def small_runs(name, **kw):
+        """The iterate after ROUNDS rounds on the CPU and on the card."""
+        ws, engines = [], []
         for device in ("cpu", "cuda"):
             p = build_problem(small, device=device)
-            cfg_s = make_solver(name, p, device=device,
-                                aggregator="pallas").cfg
-            sv = cls(p, cfg=cfg_s, device=device)
+            cfg_s = make_solver(name, p, device=device, aggregator="pallas",
+                                **kw).cfg
+            sv = classes[name](p, cfg=cfg_s, device=device)
             ws.append(Trainer(sv, rounds=ROUNDS, seed=SEED).fit().w.cpu())
+            engines.append(sv.engine)
+        return ws, engines
+
+    for name in classes:
+        ws, _ = small_runs(name)
         scale = float(ws[0].abs().max())
         err = float((ws[1] - ws[0]).abs().max())
         log(f"[main] {name} small problem (scale 0.002) card vs CPU after "
@@ -415,7 +556,102 @@ def main() -> int:
             "(tolerance 1e-4·max|w|: summation order and FMA contraction)")
         require(err <= 1e-4 * scale, f"{name}: card and CPU runs disagree")
 
-    # -- 5. timing ----------------------------------------------------------- #
+    # -- 5. the fault-tolerant rounds at full width ----------------------- #
+    phase("faulted paths")
+    participation = TraceParticipation(trace)
+    ids_k = torch.arange(prob.num_clients, device=dev)
+    offsets = [int(x) for x in torch.tensor(
+        [0] + [b.num_clients for b in prob.buckets]).cumsum(0)[:-1]]
+    sizes = [b.num_clients for b in prob.buckets]
+    fault_runs = {}
+    for name, guard in GUARDED.items():
+        solver = make_solver(name, prob, aggregator="pallas",
+                             participation_model=participation,
+                             fault_model=faults, **guard)
+        per_round = []
+
+        def on_round(state, r, name=name, per_round=per_round):
+            require(bool(torch.isfinite(state.w).all()),
+                    f"{name}: non-finite iterate in faulted round {r}")
+            avail, returned = participation.mask_components(
+                None, r, offsets, sizes, dev)
+            ret = torch.cat(returned)
+            injected, poisoned = fault_counts(faults, r, ids_k, ret)
+            row = dict(drawn=int(torch.cat(avail).sum()),
+                       realized=int(ret.sum()), injected=injected,
+                       poisoned=poisoned,
+                       m=ra_kernel.robust_aggregate.last_m)
+            ra_kernel.robust_aggregate.last_m = None
+            per_round.append(row)
+
+        run_ = fault_runs[name] = drive(name, solver, on_round)
+        launches, hist = run_["launches"], run_["hist"]
+        kernel = STEP_KERNEL[name]
+        order_stat = guard["aggregator_guard"] != "clip"
+        for r, (row, sec, f) in enumerate(zip(per_round, run_["round_s"],
+                                              hist)):
+            log(f"[fault] {name} + {guard['aggregator_guard']} round {r}: "
+                f"{sec:.3f} s, loss {f:.6f}; available {row['drawn']}, "
+                f"returned (realized cohort) {row['realized']}, faulted "
+                f"{row['injected']}, poisoned {row['poisoned']}; robust m "
+                f"{row['m']}")
+            if order_stat:
+                require(row["m"] == row["realized"] - row["poisoned"],
+                        f"{name}: robust_aggregate's m is not the realized "
+                        "cohort minus the poisoned clients")
+            require(f == f and abs(f) != float("inf"),
+                    f"{name}: non-finite loss under faults")
+        log(f"[fault] {name}: peak device memory {run_['peak_gb']:.2f} GB; "
+            f"launches {launches}")
+        expected = {kernel: ROUNDS * local_steps(name, solver),
+                    "robust_aggregate": ROUNDS if order_stat else 0,
+                    "fused_aggregate": 0 if order_stat else ROUNDS}
+        require(all(launches[k] == v for k, v in expected.items())
+                and all(v == 0 for k, v in launches.items()
+                        if k not in expected),
+                f"{name}: faulted launch counts {launches}, expected "
+                f"{expected}")
+    # the same faults unguarded: the poison reaches the iterate in round 0
+    unguarded = make_solver("fsvrg", prob, aggregator="pallas",
+                            participation_model=participation,
+                            fault_model=faults)
+    try:
+        Trainer(unguarded, rounds=1, seed=SEED).fit()
+        raise RuntimeError("chip_smoke: unguarded faults left the iterate "
+                           "finite")
+    except NonFiniteIterateError as e:
+        require(e.round_index == 0, "unguarded faults broke a later round")
+        log(f"[fault] fsvrg unguarded under the same faults: "
+            f"NonFiniteIterateError in round {e.round_index}, as required")
+    del unguarded
+    LogRegProblem.grad = plain_grad
+    torch.cuda.empty_cache()
+
+    # card vs CPU on the small problem: every fault kind at 10 % (20
+    # clients would rarely see the full-width rates), the same trace
+    small_faults = DeltaFaults(seed=SEED, nan_rate=0.1, sign_rate=0.1,
+                               scale_rate=0.1, replay_rate=0.1)
+    for name, guard in GUARDED.items():
+        ws, engines = small_runs(name, participation_model=participation,
+                                 fault_model=small_faults, **guard)
+        for r in range(ROUNDS):
+            mc, mg = (e.participation_masks(None, r) for e in engines)
+            require(all(torch.equal(x, y.cpu()) for x, y in zip(mc, mg)),
+                    f"{name}: small-problem masks differ, round {r}")
+            ids = torch.arange(engines[0].problem.num_clients)
+            require(torch.equal(small_faults.kinds(r, ids),
+                                small_faults.kinds(r, ids.to(dev)).cpu()),
+                    f"{name}: small-problem fault kinds differ, round {r}")
+        scale = float(ws[0].abs().max())
+        err = float((ws[1] - ws[0]).abs().max())
+        log(f"[fault] {name} + {guard['aggregator_guard']} small problem "
+            f"card vs CPU after {ROUNDS} rounds: masks and fault kinds "
+            f"bit-equal; max_abs_err {err:.3e}, max |w| {scale:.3e} "
+            "(tolerance 1e-4·max|w|)")
+        require(err <= 1e-4 * scale,
+                f"{name}: faulted card and CPU runs disagree")
+
+    # -- 6. timing ----------------------------------------------------------- #
     phase("timing")
 
     def cuda_ms(fn, iters=20, warmup=3):
@@ -442,8 +678,9 @@ def main() -> int:
         return dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=TPU_KERNELS[name],
-            # over the four main-path runs (fused_aggregate runs in each)
-            launches=sum(r["launches"][name] for r in runs.values()),
+            # over the four plain and the three faulted runs
+            launches=sum(r["launches"][name] for r in (*runs.values(),
+                                                        *fault_runs.values())),
             max_abs_err=max_err[name], ms=cuda_ms(kernel_fn),
             plain_ms=cuda_ms(plain_fn), bound_ms=b_ms, bound_by=b_by,
             library_ms=None if library_fn is None else cuda_ms(library_fn))
@@ -457,19 +694,30 @@ def main() -> int:
             f"{r['bound_ms'] / r['ms']:.1%} of the bound")
 
     # one full-width round of each solver, in parts: the prelude (the full
-    # gradient, FSVRG and DANE), each bucket's client pass, aggregation
+    # gradient, FSVRG and DANE), each bucket's client pass, aggregation;
+    # for the faulted runs also the trace's mask draw and the fault
+    # injection (a round past the runs', so the draws are new)
     K, d = prob.num_clients, prob.d
-    for name, run_ in runs.items():
+    for name, run_, faulted in ([(n, r_, False) for n, r_ in runs.items()]
+                                + [(n, r_, True)
+                                   for n, r_ in fault_runs.items()]):
         solver, res = run_["solver"], run_["res"]
         w = res.w
+        eng = solver.engine
         gen = torch.Generator(device=dev).manual_seed(SEED)
+        masks, mask_s, fault_s = None, 0.0, 0.0
+        if faulted:
+            sync()
+            t = time.perf_counter()
+            masks = eng.participation_masks(gen, ROUNDS)
+            sync()
+            mask_s = time.perf_counter() - t
         sync()
         t = time.perf_counter()
         ctx = (prob.flat.grad(w),) if name in ("fsvrg", "dane") else ()
         sync()
         prelude_s = time.perf_counter() - t
         deltas = torch.empty((K, d), device=dev)
-        eng = solver.engine
         pass_s = []
         for bi, (wi, b) in enumerate(zip(eng._offsets, prob.buckets)):
             out = deltas[wi:wi + b.num_clients]
@@ -481,20 +729,30 @@ def main() -> int:
                 solver._pass(w, bi, b, gen, out, *ctx)
             sync()
             pass_s.append(time.perf_counter() - t)
+            if faulted:
+                t = time.perf_counter()
+                eng._faulted(out, ROUNDS, bi, masks[bi])
+                sync()
+                fault_s += time.perf_counter() - t
         sync()
         t = time.perf_counter()
-        eng.aggregate(w, deltas)
+        eng.aggregate(w, deltas, masks)
         sync()
         agg_s = time.perf_counter() - t
-        if name == "fsvrg":
+        if name == "fsvrg" and not faulted:
             fsvrg_deltas = deltas      # timed below under fused_aggregate
         del deltas
         n_steps = local_steps(name, solver)
         eval_s = run_["eval_s"]
-        log(f"[time] {name}: one full-width round, in parts: prelude "
-            f"{prelude_s:.4f} s, client passes {sum(pass_s):.3f} s over "
-            f"{n_steps} batched local steps ({sum(pass_s) / n_steps * 1e6:.1f}"
-            " µs a step; by bucket " + ", ".join(f"{s:.3f}" for s in pass_s)
+        label = (f"{name} + {GUARDED[name]['aggregator_guard']} under faults"
+                 if faulted else name)
+        log(f"[time] {label}: one full-width round, in parts: "
+            + (f"trace masks {mask_s:.4f} s, fault injection {fault_s:.4f} "
+               "s, " if faulted else "")
+            + f"prelude {prelude_s:.4f} s, client passes {sum(pass_s):.3f} s"
+            f" over {n_steps} batched local steps "
+            f"({sum(pass_s) / n_steps * 1e6:.1f} µs a step; by bucket "
+            + ", ".join(f"{s:.3f}" for s in pass_s)
             + f" s), aggregation {agg_s:.4f} s, loss eval "
             f"{sum(eval_s) / len(eval_s):.4f} s")
         torch.cuda.empty_cache()
@@ -583,6 +841,37 @@ def main() -> int:
         "cocoa_sdca_update", lambda: ops.cocoa_sdca_update(b0, m, c),
         lambda: ref.cocoa_sdca_update_ref(b0, m, c),
         4 * 4 * Kb, SDCA_OPS_PER_COORD * Kb))
+    # the order-statistic update at the full shape, over the trace's round-0
+    # cohort (the faulted runs' m) and over every client; the bound counts
+    # the valid rows the function must read, (m·d·4 + K + 3·d·4) B; the
+    # yardstick is torch.sort of the masked stack (the sort alone)
+    deltas = randn((K, d), scale=0.01)
+    w_r, a_r = randn(d), rand(d) * 3 + 1
+    every = torch.ones(K, dtype=torch.bool, device=dev)
+    cohort = fleet_masks(trace, 0, torch.arange(K, device=dev)).returned > 0
+    robust_rows = []
+    for v in (cohort, every):
+        m = int(v.sum())
+        masked = torch.where(v[:, None], deltas, float("inf"))
+        robust_rows.append(row(
+            "robust_aggregate",
+            lambda v=v: ops.robust_aggregate(w_r, deltas, v, a_r, 0.1,
+                                             "trimmed_mean"),
+            lambda v=v: ref.robust_aggregate_ref(w_r, deltas, v, a_r, 0.1,
+                                                 "trimmed_mean"),
+            m * d * 4 + K + 3 * d * 4, m * d,
+            lambda masked=masked: torch.sort(masked, dim=0)))
+        robust_rows[-1]["m"] = m
+        del masked
+    for r in robust_rows:
+        log(f"[time] robust_aggregate at m = {r['m']} (K = {K}, trimmed "
+            f"mean): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"torch.sort of the masked stack {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms (bytes of the m valid rows; "
+            f"{(K * d * 4 + K + 3 * d * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"for all K rows); {r['bound_ms'] / r['ms']:.1%} of the bound")
+    rows.append({k: v for k, v in robust_rows[0].items() if k != "m"})
+    del deltas
     for r in rows:
         report(r)
     require(sorted(r["name"] for r in rows) == sorted(SOURCES),
@@ -621,7 +910,7 @@ def main() -> int:
                 f"{e.count:7d}× {e.key[:90]}")
     phase("done")
 
-    # -- 6. the result -------------------------------------------------------- #
+    # -- 7. the result -------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,16 +4,22 @@ dataset and solver state on a chosen device.
 The tests build the same problem in both packages by handing the
 reference's ``FederatedDataset`` (numpy arrays) to :func:`dataset_from_arrays`
 and the reference's iterate and per-client state to
-:func:`state_from_array`.  Anything with the
-same attribute names works: nothing here imports the reference.
+:func:`state_from_array`, and the same fleet by handing its ``FleetTrace``
+and ``DeltaFaults`` (plain dataclasses) to :func:`trace_from_config` and
+:func:`faults_from_config`.  Anything with the same attribute names works:
+nothing here imports the reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core.solver import SolverState
 from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.fleet.faults import DeltaFaults
+from repro_torch.fleet.traces import FleetTrace
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -53,3 +59,20 @@ def state_from_array(w, round_index: int = 0, device: DeviceLike = None, *,
         w=tensor_from_array(w, torch.float32, device),
         aux=tuple(tensor_from_array(a, torch.float32, device) for a in aux),
         round=int(round_index))
+
+
+def _fields_of(cls, cfg) -> dict:
+    """``cfg``'s values of the fields of dataclass ``cls``."""
+    src = (dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg)
+           else vars(cfg))
+    return {f.name: src[f.name] for f in dataclasses.fields(cls)}
+
+
+def trace_from_config(trace) -> FleetTrace:
+    """The port's :class:`FleetTrace` with ``trace``'s fields."""
+    return FleetTrace(**_fields_of(FleetTrace, trace))
+
+
+def faults_from_config(faults) -> DeltaFaults:
+    """The port's :class:`DeltaFaults` with ``faults``'s fields."""
+    return DeltaFaults(**_fields_of(DeltaFaults, faults))

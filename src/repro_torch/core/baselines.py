@@ -7,6 +7,8 @@ n_k/n-weighted aggregate is exactly ``−h ∇f(w)`` (Σ_k n_k/n = 1).
 """
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import torch
 
 from repro_torch.core.engine import EngineConfig, RoundEngine
@@ -44,10 +46,22 @@ class DistributedGD(FederatedSolver):
     name = "gd"
 
     def __init__(self, problem: FederatedLogReg, stepsize: float = 2.0,
-                 aggregator: str = "dense", *, device: DeviceLike = None):
+                 aggregator: str = "dense", *, device: DeviceLike = None,
+                 participation_model: Optional[Any] = None,
+                 fault_model: Optional[Any] = None,
+                 aggregator_guard: Optional[str] = None,
+                 guard_clip_norm: Optional[float] = None,
+                 guard_trim: float = 0.1):
         self._bind(problem, device)
         self.stepsize = stepsize
-        self.engine = RoundEngine(problem, EngineConfig(aggregator=aggregator))
+        self.engine = RoundEngine(
+            problem,
+            EngineConfig(aggregator=aggregator,
+                         aggregator_guard=aggregator_guard,
+                         guard_clip_norm=guard_clip_norm,
+                         guard_trim=guard_trim),
+            participation_model=participation_model,
+            fault_model=fault_model)
         lam = problem.flat.lam
         gd_pass = lambda w, bi, b, gen, out: gd_client_pass(w, b, lam,
                                                             stepsize, out)
@@ -55,7 +69,8 @@ class DistributedGD(FederatedSolver):
 
     def round(self, state: SolverState,
               gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen),
+        return state.replace(w=self._round_fast(state.w, gen,
+                                                round_index=state.round),
                              round=state.round + 1)
 
 

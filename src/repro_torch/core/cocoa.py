@@ -16,13 +16,12 @@ coordinate of its own permutation — so each step's β-solve is one
 ``cocoa_sdca_update`` call over a (Kb,) vector.
 
 Not ported yet: ``PrimalMethod`` and ``DualMethod`` (they need
-``build_dense_problem``), and the streamed, cohort, virtual,
-participation-model, fault and guard options.
+``build_dense_problem``), and the streamed, cohort and virtual options.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -42,6 +41,18 @@ class CoCoAConfig:
     participation: float = 1.0     # i.i.d. per-round client participation
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # replace the Bernoulli draw with a repro_torch.fleet participation
+    # model (trace-driven availability and stragglers)
+    participation_model: Optional[Any] = None
+    # corrupt returned deltas through a repro_torch.fleet.faults fault
+    # model: the primal contribution is corrupted, never the dual blocks
+    fault_model: Optional[Any] = None
+    # robust server aggregation.  CoCoA+ aggregates with weighting="sum",
+    # so only "clip" composes (an order statistic would break
+    # w = (1/λn)Xα and is a config error)
+    aggregator_guard: Optional[str] = None
+    guard_clip_norm: Optional[float] = None
+    guard_trim: float = 0.1
 
 
 def sdca_local_pass_keyed(w: torch.Tensor, alpha: torch.Tensor,
@@ -107,7 +118,12 @@ class CoCoAPlus(FederatedSolver):
         self.engine = RoundEngine(
             problem,
             EngineConfig(weighting="sum", participation=cfg.participation,
-                         aggregator=cfg.aggregator),
+                         aggregator=cfg.aggregator,
+                         aggregator_guard=cfg.aggregator_guard,
+                         guard_clip_norm=cfg.guard_clip_norm,
+                         guard_trim=cfg.guard_trim),
+            participation_model=cfg.participation_model,
+            fault_model=cfg.fault_model,
         )
         self._round_fast = self.engine.compile_with_state(self._pass)
 
@@ -138,7 +154,8 @@ class CoCoAPlus(FederatedSolver):
 
     def round(self, state: SolverState,
               gen: torch.Generator) -> SolverState:
-        w, alphas = self._round_fast(state.w, state.aux, gen)
+        w, alphas = self._round_fast(state.w, state.aux, gen,
+                                     round_index=state.round)
         return SolverState(w=w, aux=alphas, round=state.round + 1)
 
 

@@ -17,13 +17,12 @@ client of a bucket at once:
     over ``svrg_steps`` sampled examples per client.
 
 Not ported yet: ``DANERidge`` and ``dane_svrg_round`` (they need
-``build_dense_problem``), and the streamed, cohort, virtual,
-participation-model, fault and guard options.
+``build_dense_problem``), and the streamed, cohort and virtual options.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -51,6 +50,16 @@ class DANEConfig:
     participation: float = 1.0     # i.i.d. per-round client participation
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # replace the Bernoulli draw with a repro_torch.fleet participation
+    # model (trace-driven availability and stragglers)
+    participation_model: Optional[Any] = None
+    # corrupt returned deltas through a repro_torch.fleet.faults fault model
+    fault_model: Optional[Any] = None
+    # robust server aggregation: None | "clip" | "trimmed_mean" | "median"
+    # (see EngineConfig.aggregator_guard)
+    aggregator_guard: Optional[str] = None
+    guard_clip_norm: Optional[float] = None
+    guard_trim: float = 0.1
 
     def __post_init__(self):
         if self.local_solver not in _SOLVERS:
@@ -156,7 +165,12 @@ class DANE(FederatedSolver):
         self.engine = RoundEngine(
             problem,
             EngineConfig(participation=cfg.participation, weighting="uniform",
-                         aggregator=cfg.aggregator),
+                         aggregator=cfg.aggregator,
+                         aggregator_guard=cfg.aggregator_guard,
+                         guard_clip_norm=cfg.guard_clip_norm,
+                         guard_trim=cfg.guard_trim),
+            participation_model=cfg.participation_model,
+            fault_model=cfg.fault_model,
         )
         prelude = lambda w: (self.problem.flat.grad(w),)
         self._round_fast = self.engine.compile(self._pass, prelude=prelude)
@@ -182,7 +196,8 @@ class DANE(FederatedSolver):
 
     def round(self, state: SolverState,
               gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen),
+        return state.replace(w=self._round_fast(state.w, gen,
+                                                round_index=state.round),
                              round=state.round + 1)
 
 

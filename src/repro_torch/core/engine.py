@@ -24,15 +24,29 @@ Randomness: the round's ``torch.Generator`` is drawn from in a fixed order
 — first the participation masks of every bucket (once per round, shared by
 every consumer), then whatever the client passes draw, bucket by bucket.
 
-Not ported yet: streamed (``client_chunk``), cohort and virtual rounds,
-participation and fault models, and aggregator guards.  ``compile`` and
-``compile_with_state`` are the same eager rounds as ``reference`` and
-``reference_with_state`` for now.
+Fault tolerance (the reference's fleet layer on the plain round):
+
+  * ``participation_model`` (:mod:`repro_torch.fleet.participation`)
+    replaces the Bernoulli draw — e.g. trace-driven availability and
+    stragglers, a pure function of ``(trace.seed, round_index)``;
+  * ``fault_model`` (:mod:`repro_torch.fleet.faults`) corrupts each
+    bucket's returned deltas right after its pass — the wire, not the
+    client: CoCoA+'s α is whatever the honest pass computed;
+  * ``EngineConfig.aggregator_guard`` is the server's defence: ``"clip"``
+    zeroes every delta with a non-finite coordinate (and caps the norms at
+    ``guard_clip_norm``) before the weighted sum; ``"trimmed_mean"`` and
+    ``"median"`` replace the weighted sum with a coordinate-wise order
+    statistic over the returned, all-finite deltas (the
+    ``robust_aggregate`` kernel) — no weights, no reweighting.
+
+Not ported yet: streamed (``client_chunk``), cohort and virtual rounds.
+``compile`` and ``compile_with_state`` are the same eager rounds as
+``reference`` and ``reference_with_state`` for now.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +66,8 @@ StateClientPassFn = Callable[..., torch.Tensor]
 _WEIGHTINGS = ("nk", "uniform", "sum")
 _SCALINGS = ("none", "diag")
 _AGGREGATORS = ("dense", "pallas")
+_GUARDS = ("clip", "trimmed_mean", "median")
+_ORDER_STAT_GUARDS = ("trimmed_mean", "median")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +78,15 @@ class EngineConfig:
     weighting: str = "nk"          # "nk" (n_k/n) | "uniform" (1/K) | "sum" (1)
     server_scaling: str = "none"   # "none" | "diag" (apply a_diag coordinatewise)
     aggregator: str = "dense"      # "dense" | "pallas" (fused_aggregate kernel)
+    # the server's defence against corrupted deltas: None | "clip" (reject
+    # non-finite deltas, optionally cap norms at guard_clip_norm) |
+    # "trimmed_mean" | "median" (coordinate-wise order statistics over the
+    # returned, all-finite deltas; robust_aggregate kernel)
+    aggregator_guard: Optional[str] = None
+    # L2 norm cap per client delta; requires aggregator_guard="clip"
+    guard_clip_norm: Optional[float] = None
+    # per-side trim fraction for aggregator_guard="trimmed_mean"
+    guard_trim: float = 0.1
 
     def __post_init__(self):
         if self.weighting not in _WEIGHTINGS:
@@ -72,6 +97,29 @@ class EngineConfig:
             raise ValueError(f"aggregator must be one of {_AGGREGATORS}")
         if not 0.0 < self.participation <= 1.0:
             raise ValueError("participation must be in (0, 1]")
+        if (self.aggregator_guard is not None
+                and self.aggregator_guard not in _GUARDS):
+            raise ValueError(f"aggregator_guard must be one of {_GUARDS} "
+                             "or None")
+        if (self.aggregator_guard in _ORDER_STAT_GUARDS
+                and self.weighting == "sum"):
+            raise ValueError(
+                "order-statistic guards replace the weighted sum with "
+                "an unweighted coordinate-wise statistic; "
+                "weighting='sum' (dual methods tracking frozen dual "
+                "blocks) requires the exact plain sum — use "
+                "aggregator_guard='clip'")
+        if not 0.0 <= self.guard_trim < 0.5:
+            raise ValueError("guard_trim must be in [0, 0.5)")
+        if self.guard_clip_norm is not None:
+            if (isinstance(self.guard_clip_norm, bool)
+                    or not isinstance(self.guard_clip_norm, (int, float))
+                    or self.guard_clip_norm <= 0):
+                raise ValueError(
+                    "guard_clip_norm must be a positive number or None")
+            if self.aggregator_guard != "clip":
+                raise ValueError(
+                    "guard_clip_norm requires aggregator_guard='clip'")
 
 
 class RoundEngine:
@@ -80,9 +128,24 @@ class RoundEngine:
 
     def __init__(self, problem: FederatedLogReg,
                  cfg: EngineConfig = EngineConfig(), *,
-                 a_diag: Optional[torch.Tensor] = None):
+                 a_diag: Optional[torch.Tensor] = None,
+                 participation_model: Optional[Any] = None,
+                 fault_model: Optional[Any] = None):
         self.problem = problem
         self.cfg = cfg
+        if participation_model is not None and not hasattr(
+                participation_model, "masks"):
+            raise ValueError(
+                "participation_model must implement "
+                "masks(gen, round_index, offsets, sizes, device) — see "
+                "repro_torch.fleet.participation.ParticipationModel")
+        self.participation_model = participation_model
+        if fault_model is not None and not hasattr(fault_model, "apply"):
+            raise ValueError(
+                "fault_model must implement "
+                "apply(deltas, round_index, client_ids) — see "
+                "repro_torch.fleet.faults.FaultModel")
+        self.fault_model = fault_model
         if cfg.server_scaling == "diag" and a_diag is None:
             raise ValueError("server_scaling='diag' requires an a_diag")
         self.device = problem.device
@@ -94,6 +157,81 @@ class RoundEngine:
             offsets.append(wi)
             wi += b.num_clients
         self._offsets = tuple(offsets)
+        self._sizes = tuple(b.num_clients for b in problem.buckets)
+
+    def _round_index_arg(self, round_index: Optional[int]) -> int:
+        """The round the masks and faults are drawn for.  ``None`` is fine
+        for the Bernoulli draw and any round-invariant model, and an error
+        for round-dependent ones (traces, faults), whose draws are a
+        function of the round by contract."""
+        if round_index is None:
+            if getattr(self.participation_model, "needs_round_index",
+                       False):
+                raise ValueError(
+                    "this engine's participation model is round-dependent; "
+                    "pass round_index (solvers forward state.round)")
+            if (self.fault_model is not None and
+                    getattr(self.fault_model, "needs_round_index", True)):
+                raise ValueError(
+                    "this engine has a fault model; fault draws are a "
+                    "function of the round by contract — pass round_index "
+                    "(solvers forward state.round)")
+            return 0
+        return int(round_index)
+
+    # -- fault injection & guards ------------------------------------------ #
+
+    def _bucket_ids(self, bi: int) -> torch.Tensor:
+        """Global client ids of bucket ``bi`` — the identity fault and
+        trace draws fold in."""
+        wi = self._offsets[bi]
+        return torch.arange(wi, wi + self._sizes[bi], dtype=torch.int64,
+                            device=self.device)
+
+    def _faulted(self, deltas: torch.Tensor, r: int, bi: int,
+                 live: Optional[torch.Tensor]) -> None:
+        """Corrupt, in place, the *returned* clients' deltas of bucket
+        ``bi`` through the fault model.  A client left out of the round
+        keeps its honest delta: a NaN on a zero-weight row would still
+        poison the weighted sum (0·NaN = NaN), so the rows are selected,
+        not cancelled by their weight."""
+        bad = self.fault_model.apply(deltas, r, self._bucket_ids(bi))
+        if live is not None:
+            bad = torch.where(live.reshape(-1, 1) > 0, bad, deltas)
+        deltas.copy_(bad)
+
+    def _order_stat(self) -> bool:
+        return self.cfg.aggregator_guard in _ORDER_STAT_GUARDS
+
+    def _guard_clip(self, deltas: torch.Tensor) -> torch.Tensor:
+        """The "clip" guard, per client: zero any delta with a non-finite
+        coordinate, then cap the survivors' L2 norms at guard_clip_norm."""
+        if self.cfg.aggregator_guard != "clip":
+            return deltas
+        finite = torch.isfinite(deltas).all(dim=-1, keepdim=True)
+        safe = torch.where(finite, deltas, torch.zeros_like(deltas))
+        cn = self.cfg.guard_clip_norm
+        if cn is not None:
+            nrm = (safe.to(torch.float32) ** 2).sum(dim=-1,
+                                                    keepdim=True).sqrt()
+            # a tensor numerator: torch computes `scalar / tensor` as
+            # reciprocal(tensor) · scalar, one rounding more than JAX
+            fac = (torch.full_like(nrm, float(cn))
+                   / nrm.clamp(min=1e-30)).clamp(max=1.0)
+            safe = safe * fac.to(safe.dtype)
+        return safe
+
+    def _robust_apply(self, w: torch.Tensor, deltas: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+        """The order-statistic server update over the stacked (K, d)
+        deltas: rows that are not returned, or carry any non-finite
+        coordinate, are left out, and the coordinate-wise trimmed mean or
+        median of the rest updates the iterate."""
+        valid = valid & torch.isfinite(deltas).all(dim=1)
+        a = (self.a_diag if self.cfg.server_scaling == "diag"
+             else torch.ones_like(w))
+        return ops.robust_aggregate(w, deltas, valid, a, self.cfg.guard_trim,
+                                    self.cfg.aggregator_guard).to(w.dtype)
 
     # -- step 3: sampling & weighting ------------------------------------- #
 
@@ -106,11 +244,17 @@ class RoundEngine:
             return torch.ones((num_clients,), device=self.device)
         return self.problem.client_weights[wi:wi + num_clients]
 
-    def participation_masks(self, gen: torch.Generator
+    def participation_masks(self, gen: torch.Generator,
+                            round_index: Optional[int] = None
                             ) -> Optional[List[torch.Tensor]]:
         """The round's per-bucket Bernoulli(participation) masks (1.0 = in
         the round), drawn once from the round's generator; ``None`` under
-        full participation."""
+        full participation.  With a ``participation_model`` the draw is
+        the model's ``masks(gen, round_index, offsets, sizes, device)``."""
+        if self.participation_model is not None:
+            return self.participation_model.masks(
+                gen, self._round_index_arg(round_index), self._offsets,
+                self._sizes, self.device)
         if self.cfg.participation >= 1.0:
             return None
         return [(torch.rand((b.num_clients,), generator=gen,
@@ -133,10 +277,19 @@ class RoundEngine:
         ``deltas`` is the stacked (K, d) matrix in bucket-concatenated
         client order; ``masks`` are the round's
         :meth:`participation_masks` (``None`` only under full
-        participation)."""
+        participation).  Under an order-statistic guard the masks select
+        the rows of the statistic instead of weighting them."""
         cfg = self.cfg
-        if masks is None and cfg.participation < 1.0:
+        if (masks is None and cfg.participation < 1.0
+                and self.participation_model is None):
             raise ValueError("partial participation needs the round's masks")
+        if self._order_stat():
+            valid = (torch.cat(list(masks)) > 0 if masks is not None else
+                     torch.ones((deltas.shape[0],), dtype=torch.bool,
+                                device=deltas.device))
+            return self._robust_apply(w, deltas, valid)
+        if cfg.aggregator == "pallas":
+            deltas = self._guard_clip(deltas)
         reweight = masks is not None and cfg.weighting != "sum"
         agg = torch.zeros_like(w)
         wts_all: List[torch.Tensor] = []
@@ -153,8 +306,8 @@ class RoundEngine:
             if cfg.aggregator == "pallas":
                 wts_all.append(wts)
             else:
-                agg = agg + (wts[:, None]
-                             * deltas[wi:wi + b.num_clients]).sum(dim=0)
+                agg = agg + (wts[:, None] * self._guard_clip(
+                    deltas[wi:wi + b.num_clients])).sum(dim=0)
         scale = (self._reweight_scale(total_mass, expected_mass)
                  if reweight else None)
         diag = cfg.server_scaling == "diag"
@@ -173,34 +326,50 @@ class RoundEngine:
     # -- steps 2-4: one full round ----------------------------------------- #
 
     def round(self, w: torch.Tensor, gen: torch.Generator,
-              client_pass: ClientPassFn, *ctx) -> torch.Tensor:
+              client_pass: ClientPassFn, *ctx,
+              round_index: Optional[int] = None) -> torch.Tensor:
         """Draw the masks, run every bucket's client pass into the stacked
-        delta buffer, then aggregate."""
-        masks = self.participation_masks(gen)
+        delta buffer, corrupt each bucket's returned deltas through the
+        fault model (if any), then aggregate.  ``round_index`` feeds
+        round-dependent participation models and the fault draws."""
+        masks = self.participation_masks(gen, round_index)
+        r = (self._round_index_arg(round_index)
+             if self.fault_model is not None else None)
         deltas = torch.empty((self.problem.num_clients, self.problem.d),
                              dtype=w.dtype, device=w.device)
         for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
-            client_pass(w, bi, b, gen, deltas[wi:wi + b.num_clients], *ctx)
+            out = deltas[wi:wi + b.num_clients]
+            client_pass(w, bi, b, gen, out, *ctx)
+            if r is not None:
+                self._faulted(out, r, bi,
+                              masks[bi] if masks is not None else None)
         return self.aggregate(w, deltas, masks)
 
     def round_with_state(self, w: torch.Tensor,
                          states: Sequence[torch.Tensor], gen: torch.Generator,
-                         client_pass: StateClientPassFn, *ctx
+                         client_pass: StateClientPassFn, *ctx,
+                         round_index: Optional[int] = None
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """:meth:`round` for algorithms with per-client state: bucket i's
         pass receives ``states[i]`` and returns its new state.
 
         The round's masks are drawn once and serve both consumers: a client
         whose aggregation weight they zero also keeps its old state, bit
-        for bit, so primal and dual views never diverge."""
-        masks = self.participation_masks(gen)
+        for bit, so primal and dual views never diverge.  Faults hit the
+        delta only, never the state."""
+        masks = self.participation_masks(gen, round_index)
+        r = (self._round_index_arg(round_index)
+             if self.fault_model is not None else None)
         deltas = torch.empty((self.problem.num_clients, self.problem.d),
                              dtype=w.dtype, device=w.device)
         new_states: List[torch.Tensor] = []
         for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
             old = states[bi]
-            new = client_pass(w, bi, b, old, gen,
-                              deltas[wi:wi + b.num_clients], *ctx)
+            out = deltas[wi:wi + b.num_clients]
+            new = client_pass(w, bi, b, old, gen, out, *ctx)
+            if r is not None:
+                self._faulted(out, r, bi,
+                              masks[bi] if masks is not None else None)
             if masks is not None:
                 sel = masks[bi].reshape((b.num_clients,)
                                         + (1,) * (new.dim() - 1))
@@ -210,12 +379,14 @@ class RoundEngine:
 
     def reference(self, client_pass: ClientPassFn, *,
                   prelude: Optional[Callable] = None) -> Callable:
-        """``round(w, gen) -> w_next``: the prelude's results are appended
-        to the client pass's arguments."""
+        """``round(w, gen, round_index=None) -> w_next``: the prelude's
+        results are appended to the client pass's arguments."""
 
-        def reference_round(w: torch.Tensor, gen: torch.Generator):
+        def reference_round(w: torch.Tensor, gen: torch.Generator, *,
+                            round_index: Optional[int] = None):
             ctx = tuple(prelude(w)) if prelude is not None else ()
-            return self.round(w, gen, client_pass, *ctx)
+            return self.round(w, gen, client_pass, *ctx,
+                              round_index=round_index)
 
         return reference_round
 
@@ -227,14 +398,17 @@ class RoundEngine:
 
     def reference_with_state(self, client_pass: StateClientPassFn, *,
                              prelude: Optional[Callable] = None) -> Callable:
-        """``round(w, states, gen) -> (w_next, new_states)`` over
+        """``round(w, states, gen, round_index=None) -> (w_next,
+        new_states)`` over
         :meth:`round_with_state`, the prelude's results appended to the
         client pass's arguments as in :meth:`reference`."""
 
-        def reference_round(w: torch.Tensor, states, gen: torch.Generator):
+        def reference_round(w: torch.Tensor, states, gen: torch.Generator, *,
+                            round_index: Optional[int] = None):
             ctx = tuple(prelude(w)) if prelude is not None else ()
-            w2, new_states = self.round_with_state(w, list(states), gen,
-                                                   client_pass, *ctx)
+            w2, new_states = self.round_with_state(
+                w, list(states), gen, client_pass, *ctx,
+                round_index=round_index)
             return w2, tuple(new_states)
 
         return reference_round

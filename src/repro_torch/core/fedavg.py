@@ -13,13 +13,12 @@ of epoch e is one batched step of every client over its own permutation,
 and padded permutation slots are exact no-ops (their step size is
 h_eff = valid·h = 0).
 
-Not ported yet: the streamed, cohort, virtual, participation-model, fault
-and guard options.
+Not ported yet: the streamed, cohort and virtual options.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -39,6 +38,16 @@ class FedAvgConfig:
     use_weighted_agg: bool = True  # n_k/n (True) vs uniform 1/K averaging
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # replace the Bernoulli draw with a repro_torch.fleet participation
+    # model (trace-driven availability and stragglers)
+    participation_model: Optional[Any] = None
+    # corrupt returned deltas through a repro_torch.fleet.faults fault model
+    fault_model: Optional[Any] = None
+    # robust server aggregation: None | "clip" | "trimmed_mean" | "median"
+    # (see EngineConfig.aggregator_guard)
+    aggregator_guard: Optional[str] = None
+    guard_clip_norm: Optional[float] = None
+    guard_trim: float = 0.1
 
 
 def local_sgd_pass_keyed(w0: torch.Tensor, bucket: ClientBucket, lam: float,
@@ -100,7 +109,12 @@ class FedAvg(FederatedSolver):
                 participation=cfg.participation,
                 weighting="nk" if cfg.use_weighted_agg else "uniform",
                 aggregator=cfg.aggregator,
+                aggregator_guard=cfg.aggregator_guard,
+                guard_clip_norm=cfg.guard_clip_norm,
+                guard_trim=cfg.guard_trim,
             ),
+            participation_model=cfg.participation_model,
+            fault_model=cfg.fault_model,
         )
         self._round_fast = self.engine.compile(self._pass)
 
@@ -121,7 +135,8 @@ class FedAvg(FederatedSolver):
 
     def round(self, state: SolverState,
               gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen),
+        return state.replace(w=self._round_fast(state.w, gen,
+                                                round_index=state.round),
                              round=state.round + 1)
 
 

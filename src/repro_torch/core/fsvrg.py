@@ -15,13 +15,13 @@ slots are exact no-ops (their step size is 0).  The local step itself is
 the ``fsvrg_update`` kernel (the reference computes the same step inline).
 
 Not ported yet: the naive Algorithm 3 (its with-replacement sampling needs
-the bit-exact threefry of a later slice), and the streamed, cohort, virtual,
-participation-model, fault and guard options.
+the rest of the bit-exact threefry, a later slice), and the streamed,
+cohort and virtual options.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -46,6 +46,16 @@ class FSVRGConfig:
     participation: float = 1.0
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # replace the Bernoulli draw with a repro_torch.fleet participation
+    # model (trace-driven availability and stragglers)
+    participation_model: Optional[Any] = None
+    # corrupt returned deltas through a repro_torch.fleet.faults fault model
+    fault_model: Optional[Any] = None
+    # robust server aggregation: None | "clip" | "trimmed_mean" | "median"
+    # (see EngineConfig.aggregator_guard)
+    aggregator_guard: Optional[str] = None
+    guard_clip_norm: Optional[float] = None
+    guard_trim: float = 0.1
 
 
 def client_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
@@ -138,8 +148,13 @@ class FSVRG(FederatedSolver):
                 weighting="nk" if cfg.use_weighted_agg else "uniform",
                 server_scaling="diag" if cfg.use_A else "none",
                 aggregator=cfg.aggregator,
+                aggregator_guard=cfg.aggregator_guard,
+                guard_clip_norm=cfg.guard_clip_norm,
+                guard_trim=cfg.guard_trim,
             ),
             a_diag=self.a_diag,
+            participation_model=cfg.participation_model,
+            fault_model=cfg.fault_model,
         )
         # the full gradient is the round's own communication (Alg. 4 line 3)
         prelude = lambda w: (self.problem.flat.grad(w),)
@@ -160,7 +175,8 @@ class FSVRG(FederatedSolver):
 
     def round(self, state: SolverState,
               gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen),
+        return state.replace(w=self._round_fast(state.w, gen,
+                                                round_index=state.round),
                              round=state.round + 1)
 
 

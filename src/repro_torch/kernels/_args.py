@@ -48,6 +48,32 @@ def operand(kernel: str, x: torch.Tensor, name: str, w: torch.Tensor,
     return 0
 
 
+def stack(kernel: str, deltas: torch.Tensor) -> Tuple[int, int]:
+    """Check a stack of client deltas: a non-empty contiguous (K, d) CUDA
+    matrix of f32 or bf16.  Returns (K, d)."""
+    require(kernel, isinstance(deltas, torch.Tensor) and deltas.is_cuda,
+            "deltas must be a CUDA tensor")
+    require(kernel, deltas.dim() == 2 and deltas.is_contiguous(),
+            "deltas must be a contiguous (K, d) matrix, got "
+            f"{tuple(deltas.shape)}")
+    require(kernel, deltas.dtype in DTYPES,
+            f"deltas must be float32 or bfloat16, got {deltas.dtype}")
+    K, d = deltas.shape
+    require(kernel, K >= 1 and d >= 1, "deltas must be non-empty")
+    return K, d
+
+
+def vector(kernel: str, x: torch.Tensor, n: int, name: str,
+           device: torch.device) -> None:
+    """Check a contiguous f32 (n,) vector on ``device``."""
+    require(kernel, isinstance(x, torch.Tensor) and x.device == device,
+            f"{name} must be a tensor on {device}")
+    require(kernel, x.dtype == torch.float32, f"{name} must be float32")
+    require(kernel, x.shape == (n,) and x.is_contiguous(),
+            f"{name} must be a contiguous ({n},) vector, got "
+            f"{tuple(x.shape)}")
+
+
 def step_size(kernel: str, h: Union[float, torch.Tensor], w: torch.Tensor
               ) -> Tuple[Optional[int], float, int]:
     """A float, a one-value f32 tensor, or one f32 value per row of a 2-D

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
@@ -33,6 +33,7 @@ SOURCES = {
     "fedavg_update": "fedavg_update.cu",
     "dane_update": "dane_update.cu",
     "cocoa_sdca": "cocoa_sdca.cu",
+    "robust_aggregate": "robust_aggregate.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -43,7 +44,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-#: C signatures of the launchers (all return int = cudaError_t)
+#: C signatures of each library's main launcher (all return int =
+#: cudaError_t); EXTRA_SIGNATURES lists a library's other launchers
 SIGNATURES = {
     "fused_aggregate": ("fused_aggregate_launch",
                         [_P, _I, _P, _P, _P, _P, _F, _P, _P, _L, _L, _L, _I,
@@ -56,6 +58,12 @@ SIGNATURES = {
     "dane_update": ("dane_update_launch",
                     [_P, _P, _P, _P, _I, _F, _F, _F, _P, _L, _L, _L, _P]),
     "cocoa_sdca": ("cocoa_sdca_launch", [_P, _P, _P, _I, _P, _L, _I, _P]),
+    "robust_aggregate": ("robust_sort_launch",
+                         [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _P,
+                          _P]),
+}
+EXTRA_SIGNATURES = {
+    "robust_aggregate": {"robust_compact_launch": [_P, _I, _P, _P, _P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -124,18 +132,21 @@ def build_log(name: str) -> str:
     return log.read_text(errors="replace") if log.exists() else ""
 
 
-def launcher(name: str):
-    """The C launcher of library ``name``, built and loaded on first use."""
+def launcher(name: str, fn_name: Optional[str] = None):
+    """The C launcher ``fn_name`` (default: the main one) of library
+    ``name``, built and loaded on first use."""
     lib = _LOADED.get(name)
     if lib is None:
         build_all()
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        main, argtypes = SIGNATURES[name]
+        for fname, types in {main: argtypes,
+                             **EXTRA_SIGNATURES.get(name, {})}.items():
+            fn = getattr(lib, fname)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
         _LOADED[name] = lib
-    return getattr(lib, SIGNATURES[name][0])
+    return getattr(lib, fn_name or SIGNATURES[name][0])
 
 
 def check(err: int, name: str) -> None:

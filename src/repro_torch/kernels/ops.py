@@ -17,6 +17,7 @@ from repro_torch.kernels import dane_update as _du
 from repro_torch.kernels import fedavg_update as _fa
 from repro_torch.kernels import fsvrg_update as _fu
 from repro_torch.kernels import ref
+from repro_torch.kernels import robust_aggregate as _ra
 from repro_torch.kernels import scaled_aggregate as _sa
 
 Scalar = Union[float, torch.Tensor]
@@ -28,6 +29,7 @@ KERNELS = {
     "fedavg_update": _fa.fedavg_update,
     "dane_update": _du.dane_update,
     "cocoa_sdca_update": _cs.cocoa_sdca_update,
+    "robust_aggregate": _ra.robust_aggregate,
 }
 
 
@@ -104,3 +106,19 @@ def scaled_aggregate(w_t: torch.Tensor, w_ks: torch.Tensor,
     if _on_cpu(w_ks):
         return ref.scaled_aggregate_ref(w_t, w_ks, weights, a_diag)
     return _sa.scaled_aggregate(w_t, w_ks, weights, a_diag)
+
+
+def robust_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
+                     valid: torch.Tensor, a_diag: torch.Tensor,
+                     trim: float = 0.1,
+                     mode: str = "trimmed_mean") -> torch.Tensor:
+    """w^t + A ⊙ (coordinate-wise trimmed mean or median of the valid
+    rows of ``deltas``), in f32."""
+    if mode not in ref.ROBUST_MODES:
+        raise ValueError(f"mode must be one of {ref.ROBUST_MODES}")
+    if not 0.0 <= trim < 0.5:
+        raise ValueError("trim must be in [0, 0.5)")
+    if _on_cpu(deltas):
+        return ref.robust_aggregate_ref(w_t, deltas, valid, a_diag, trim,
+                                        mode)
+    return _ra.robust_aggregate(w_t, deltas, valid, a_diag, trim, mode)

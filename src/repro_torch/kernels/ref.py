@@ -143,3 +143,52 @@ def scaled_aggregate_ref(w_t: torch.Tensor, w_ks: torch.Tensor,
     wt = _f32(w_t)
     delta = ((_f32(w_ks) - wt[None, :]) * _f32(weights)[:, None]).sum(dim=0)
     return wt + _f32(a_diag) * delta
+
+
+#: the order-statistic guards robust_aggregate computes
+ROBUST_MODES = ("trimmed_mean", "median")
+
+
+def robust_window(m: int, trim: float, mode: str) -> tuple:
+    """The rank window [lo, hi) of the sorted valid values that the
+    statistic averages, for ``m`` valid rows: the trimmed mean drops
+    lo = ⌊f32(trim)·f32(m)⌋ values on each side (the product rounded in f32,
+    as the reference rounds it), the median keeps the one or two middle
+    ranks.  (0, 0) for m = 0: no update."""
+    if mode not in ROBUST_MODES:
+        raise ValueError("mode must be 'trimmed_mean' or 'median'")
+    if m <= 0:
+        return 0, 0
+    if mode == "median":
+        return (m - 1) // 2, m // 2 + 1
+    lo = int(torch.floor(torch.tensor(trim, dtype=_F32)
+                         * torch.tensor(float(m), dtype=_F32)))
+    return lo, m - lo
+
+
+def robust_aggregate_ref(w_t: torch.Tensor, deltas: torch.Tensor,
+                         valid: torch.Tensor, a_diag: torch.Tensor,
+                         trim: float = 0.1,
+                         mode: str = "trimmed_mean") -> torch.Tensor:
+    """w^t + A ⊙ robust_agg({δ_k : valid_k}), in f32.
+
+    ``robust_agg`` is the coordinate-wise trimmed mean (drop the
+    ``trim``-fraction smallest and largest per coordinate, average the
+    rest) or median over the valid rows (``valid`` (K,) bool or {0,1}).
+    Invalid rows are +inf and sort past the rank window; NaN sorts after
+    +inf, as in ``jnp.sort``.  No valid row: no update."""
+    x = torch.where(valid.reshape(-1, 1) > 0, _f32(deltas),
+                    torch.tensor(float("inf"), dtype=_F32,
+                                 device=deltas.device))
+    xs = torch.sort(x, dim=0).values
+    m = int((valid > 0).sum())
+    lo, hi = robust_window(m, trim, mode)
+    ranks = torch.arange(xs.shape[0], device=xs.device)[:, None]
+    inc = (ranks >= lo) & (ranks < hi)
+    agg = torch.where(inc, xs, torch.zeros((), dtype=_F32,
+                                           device=xs.device)).sum(dim=0)
+    # a tensor divisor: torch multiplies by the reciprocal of a Python one
+    agg = agg / torch.full_like(agg, float(max(hi - lo, 1)))
+    if m == 0:
+        agg = torch.zeros_like(agg)
+    return _f32(w_t) + _f32(a_diag) * agg

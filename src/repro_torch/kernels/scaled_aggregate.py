@@ -27,15 +27,6 @@ def _require(cond: bool, msg: str) -> None:
     _args.require("fused_aggregate", cond, msg)
 
 
-def _vector(x: torch.Tensor, n: int, name: str, device) -> None:
-    _require(isinstance(x, torch.Tensor) and x.device == device,
-             f"{name} must be a tensor on {device}")
-    _require(x.dtype == torch.float32, f"{name} must be float32")
-    _require(x.shape == (n,) and x.is_contiguous(),
-             f"{name} must be a contiguous ({n},) vector, got "
-             f"{tuple(x.shape)}")
-
-
 def splits_for(K: int, d: int) -> int:
     """How many parts the K axis is cut into: enough that the grid holds
     about TARGET_BLOCKS blocks, but no part shorter than MIN_ROWS rows.
@@ -52,19 +43,11 @@ def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
     """w_t, a_diag: (d,) f32; deltas: (K, d) f32 or bf16, contiguous;
     weights: (K,) f32; scale: a float or a 0-d f32 tensor on the device.
     Returns a new (d,) f32 tensor."""
-    _require(isinstance(deltas, torch.Tensor) and deltas.is_cuda,
-             "deltas must be a CUDA tensor")
+    K, d = _args.stack("fused_aggregate", deltas)
     dev = deltas.device
-    _require(deltas.dim() == 2 and deltas.is_contiguous(),
-             "deltas must be a contiguous (K, d) matrix, got "
-             f"{tuple(deltas.shape)}")
-    _require(deltas.dtype in _args.DTYPES,
-             f"deltas must be float32 or bfloat16, got {deltas.dtype}")
-    K, d = deltas.shape
-    _require(K >= 1 and d >= 1, "deltas must be non-empty")
-    _vector(w_t, d, "w_t", dev)
-    _vector(a_diag, d, "a_diag", dev)
-    _vector(weights, K, "weights", dev)
+    for x, n, name in ((w_t, d, "w_t"), (a_diag, d, "a_diag"),
+                       (weights, K, "weights")):
+        _args.vector("fused_aggregate", x, n, name, dev)
     if isinstance(scale, torch.Tensor):
         _require(scale.device == dev and scale.dtype == torch.float32
                  and scale.numel() == 1,

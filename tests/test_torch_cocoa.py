@@ -49,7 +49,7 @@ class ReferenceDrawsCoCoA(CoCoAPlus):
                                        for b in problem.buckets])
         self.masks = []
         if ref_engine is not None:
-            def masks(gen):
+            def masks(gen, round_index=None):
                 key = jax.random.fold_in(jax.random.PRNGKey(seed), self._r)
                 m = [torch.tensor(np.asarray(x))
                      for x in ref_engine.participation_masks(key)]

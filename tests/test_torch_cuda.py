@@ -9,7 +9,9 @@ Tolerances: the aggregation sums K in another order (splits of fused
 multiply-adds) than the plain version; the local steps contract into fused
 multiply-adds where the plain version rounds each operation; the SDCA
 Newton solve takes logf and divisions that may round an ulp apart from
-PyTorch's, over 12 steps.
+PyTorch's, over 12 steps; the robust aggregation sums its rank window in
+another order (atol 1e-6 + rtol 1e-5).  The threefry draws and everything
+made of them (fleet masks, fault kinds) are bit-equal to the CPU's.
 """
 import pytest
 
@@ -19,7 +21,11 @@ from repro_torch.core import (CoCoAPlus, FedAvg, Trainer,  # noqa: E402
                               build_problem, make_solver)
 from repro_torch.configs import get_logreg_config  # noqa: E402
 from repro_torch.data import generate  # noqa: E402
+from repro_torch.fleet import (DeltaFaults, FleetTrace,  # noqa: E402
+                               TraceParticipation, fleet_masks)
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import robust_aggregate as ra_kernel  # noqa: E402
+from repro_torch.utils import threefry  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -252,3 +258,140 @@ def test_new_solvers_small_runs_on_the_card(cuda, name):
                 "cocoa": ("cocoa_sdca_update", 3 * m_pads)}[name]
     assert counts[expected[0]] == expected[1]
     assert counts["fused_aggregate"] == 3
+
+
+def _robust_inputs(dev, K, d, dtype, rate, seed=0):
+    g = _gen(dev, seed)
+    wt = torch.randn(d, device=dev, generator=g)
+    a = torch.rand(d, device=dev, generator=g) + 0.5
+    deltas = torch.randn((K, d), device=dev, generator=g).to(dtype)
+    valid = torch.rand(K, device=dev, generator=g) < rate
+    return wt, deltas, valid, a
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,d,rate", [(1, 1, 1.0), (2, 127, 0.5),
+                                      (127, 127, 0.7), (999, 999, 0.4),
+                                      (999, 1, 1.0), (1, 999, 1.0),
+                                      (300, 20_002, 0.4)])
+def test_robust_aggregate_matches_plain(cuda, K, d, rate, dtype, mode):
+    wt, deltas, valid, a = _robust_inputs(cuda, K, d, dtype, rate)
+    for trim in (0.0, 0.1, 0.25, 0.49):
+        before = ops.launch_counts()["robust_aggregate"]
+        out = ops.robust_aggregate(wt, deltas, valid, a, trim, mode)
+        assert ops.launch_counts()["robust_aggregate"] == before + 1
+        assert ra_kernel.robust_aggregate.last_m == int(valid.sum())
+        torch.testing.assert_close(
+            out, ref.robust_aggregate_ref(wt, deltas, valid, a, trim, mode),
+            rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+def test_robust_aggregate_edge_cases(cuda, mode):
+    """m = 0 leaves w^t bit for bit; m = 1 and 2; heavy ties (mostly zero
+    columns); the f32 floor of trim·m (0.42 · 150 rounds to 62.999996, so
+    lo = 62); valid rows holding ±inf and NaN sort as jnp.sort sorts."""
+    wt, deltas, valid, a = _robust_inputs(cuda, 150, 513, torch.float32, 1.0)
+    none = torch.zeros(150, dtype=torch.bool, device=cuda)
+    assert torch.equal(ops.robust_aggregate(wt, deltas, none, a, 0.1, mode),
+                       wt)
+    for m in (1, 2):
+        v = torch.zeros(150, dtype=torch.bool, device=cuda)
+        v[[7, 100][:m]] = True
+        torch.testing.assert_close(
+            ops.robust_aggregate(wt, deltas, v, a, 0.1, mode),
+            ref.robust_aggregate_ref(wt, deltas, v, a, 0.1, mode),
+            rtol=1e-5, atol=1e-6)
+    sparse = deltas * (torch.rand(deltas.shape, device=cuda,
+                                  generator=_gen(cuda, 5)) < 0.05)
+    assert ref.robust_window(150, 0.42, "trimmed_mean") == (62, 88)
+    for x, trim in ((sparse, 0.1), (deltas, 0.42), (sparse, 0.42)):
+        torch.testing.assert_close(
+            ops.robust_aggregate(wt, x, valid, a, trim, mode),
+            ref.robust_aggregate_ref(wt, x, valid, a, trim, mode),
+            rtol=1e-5, atol=1e-6)
+    bad = deltas.clone()
+    bad[3, :40] = float("inf")
+    bad[4, 20:60] = float("-inf")
+    bad[5, 50:90] = float("nan")
+    bad[6:9, 0:5] = float("nan")
+    for v in (valid, torch.arange(150, device=cuda) % 3 > 0):
+        torch.testing.assert_close(
+            ops.robust_aggregate(wt, bad, v, a, 0.25, mode),
+            ref.robust_aggregate_ref(wt, bad, v, a, 0.25, mode),
+            rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+def test_robust_aggregate_rejects_what_it_does_not_take(cuda):
+    v = torch.zeros(16, device=cuda)
+    m = torch.zeros((4, 16), device=cuda)
+    ok = torch.ones(4, dtype=torch.bool, device=cuda)
+    for call in [lambda: ops.robust_aggregate(v, m.double(), ok, v),
+                 lambda: ops.robust_aggregate(v, m.t(), ok, v),
+                 lambda: ops.robust_aggregate(v, m, ok[:3], v),
+                 lambda: ops.robust_aggregate(v[:8], m, ok, v),
+                 lambda: ops.robust_aggregate(v, m, ok, v, 0.5),
+                 lambda: ops.robust_aggregate(v, m, ok, v, 0.1, "mean")]:
+        with pytest.raises(ValueError):
+            call()
+    K = ra_kernel.MAX_VALID + 1
+    big = torch.zeros((K, 2), device=cuda)
+    with pytest.raises(ValueError, match="capacity"):
+        ops.robust_aggregate(torch.zeros(2, device=cuda), big,
+                             torch.ones(K, dtype=torch.bool, device=cuda),
+                             torch.ones(2, device=cuda))
+
+
+def test_threefry_and_fleet_on_the_card_equal_the_cpu(cuda):
+    """fold_in, uniform, the fleet masks and the fault kinds and payloads
+    at K = 10,000 on the card are the CPU's, bit for bit."""
+    ids = torch.arange(10_000, dtype=torch.int64)
+    key = threefry.fold_in(threefry.PRNGKey(7), 3)
+    kc, kg = threefry.fold_in(key, ids), threefry.fold_in(key, ids.to(cuda))
+    assert all(torch.equal(x, y.cpu()) for x, y in zip(kc, kg))
+    for shape, lo, hi in (((), 0.0, 1.0), ((33,), -1.0, 1.0)):
+        assert torch.equal(threefry.uniform(kc, shape, lo, hi),
+                           threefry.uniform(kg, shape, lo, hi).cpu())
+    trace = FleetTrace(seed=0)
+    faults = DeltaFaults(seed=0, nan_rate=0.01, sign_rate=0.05,
+                         scale_rate=0.02, replay_rate=0.02)
+    deltas = torch.randn((10_000, 64), generator=torch.Generator()
+                         .manual_seed(0))
+    for r in (0, 1, 7):
+        mc = fleet_masks(trace, r, ids)
+        mg = fleet_masks(trace, r, ids.to(cuda))
+        assert torch.equal(mc.returned, mg.returned.cpu())
+        assert torch.equal(mc.available, mg.available.cpu())
+        assert torch.equal(faults.kinds(r, ids),
+                           faults.kinds(r, ids.to(cuda)).cpu())
+        torch.testing.assert_close(
+            faults.apply(deltas.to(cuda), r, ids.to(cuda)).cpu(),
+            faults.apply(deltas, r, ids), rtol=0, atol=0, equal_nan=True)
+
+
+def test_faulted_small_run_on_the_card(cuda):
+    """FSVRG with a trace, delta faults and the trimmed-mean guard for
+    three rounds on the card and on the CPU from the same data and draws
+    agrees to rtol 1e-4 of max |w|, with one robust_aggregate a round and
+    no fused_aggregate."""
+    from repro_torch.core import FSVRG
+    ds = generate(get_logreg_config().scaled(0.002), 0, device="cpu")
+    kw = dict(participation_model=TraceParticipation(FleetTrace(seed=0)),
+              fault_model=DeltaFaults(seed=0, nan_rate=0.1, sign_rate=0.1,
+                                      scale_rate=0.1, replay_rate=0.1),
+              aggregator_guard="trimmed_mean", aggregator="pallas")
+    ws, counts = [], None
+    for dev in ("cpu", cuda):
+        prob = build_problem(ds, device=dev)
+        cfg = make_solver("fsvrg", prob, device=dev, **kw).cfg
+        solver = _shared_draws(FSVRG)(prob, cfg, device=dev)
+        before = ops.launch_counts()
+        ws.append(Trainer(solver, rounds=3).fit().w.cpu())
+        after = ops.launch_counts()
+        counts = {k: after[k] - before[k] for k in after}
+    torch.testing.assert_close(ws[1], ws[0], rtol=1e-4,
+                               atol=1e-4 * float(ws[0].abs().max()))
+    assert counts["robust_aggregate"] == 3
+    assert counts["fused_aggregate"] == 0

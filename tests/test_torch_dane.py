@@ -153,7 +153,7 @@ def test_dane_partial_participation_matches_reference(small_problem,
              ref_solver.engine.participation_masks(key)]
     assert 0 < sum(float(m.sum()) for m in masks) < pp.num_clients
     solver = make_solver("dane", pp, device="cpu", participation=0.5)
-    solver.engine.participation_masks = lambda gen: masks
+    solver.engine.participation_masks = lambda gen, round_index=None: masks
     got = solver.round(state_from_array(w, 0, "cpu"), torch.Generator()).w
     scale = np.abs(expect - w).max()
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4,

@@ -153,7 +153,7 @@ def test_round_with_state_matches_reference(problems, participation,
     if masks is not None:
         masks = [torch.tensor(np.asarray(m)) for m in masks]
         assert 0 < sum(float(m.sum()) for m in masks) < pp.num_clients
-        port.participation_masks = lambda gen: masks
+        port.participation_masks = lambda gen, round_index=None: masks
     old = [torch.tensor(s) for s in states]
     w_got, s_got = port.round_with_state(torch.tensor(w), old,
                                          torch.Generator(), port_pass)

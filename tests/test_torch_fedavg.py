@@ -56,7 +56,7 @@ class ReferenceDrawsFedAvg(FedAvg):
         self._first = np.cumsum([0] + [b.num_clients
                                        for b in problem.buckets])
         if masks is not None:
-            self.engine.participation_masks = lambda gen: masks
+            self.engine.participation_masks = lambda gen, round_index=None: masks
 
     def round(self, state, gen):
         self._r = state.round

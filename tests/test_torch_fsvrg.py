@@ -189,7 +189,7 @@ def test_fsvrg_options_match_reference_for_one_round(small_problem,
         masks = [torch.tensor(np.array(m)) for m in
                  ref_solver.engine.participation_masks(key)]
         assert 0 < sum(float(m.sum()) for m in masks) < pp.num_clients
-        solver.engine.participation_masks = lambda gen: masks
+        solver.engine.participation_masks = lambda gen, round_index=None: masks
     got = solver.round(state_from_array(w, 0, "cpu"), torch.Generator()).w
     scale = np.abs(expect - w).max()
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4,

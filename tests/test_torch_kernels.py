@@ -22,6 +22,7 @@ from repro_torch.kernels import cocoa_sdca as cuda_cocoa_sdca  # noqa: E402
 from repro_torch.kernels import dane_update as cuda_dane_update  # noqa: E402
 from repro_torch.kernels import fedavg_update as cuda_fedavg_update  # noqa: E402
 from repro_torch.kernels import fsvrg_update as cuda_fsvrg_update  # noqa: E402
+from repro_torch.kernels import robust_aggregate as cuda_robust  # noqa: E402
 from repro_torch.kernels import scaled_aggregate as cuda_aggregate  # noqa: E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -297,9 +298,15 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     b0 = torch.sigmoid(x[0][0])
     assert torch.equal(ops.cocoa_sdca_update(b0, x[1][0], x[2][0].abs()),
                        ref.cocoa_sdca_update_ref(b0, x[1][0], x[2][0].abs()))
+    valid = torch.tensor([True, False, True, True])
+    assert torch.equal(
+        ops.robust_aggregate(x[0][0], x[1], valid, x[2][0], 0.25, "median"),
+        ref.robust_aggregate_ref(x[0][0], x[1], valid, x[2][0], 0.25,
+                                 "median"))
     assert ops.launch_counts() == before
     assert set(before) == {"fused_aggregate", "fsvrg_update", "fedavg_update",
-                           "dane_update", "cocoa_sdca_update"}
+                           "dane_update", "cocoa_sdca_update",
+                           "robust_aggregate"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -316,6 +323,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_dane_update.dane_update(v, v, v, v, 0.5, 0.1, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_cocoa_sdca.cocoa_sdca_update(v, v, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_robust.robust_aggregate(v, v[None], torch.ones(1, dtype=bool), v)
 
 
 def test_aggregate_splits_fill_the_card_at_paper_shape():
