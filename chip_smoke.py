@@ -7,15 +7,17 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. record the machine: torch and CUDA versions, ``nvcc --version``, whether
    ``import triton`` works, the card's name and power limit;
-2. build the six kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the seven kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print the build seconds and each
    library's register and spill report;
 3. hold each kernel, and the three aggregation wrappers, against its plain
    PyTorch version on the card, at the main paths' shapes and at ragged
    small ones, with the stated tolerance (``robust_aggregate`` also at
    m = 0, 1, 2, heavy ties, the f32 floor of trim·m, bf16 deltas and
-   non-finite valid rows); then the card's threefry draws, fleet masks and
-   fault kinds against the CPU's, bit for bit;
+   non-finite valid rows; ``wkv6`` at the serving prefill's shape, at
+   small shapes, with bf16 inputs and strong decays, and refusing a
+   ragged S); then the card's threefry draws, fleet masks and fault kinds
+   against the CPU's, bit for bit;
 4. run the four solvers of Fig. 2 that the port has kernels for at the
    paper's full width — ``generate`` of the §4 config (K = 10,000 clients,
    d = 20,002 features, n = 2,166,693 examples) and ``build_problem`` once,
@@ -32,12 +34,21 @@ Phases, in order (any failure raises and exits non-zero):
    realized cohort minus the poisoned clients every round; the same faults
    unguarded must stop FSVRG in round 0; then the three on a small problem
    on the card and on the CPU, which must agree;
-6. time each kernel, its plain version and a PyTorch yardstick with CUDA
+6. serve rwkv6-3b at full width (32 layers, d 2,560, vocab 65,536, bf16,
+   seeded random weights): ``build_model`` → ``launch.serve.serve`` of 8
+   prompts of 2,048 tokens and 32 greedy decode steps, counts set to 0
+   just before and read just after (``wkv6`` once a layer in the prefill,
+   never in decode), logits, states and tokens checked; a second timed
+   run; one prompt's prefill against 256 decode steps from an empty cache
+   (kernel against the sequential WKV); the reduced config on the card
+   against the CPU with the same weights;
+7. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
-   card could take), break one full-width round of each plain solver into
-   its parts, and trace one plain round of each solver for the device's
-   idle share;
-7. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
+   card could take), and the layout copies around ``wkv6``; break one
+   full-width round of each plain solver into its parts; trace one plain
+   round of each solver for the device's idle share, and one full-width
+   prefill for its busy share and top operations;
+8. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -63,6 +74,7 @@ TPU_KERNELS = {
     "dane_update": "src/repro/kernels/dane_update.py:51",
     "cocoa_sdca_update": "src/repro/kernels/cocoa_sdca.py:55",
     "robust_aggregate": "src/repro/kernels/robust_aggregate.py:67",
+    "wkv6": "src/repro/kernels/wkv6.py:71",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -72,6 +84,7 @@ SOURCES = {
     "dane_update": CSRC + "dane_update.cu",
     "cocoa_sdca_update": CSRC + "cocoa_sdca.cu",
     "robust_aggregate": CSRC + "robust_aggregate.cu",
+    "wkv6": CSRC + "wkv6.cu",
 }
 #: solver -> the local-step kernel its client pass launches
 STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
@@ -86,6 +99,14 @@ GUARDED = {"fsvrg": dict(aggregator_guard="trimmed_mean", guard_trim=0.1),
            "cocoa": dict(aggregator_guard="clip")}
 FAULT_RATES = dict(nan_rate=0.01, sign_rate=0.05, scale_rate=0.02,
                    replay_rate=0.02)
+#: the serving cell: rwkv6-3b at full width in bf16, REQUESTS prompts of
+#: PROMPT_LEN tokens, then DECODE_STEPS greedy decode steps
+ARCH = "rwkv6-3b"
+REQUESTS, PROMPT_LEN, DECODE_STEPS = 8, 2048, 32
+#: the full-width prefill-vs-decode check: one prompt of this length
+CONSISTENCY_LEN = 256
+#: decode steps traced for the device's idle share
+DECODE_PROFILED = 8
 
 
 def require(cond: bool, msg: str) -> None:
@@ -101,6 +122,232 @@ def run(cmd) -> str:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def wkv6_inputs(dev, gen, BH, S, D, dtype=None, spread=1.0):
+    """r, k, v ~ N(0, 1), RWKV-like decays w = exp(−exp(−6 + spread·N(0, 1)))
+    and a nonzero bonus u ~ 0.1·N(0, 1) (a fresh model's u is 0)."""
+    import torch
+    r, k, v = (torch.randn((BH, S, D), device=dev, generator=gen)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + spread * torch.randn(
+        (BH, S, D), device=dev, generator=gen)))
+    u = torch.randn((BH, D), device=dev, generator=gen) * 0.1
+    if dtype is not None:
+        r, k, v, w = (x.to(dtype) for x in (r, k, v, w))
+    return r, k, v, w, u
+
+
+def check_wkv6(dev, gen, compare) -> float:
+    """wkv6 against its plain version on the card; returns the max abs
+    error at the serving shape.
+
+    Tolerance |kernel − plain| ≤ 1e-6·max|plain| + rtol·|plain|: both add
+    the same f32 terms, the kernel in FMAs and its own order (atol scales
+    with the largest term summed, not with the element); rtol 1e-5 in f32,
+    1e-2 for a bf16 out (one bf16 ulp is 2^-8 relative).  The state is f32
+    in both."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    serving = (REQUESTS * 40, PROMPT_LEN, 64)
+    worst = 0.0
+    for (BH, S, D), chunk, dt, spread in [
+            (serving, 32, torch.float32, 1.0),
+            ((2, 32, 8), 32, torch.float32, 1.0),
+            ((2, 64, 8), 32, torch.float32, 1.0),
+            ((3, 96, 8), 32, torch.float32, 1.0),
+            ((2, 32, 64), 32, torch.float32, 1.0),
+            ((3, 64, 64), 32, torch.float32, 1.0),
+            ((2, 96, 64), 32, torch.float32, 1.0),
+            ((2, 16, 64), 16, torch.float32, 1.0),
+            ((4, 128, 64), 32, torch.bfloat16, 1.0),
+            ((4, 128, 64), 32, torch.float32, 3.0)]:
+        x = wkv6_inputs(dev, gen, BH, S, D, dt, spread)
+        out, st = ops.wkv6(*x, chunk)
+        torch.cuda.synchronize()
+        p_out, p_st = ref.wkv6_ref(*x, chunk)
+        label = (f"BH={BH} S={S} D={D} chunk={chunk} {dt} decay spread "
+                 f"{spread}")
+        require(out.dtype == dt and st.dtype == torch.float32,
+                f"wkv6 {label}: wrong output dtypes")
+        rtol = 1e-2 if dt == torch.bfloat16 else 1e-5
+        err = compare("wkv6", label + " out", out, p_out, rtol,
+                      1e-6 * float(p_out.float().abs().max()))
+        compare("wkv6", label + " state", st, p_st, 1e-5,
+                1e-6 * float(p_st.abs().max()))
+        if (BH, S, D) == serving:
+            worst = err
+        del x, out, st, p_out, p_st
+    r = torch.zeros((1, 33, 8), device=dev)
+    try:
+        ops.wkv6(r, r, r, r, torch.zeros((1, 8), device=dev))
+    except ValueError:
+        log("[check] wkv6 S=33 chunk=32: raises ValueError, as the TPU "
+            "kernel does")
+    else:
+        raise RuntimeError("chip_smoke: wkv6 took a ragged S")
+    return worst
+
+
+def serve_phase(dev, sync) -> dict:
+    """Serve rwkv6-3b at full width and check it: the main path's run with
+    its launch counts, a second timed run, the full-width prefill-vs-decode
+    check and the small card-vs-CPU check.  Returns what the timing and
+    profile phases need."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(ARCH)
+    Hn, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    log(f"[serve] {cfg.name} ({cfg.citation}): {cfg.num_layers} layers, "
+        f"d {cfg.d_model}, {Hn} heads of {hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B parameters, "
+        "bf16")
+    model = build_model(cfg, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    sync()
+    log(f"[serve] init {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (REQUESTS, PROMPT_LEN),
+                           generator=gen, device=dev)
+    V = cfg.vocab_size
+    runs = []
+    sync()
+    # what the earlier phases and the weights hold, apart from serving
+    held = torch.cuda.memory_allocated() / 1e9
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[serve] weights {weights / 1e9:.3f} GB; {held:.2f} GB allocated "
+        "before the runs (weights and the earlier phases' tensors)")
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        ops.reset_launch_counts()
+        res = serve(model, params, prompt, DECODE_STEPS + 1)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        runs.append((res, launches, peak))
+        n_tok = REQUESTS * PROMPT_LEN
+        log(f"[serve] run {i + 1}: prefill {REQUESTS} × {PROMPT_LEN} tokens "
+            f"in {res.prefill_s:.4f} s ({n_tok / res.prefill_s:.0f} tok/s); "
+            f"{DECODE_STEPS} decode steps in {res.decode_s:.4f} s "
+            f"({res.decode_s / DECODE_STEPS * 1e3:.2f} ms a step, "
+            f"{REQUESTS * DECODE_STEPS / res.decode_s:.1f} tok/s); peak "
+            f"{peak:.2f} GB allocated, {peak - held:.2f} GB above what was "
+            f"held before; launches {launches}")
+    res, launches, _ = runs[0]
+    # the main path: one wkv6 launch a layer in the prefill, none in decode
+    require(launches["wkv6"] == cfg.num_layers,
+            f"wkv6 launched {launches['wkv6']} times, not once a layer")
+    require(all(n == 0 for k, n in launches.items() if k != "wkv6"),
+            "serving launched another kernel")
+    require(res.tokens.shape == (REQUESTS, DECODE_STEPS + 1)
+            and bool(((res.tokens >= 0) & (res.tokens < V)).all()),
+            "generated tokens out of range")
+    require(res.logits.shape == (REQUESTS, V)
+            and bool(torch.isfinite(res.logits.float()).all()),
+            "non-finite logits")
+    require(res.cache["len"] == PROMPT_LEN + DECODE_STEPS, "cache length")
+    for j, layer in enumerate(res.cache["layers"]):
+        require(layer["wkv"].shape == (REQUESTS, Hn, hd, hd)
+                and bool(torch.isfinite(layer["wkv"]).all()),
+                f"layer {j}: non-finite wkv state")
+    require(torch.equal(runs[1][0].tokens, res.tokens),
+            "two runs generated different tokens")
+    log(f"[serve] launches in the main path's run: wkv6 "
+        f"{launches['wkv6']} (one a layer in the prefill; decode runs the "
+        "sequential WKV), every other kernel 0; tokens in [0, V), logits and all "
+        f"{cfg.num_layers} wkv states finite; first tokens "
+        f"{res.tokens[0, :8].tolist()}")
+
+    # full width: the prefill (wkv6 kernel) against token-by-token decode
+    # from an empty cache (sequential WKV, no kernel), same weights, in f32
+    # (the bf16 weights cast up) and in bf16.  f32: the two paths add the
+    # same terms in other orders, an error that grows with depth — held at
+    # 5e-4 of each quantity's max, which a bf16 computation (≈ 5e-2) fails.
+    # bf16: matmuls of 256 rows and of one row round apart and the error
+    # compounds over 32 layers; the two bf16 paths must stand closer to
+    # each other than the bf16 prefill stands to the f32 one.
+    one = prompt[:1, :CONSISTENCY_LEN]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    m32 = build_model(cfg, torch.float32)
+    p32 = copy.deepcopy(params).float()
+    out = {}
+    for name, m, p in (("f32", m32, p32), ("bf16", model, params)):
+        ops.reset_launch_counts()
+        logits_p, cache_p = m.prefill(p, {"tokens": one})
+        sync()
+        n_prefill = ops.launch_counts()["wkv6"]
+        ops.reset_launch_counts()
+        cache_d = m.init_cache(1, CONSISTENCY_LEN)
+        for t in range(CONSISTENCY_LEN):
+            logits_d, cache_d = m.decode_step(p, one[:, t:t + 1], cache_d)
+        sync()
+        n_decode = ops.launch_counts()["wkv6"]
+        require(n_prefill == cfg.num_layers and n_decode == 0,
+                f"wkv6 launches: prefill {n_prefill}, decode {n_decode}")
+        gaps = [rel(logits_p, logits_d)] + [
+            rel(a["wkv"], b["wkv"])
+            for a, b in zip(cache_p["layers"], cache_d["layers"])]
+        out[name] = (logits_p, [c["wkv"] for c in cache_p["layers"]], gaps)
+        log(f"[serve] {name} prefill vs {CONSISTENCY_LEN} decode steps "
+            f"(1 request, full width): wkv6 launches {n_prefill} / "
+            f"{n_decode}; logits max abs err {gaps[0]:.3e} of max |logit| "
+            f"{float(logits_d.float().abs().max()):.3f}; wkv states worst "
+            f"{max(gaps[1:]):.3e} (layer {gaps[1:].index(max(gaps[1:]))}) "
+            "of each layer's max")
+        del cache_p, cache_d
+    gaps32 = out["f32"][2]
+    require(max(gaps32) <= 5e-4,
+            "full-width f32 prefill and decode disagree (tolerance 5e-4)")
+    dist = [rel(out["bf16"][0], out["f32"][0])] + [
+        rel(a, b) for a, b in zip(out["bf16"][1], out["f32"][1])]
+    gaps16 = out["bf16"][2]
+    log(f"[serve] bf16 prefill vs f32 prefill: logits {dist[0]:.3e}, wkv "
+        f"states worst {max(dist[1:]):.3e} of the f32 max; bf16 prefill vs "
+        f"decode within it at every layer: "
+        f"{all(g <= e for g, e in zip(gaps16, dist))}")
+    require(all(g <= e for g, e in zip(gaps16, dist)),
+            "bf16 prefill and decode disagree by more than bf16 differs "
+            "from f32")
+    del m32, p32, out
+    torch.cuda.empty_cache()
+
+    # the reduced config in f32, the same weights on the card and the CPU;
+    # decode feeds both the CPU's greedy token.  f32 sums in other orders
+    # (cuBLAS, the kernel): 1e-4 of each quantity's max.
+    small = cfg.reduced()
+    m_cpu = build_model(small, torch.float32, "cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(SEED))
+    m_dev = build_model(small, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    toks = torch.randint(0, small.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(SEED))
+    lc, cc = m_cpu.prefill(p_cpu, {"tokens": toks})
+    ld, cd = m_dev.prefill(p_dev, {"tokens": toks.to(dev)})
+    errs = [rel(ld.cpu(), lc)]
+    errs += [rel(b[k].cpu(), a[k]) for a, b in zip(cc["layers"], cd["layers"])
+             for k in a]
+    for _ in range(4):
+        tok = lc.argmax(-1)[:, None]
+        lc, cc = m_cpu.decode_step(p_cpu, tok, cc)
+        ld, cd = m_dev.decode_step(p_dev, tok.to(dev), cd)
+        errs.append(rel(ld.cpu(), lc))
+    log(f"[serve] {small.name} f32 card vs CPU, prefill 2 × 64 and 4 decode "
+        f"steps: worst error {max(errs):.3e} of the quantity's max "
+        "(tolerance 1e-4)")
+    require(max(errs) <= 1e-4, "card and CPU serving disagree")
+    return dict(model=model, params=params, prompt=prompt,
+                launches=launches, runs=runs)
 
 
 def main() -> int:
@@ -383,6 +630,7 @@ def main() -> int:
     log(f"[check] threefry fold_in / uniform, fleet masks and fault kinds "
         f"at K={K}, rounds 0-{ROUNDS - 1}: card == CPU bit for bit "
         f"(round 0 returns {m_trace} clients)")
+    max_err["wkv6"] = check_wkv6(dev, g, compare)
 
     # -- 4. the main paths at full width ----------------------------------- #
     phase("main paths")
@@ -651,7 +899,12 @@ def main() -> int:
         require(err <= 1e-4 * scale,
                 f"{name}: faulted card and CPU runs disagree")
 
-    # -- 6. timing ----------------------------------------------------------- #
+    # -- 6. serving rwkv6-3b at full width ----------------------------------- #
+    phase("serving")
+    served = serve_phase(dev, sync)
+    torch.cuda.empty_cache()
+
+    # -- 7. timing ----------------------------------------------------------- #
     phase("timing")
 
     def cuda_ms(fn, iters=20, warmup=3):
@@ -673,14 +926,15 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
-    def row(name, kernel_fn, plain_fn, nbytes, flops, library_fn=None):
+    def row(name, kernel_fn, plain_fn, nbytes, flops, library_fn=None,
+            launches=None):
         b_ms, b_by = bound(nbytes, flops)
+        if launches is None:     # over the four plain and the three faulted
+            launches = sum(r["launches"][name]                    # runs
+                           for r in (*runs.values(), *fault_runs.values()))
         return dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=TPU_KERNELS[name],
-            # over the four plain and the three faulted runs
-            launches=sum(r["launches"][name] for r in (*runs.values(),
-                                                        *fault_runs.values())),
+            replaces=TPU_KERNELS[name], launches=launches,
             max_abs_err=max_err[name], ms=cuda_ms(kernel_fn),
             plain_ms=cuda_ms(plain_fn), bound_ms=b_ms, bound_by=b_by,
             library_ms=None if library_fn is None else cuda_ms(library_fn))
@@ -872,10 +1126,40 @@ def main() -> int:
             f"for all K rows); {r['bound_ms'] / r['ms']:.1%} of the bound")
     rows.append({k: v for k, v in robust_rows[0].items() if k != "m"})
     del deltas
+    # wkv6 at the serving prefill's shape (B·Hn = 320, S = 2,048, D = 64,
+    # f32, chunk 32) with RWKV-like decays; launches from the serving run.
+    # Bound: r, k, v, w read and out written once, u read, the state
+    # written; the f32 work a chunk that the function needs — the strict
+    # lower L(L−1)/2 scores and their product with v, r_t·S, the state
+    # update k_tᵀv and its scale, the bonus, the cumulative decay
+    BH, S_, D_ = REQUESTS * 40, PROMPT_LEN, 64
+    L_ = 32
+    x6 = wkv6_inputs(dev, g, BH, S_, D_)
+    chunk_ops = (2 * (L_ * (L_ - 1) // 2) * D_ * 2 + 2 * L_ * D_ * D_
+                 + 2 * D_ * D_ * L_ + 2 * D_ * D_ + 4 * L_ * D_ + 3 * L_ * D_)
+    rows.append(row(
+        "wkv6", lambda: ops.wkv6(*x6), lambda: ref.wkv6_ref(*x6),
+        5 * BH * S_ * D_ * 4 + BH * D_ * 4 + BH * D_ * D_ * 4,
+        chunk_ops * BH * (S_ // L_), launches=served["launches"]["wkv6"]))
+    del x6
+    # the (B, S, Hn, D) -> (B·Hn, S, D) copies around each wkv6 launch, and
+    # back, at the serving shape (bf16 model: r, k, v, w are f32)
+    from repro_torch.models import rwkv as rwkv_mod
+    xs = torch.randn((REQUESTS, PROMPT_LEN, 40, 64), device=dev,
+                     generator=g)
+    copy_ms = cuda_ms(lambda: rwkv_mod._heads_major(xs))
+    log(f"[time] wkv6 layout: one (B, S, Hn, D) -> (B·Hn, S, D) f32 copy "
+        f"{copy_ms:.4f} ms ({xs.numel() * 8 / copy_ms / 1e6:.0f} GB/s read "
+        "and written); a "
+        f"prefill layer makes 4 such copies and 1 back "
+        f"(≈ {5 * copy_ms:.3f} ms), {5 * copy_ms * 32:.2f} ms a prefill")
+    del xs
     for r in rows:
         report(r)
     require(sorted(r["name"] for r in rows) == sorted(SOURCES),
             "the kernels line misses a kernel")
+    log("[time] wkv6 library: null — no single PyTorch call computes the "
+        "WKV-6 recurrence")
     torch.cuda.empty_cache()
 
     # the device's busy share of a round: the device's kernel times for one
@@ -908,9 +1192,58 @@ def main() -> int:
         for e in events[:8]:
             log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
                 f"{e.count:7d}× {e.key[:90]}")
+    # one full-width prefill (8 × 2,048 tokens) under the profiler, over
+    # the second serving run's unprofiled prefill
+    model, params = served["model"], served["params"]
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, {"tokens": served["prompt"]})
+        sync()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    wall_s = served["runs"][1][0].prefill_s
+    if events:
+        log(f"[profile] {ARCH} prefill {REQUESTS} × {PROMPT_LEN}: "
+            f"({time.perf_counter() - t:.1f} s to trace): device busy "
+            f"{busy_s:.4f} s of the unprofiled {wall_s:.4f} s prefill -> "
+            f"device busy share {busy_s / wall_s:.1%}")
+    else:
+        log(f"[profile] {ARCH} prefill: device busy share: not measured "
+            "(the profiler saw no device time)")
+    for e in events[:10]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:7d}× {e.key[:90]}")
+    # DECODE_PROFILED more decode steps from the second serving run's
+    # cache, unprofiled and then under the profiler
+    res = served["runs"][1][0]
+
+    def decode_steps():
+        tok, cache = res.tokens[:, -1:], res.cache
+        for _ in range(DECODE_PROFILED):
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = logits.argmax(-1)[:, None]
+        sync()
+
+    decode_steps()
+    t = time.perf_counter()
+    decode_steps()
+    wall_s = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_steps()
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e6
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    log(f"[profile] {ARCH} decode, {DECODE_PROFILED} steps of {REQUESTS} "
+        f"tokens: device busy {busy_s:.4f} s of the unprofiled "
+        f"{wall_s:.4f} s -> device idle share "
+        + (f"{1 - busy_s / wall_s:.1%}" if busy_s > 0 else "not measured")
+        + f"; {n_kernels / DECODE_PROFILED:.0f} device kernels a step")
     phase("done")
 
-    # -- 7. the result -------------------------------------------------------- #
+    # -- 8. the result -------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,21 @@
 """numpy → port: turn another implementation's arrays into the port's
-dataset and solver state on a chosen device.
+dataset, solver state, model parameters and decode cache on a chosen
+device.
 
 The tests build the same problem in both packages by handing the
 reference's ``FederatedDataset`` (numpy arrays) to :func:`dataset_from_arrays`
 and the reference's iterate and per-client state to
 :func:`state_from_array`, and the same fleet by handing its ``FleetTrace``
 and ``DeltaFaults`` (plain dataclasses) to :func:`trace_from_config` and
-:func:`faults_from_config`.  Anything with the same attribute names works:
-nothing here imports the reference.
+:func:`faults_from_config`.  The same model: the reference's parameter
+pytree and decode cache as nested dicts of numpy arrays go to
+:func:`params_from_tree` and :func:`cache_from_tree`.  Anything with the
+same attribute names or keys works: nothing here imports the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -20,6 +24,8 @@ from repro_torch.core.solver import SolverState
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.fleet.faults import DeltaFaults
 from repro_torch.fleet.traces import FleetTrace
+from repro_torch.models.model import LMParams, Model
+from repro_torch.models.transformer import Layer
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -76,3 +82,49 @@ def trace_from_config(trace) -> FleetTrace:
 def faults_from_config(faults) -> DeltaFaults:
     """The port's :class:`DeltaFaults` with ``faults``'s fields."""
     return DeltaFaults(**_fields_of(DeltaFaults, faults))
+
+
+def tensor_like_array(a, device: DeviceLike = None) -> torch.Tensor:
+    """A copy of array ``a`` with its own dtype (bfloat16 included, which
+    numpy holds as an extension type) as a tensor on ``device``."""
+    a = np.asarray(a)
+    dev = resolve_device(device)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def params_from_tree(tree: Mapping, model: Model) -> LMParams:
+    """The port's parameters of ``model`` from the reference's decoder-only
+    pytree: ``embed``, ``out_norm``, ``unembed`` and ``layers/pos{j}/...``
+    with a leading (num_layers // P) axis; layer i = rep · P + j becomes
+    the i-th :class:`Layer`.  Each leaf keeps its dtype."""
+    dev = model.device
+    emb = {k: tensor_like_array(v, dev) for k, v in tree.items()
+           if k != "layers"}
+    stacked = tree["layers"]
+    P = len(stacked)
+    nrep = model.cfg.num_layers // P
+
+    def leaf(x, rep):
+        if isinstance(x, Mapping):
+            return {k: leaf(v, rep) for k, v in x.items()}
+        return tensor_like_array(np.asarray(x)[rep], dev)
+
+    layers = torch.nn.ModuleList(
+        Layer(leaf(stacked[f"pos{i % P}"], i // P))
+        for i in range(nrep * P))
+    return LMParams(emb, layers)
+
+
+def cache_from_tree(tree: Mapping, device: DeviceLike = None) -> Dict:
+    """The port's decode cache from the reference's: ``len`` and
+    ``pos{j}/{wkv, shift_tm, shift_cm}`` with a leading (nrep,) axis
+    become ``{"len": int, "layers": [per-layer dict]}``."""
+    P = sum(1 for k in tree if k != "len")
+    nrep = len(np.asarray(tree["pos0"]["wkv"]))
+    layers = [{k: tensor_like_array(np.asarray(v)[i // P], device)
+               for k, v in tree[f"pos{i % P}"].items()}
+              for i in range(nrep * P)]
+    return {"len": int(np.asarray(tree["len"])), "layers": layers}

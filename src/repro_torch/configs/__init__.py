@@ -1,19 +1,58 @@
-"""Run configurations of the port: the paper's §4 logistic-regression problem
-and the run settings of Fig. 2's solvers (FSVRG, GD, FedAvg, DANE, CoCoA+).
+"""Run configurations of the port: the paper's §4 logistic-regression problem,
+the run settings of Fig. 2's solvers (FSVRG, GD, FedAvg, DANE, CoCoA+), and
+the model stack's architectures (``get_config('<arch-id>')``, ``ARCH_IDS``).
 
 These are copies of the reference package's ``configs/gplus_logreg.py``,
-``fsvrg_gplus.py``, ``gd_gplus.py``, ``fedavg_gplus.py``, ``dane_gplus.py``
-and ``cocoa_gplus.py`` (the port imports nothing of the reference), with the
-getters the solvers' registry defaults read.
+``fsvrg_gplus.py``, ``gd_gplus.py``, ``fedavg_gplus.py``, ``dane_gplus.py``,
+``cocoa_gplus.py``, ``base.py`` and ``rwkv6_3b.py`` (the port imports
+nothing of the reference), with the getters the solvers' registry defaults
+and the model stack read.  Of the reference's architectures only
+``rwkv6-3b`` is ported; the others are known by name and raise
+``NotImplementedError`` (ROADMAP A11).
 """
 from __future__ import annotations
 
+import importlib
+from typing import Dict, Optional
+
+from repro_torch.configs.base import (INPUT_SHAPES, SHAPES, ArchConfig,
+                                      InputShape, MoEConfig)
 from repro_torch.configs.cocoa_gplus import CoCoARunConfig
 from repro_torch.configs.dane_gplus import DANERunConfig
 from repro_torch.configs.fedavg_gplus import FedAvgRunConfig
 from repro_torch.configs.fsvrg_gplus import FSVRGRunConfig
 from repro_torch.configs.gd_gplus import GDRunConfig
 from repro_torch.configs.gplus_logreg import LogRegConfig
+
+#: arch id -> its module under configs/ (None: known to the reference, not
+#: ported yet)
+_MODULES: Dict[str, Optional[str]] = {
+    "granite-20b": None,
+    "seamless-m4t-medium": None,
+    "h2o-danube-1.8b": None,
+    "jamba-v0.1-52b": None,
+    "internvl2-1b": None,
+    "llama3-8b": None,
+    "phi3.5-moe-42b-a6.6b": None,
+    "dbrx-132b": None,
+    "rwkv6-3b": "rwkv6_3b",
+    "codeqwen1.5-7b": None,
+}
+
+#: every architecture of the reference, ported or not
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    if _MODULES[arch_id] is None:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP A11: the other "
+            f"model families); ported: "
+            f"{[a for a, m in _MODULES.items() if m is not None]}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG
 
 
 def get_logreg_config() -> LogRegConfig:
@@ -46,7 +85,9 @@ def get_cocoa_config() -> CoCoARunConfig:
     return cocoa_gplus.CONFIG
 
 
-__all__ = ["LogRegConfig", "FSVRGRunConfig", "GDRunConfig", "FedAvgRunConfig",
-           "DANERunConfig", "CoCoARunConfig", "get_logreg_config",
-           "get_fsvrg_config", "get_gd_config", "get_fedavg_config",
-           "get_dane_config", "get_cocoa_config"]
+__all__ = ["ArchConfig", "InputShape", "MoEConfig", "INPUT_SHAPES", "SHAPES",
+           "ARCH_IDS", "get_config", "LogRegConfig", "FSVRGRunConfig",
+           "GDRunConfig", "FedAvgRunConfig", "DANERunConfig",
+           "CoCoARunConfig", "get_logreg_config", "get_fsvrg_config",
+           "get_gd_config", "get_fedavg_config", "get_dane_config",
+           "get_cocoa_config"]

@@ -34,6 +34,7 @@ SOURCES = {
     "dane_update": "dane_update.cu",
     "cocoa_sdca": "cocoa_sdca.cu",
     "robust_aggregate": "robust_aggregate.cu",
+    "wkv6": "wkv6.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -61,6 +62,8 @@ SIGNATURES = {
     "robust_aggregate": ("robust_sort_launch",
                          [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _P,
                           _P]),
+    "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                             _P]),
 }
 EXTRA_SIGNATURES = {
     "robust_aggregate": {"robust_compact_launch": [_P, _I, _P, _P, _P]},

@@ -8,7 +8,7 @@ its path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -19,6 +19,7 @@ from repro_torch.kernels import fsvrg_update as _fu
 from repro_torch.kernels import ref
 from repro_torch.kernels import robust_aggregate as _ra
 from repro_torch.kernels import scaled_aggregate as _sa
+from repro_torch.kernels import wkv6 as _wk
 
 Scalar = Union[float, torch.Tensor]
 
@@ -30,6 +31,7 @@ KERNELS = {
     "dane_update": _du.dane_update,
     "cocoa_sdca_update": _cs.cocoa_sdca_update,
     "robust_aggregate": _ra.robust_aggregate,
+    "wkv6": _wk.wkv6,
 }
 
 
@@ -122,3 +124,14 @@ def robust_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
         return ref.robust_aggregate_ref(w_t, deltas, valid, a_diag, trim,
                                         mode)
     return _ra.robust_aggregate(w_t, deltas, valid, a_diag, trim, mode)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, chunk: int = ref.WKV_CHUNK
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV from a zero state over (BH, S, D) r, k, v, w and (BH, D)
+    u: out (BH, S, D) in r's dtype and the final state (BH, D, D) in f32.
+    S must be a multiple of ``chunk`` (``ValueError``)."""
+    if _on_cpu(r):
+        return ref.wkv6_ref(r, k, v, w, u, chunk)
+    return _wk.wkv6(r, k, v, w, u, chunk)

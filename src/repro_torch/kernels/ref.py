@@ -192,3 +192,53 @@ def robust_aggregate_ref(w_t: torch.Tensor, deltas: torch.Tensor,
     if m == 0:
         agg = torch.zeros_like(agg)
     return _f32(w_t) + _f32(a_diag) * agg
+
+
+#: the wkv6 kernel's default chunk length (the decay-underflow bound of
+#: the reference's models/rwkv.py)
+WKV_CHUNK = 32
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, chunk: int = WKV_CHUNK, *,
+             state: Optional[torch.Tensor] = None):
+    """Chunk-parallel RWKV-6 WKV, in f32: the plain version of the wkv6
+    kernel and the port's counterpart of the reference's
+    ``models/rwkv._wkv_chunked``.
+
+    r, k, v, w: (BH, S, D); u: (BH, D).  Per chunk of length L = ``chunk``,
+    with the state S (D, D) carried across the chunks of each pair, from
+    ``state`` (BH, D, D) or zeros:
+
+        c     = cumprod(w)                      (along the chunk)
+        r_t   = r ⊙ c_prev,   k_t = k / max(c, 1e-30)
+        out   = [(r_t k_tᵀ) ⊙ strict-lower] v + rowsum(r ⊙ u ⊙ k) v + r_t S
+        S    ← diag(c_L) (S + k_tᵀ v)
+
+    Returns out (BH, S, D) in r's dtype and the final state (BH, D, D) in
+    f32.  S must be a multiple of ``chunk`` (``ValueError``)."""
+    BH, S, D = r.shape
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"S={S} must be a multiple of chunk={chunk}")
+    dtype = r.dtype
+    r, k, v, w, u = (_f32(t) for t in (r, k, v, w, u))
+    L = chunk
+    mask = torch.tril(torch.ones((L, L), dtype=_F32, device=r.device),
+                      diagonal=-1)
+    s = (torch.zeros((BH, D, D), dtype=_F32, device=r.device)
+         if state is None else _f32(state))
+    floor = torch.tensor(1e-30, dtype=_F32, device=r.device)
+    outs = []
+    for c0 in range(0, S, L):
+        rb, kb, vb, wb = (t[:, c0:c0 + L] for t in (r, k, v, w))
+        c = torch.cumprod(wb, dim=1)
+        c_prev = torch.cat([torch.ones_like(c[:, :1]), c[:, :-1]], dim=1)
+        r_t = rb * c_prev
+        k_t = kb / torch.maximum(c, floor)
+        scores = (r_t @ k_t.transpose(1, 2)) * mask
+        intra = scores @ vb
+        bonus = (rb * u[:, None, :] * kb).sum(-1, keepdim=True) * vb
+        inter = r_t @ s
+        outs.append(intra + bonus + inter)
+        s = c[:, -1, :, None] * (s + k_t.transpose(1, 2) @ vb)
+    return torch.cat(outs, dim=1).to(dtype), s

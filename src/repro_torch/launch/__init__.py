@@ -1,0 +1,1 @@
+"""Drivers of the model stack: step functions and the serving loop."""

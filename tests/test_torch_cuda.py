@@ -10,21 +10,28 @@ multiply-adds) than the plain version; the local steps contract into fused
 multiply-adds where the plain version rounds each operation; the SDCA
 Newton solve takes logf and divisions that may round an ulp apart from
 PyTorch's, over 12 steps; the robust aggregation sums its rank window in
-another order (atol 1e-6 + rtol 1e-5).  The threefry draws and everything
-made of them (fleet masks, fault kinds) are bit-equal to the CPU's.
+another order (atol 1e-6 + rtol 1e-5); wkv6 adds the same f32 terms as
+its plain version in FMAs and its own order (1e-6 of max |plain| + rtol
+1e-5; a bf16 out one bf16 ulp, rtol 1e-2).  The threefry draws and
+everything made of them (fleet masks, fault kinds) are bit-equal to the
+CPU's.
 """
+import copy
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import (CoCoAPlus, FedAvg, Trainer,  # noqa: E402
                               build_problem, make_solver)
-from repro_torch.configs import get_logreg_config  # noqa: E402
+from repro_torch.configs import get_config, get_logreg_config  # noqa: E402
 from repro_torch.data import generate  # noqa: E402
 from repro_torch.fleet import (DeltaFaults, FleetTrace,  # noqa: E402
                                TraceParticipation, fleet_masks)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import robust_aggregate as ra_kernel  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils import threefry  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -395,3 +402,87 @@ def test_faulted_small_run_on_the_card(cuda):
                                atol=1e-4 * float(ws[0].abs().max()))
     assert counts["robust_aggregate"] == 3
     assert counts["fused_aggregate"] == 0
+
+
+def _wkv6_inputs(dev, BH, S, D, dtype=torch.float32, spread=1.0, seed=0):
+    g = _gen(dev, seed)
+    r, k, v = (torch.randn((BH, S, D), device=dev, generator=g)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + spread * torch.randn(
+        (BH, S, D), device=dev, generator=g)))
+    u = torch.randn((BH, D), device=dev, generator=g) * 0.1
+    return [x.to(dtype) for x in (r, k, v, w)] + [u]
+
+
+@pytest.mark.parametrize("BH,S,D,chunk,dtype,spread", [
+    (2, 32, 8, 32, torch.float32, 1.0), (2, 64, 8, 32, torch.float32, 1.0),
+    (3, 96, 8, 32, torch.float32, 1.0), (1, 128, 32, 32, torch.float32, 1.0),
+    (2, 64, 64, 32, torch.float32, 1.0), (2, 64, 64, 16, torch.float32, 1.0),
+    (2, 16, 64, 16, torch.float32, 1.0), (1, 64, 33, 32, torch.float32, 1.0),
+    (320, 2048, 64, 32, torch.float32, 1.0),
+    (4, 128, 64, 32, torch.bfloat16, 1.0),
+    (4, 128, 64, 32, torch.float32, 3.0)],
+    ids=["8x32", "8x64", "8x96", "32x128", "64x64", "64x64c16", "64x16c16",
+         "33x64", "serving", "bf16", "strong-decay"])
+def test_wkv6_matches_plain(cuda, BH, S, D, chunk, dtype, spread):
+    x = _wkv6_inputs(cuda, BH, S, D, dtype, spread)
+    before = ops.launch_counts()["wkv6"]
+    out, state = ops.wkv6(*x, chunk)
+    assert ops.launch_counts()["wkv6"] == before + 1
+    torch.cuda.synchronize()
+    p_out, p_state = ref.wkv6_ref(*x, chunk)
+    assert out.dtype == dtype and state.dtype == torch.float32
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(
+        out.float(), p_out.float(), rtol=rtol,
+        atol=1e-6 * float(p_out.float().abs().max()))
+    torch.testing.assert_close(state, p_state, rtol=1e-5,
+                               atol=1e-6 * float(p_state.abs().max()))
+
+
+def test_wkv6_rejects_what_it_does_not_take(cuda):
+    r, k, v, w, u = _wkv6_inputs(cuda, 2, 64, 8)
+    bad = [
+        lambda: ops.wkv6(*(t[:, :33].contiguous() for t in (r, k, v, w)),
+                         u),                                         # ragged S
+        lambda: ops.wkv6(r, k, v, w, u[:1]),                         # u shape
+        lambda: ops.wkv6(r, k, v, w, u[:, :4]),
+        lambda: ops.wkv6(r, k.double(), v, w, u),                    # dtype
+        lambda: ops.wkv6(r, k, v[:, :32], w, u),                     # shape
+        lambda: ops.wkv6(r, k, v, w.cpu(), u),                       # device
+        lambda: ops.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2),
+                         k, v, w, u),                                # layout
+        lambda: ops.wkv6(r, k, v, w, u, 64),                         # chunk
+        lambda: ops.wkv6(*_wkv6_inputs(cuda, 1, 32, 65)),            # D
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    from repro_torch.kernels import wkv6 as wkv6_kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_kernel.wkv6(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
+
+
+def test_small_serve_on_the_card_matches_the_cpu(cuda):
+    """The reduced rwkv6-3b in f32 with the same weights on the card and
+    the CPU: prefill (one wkv6 launch a layer on the card) and 4 greedy
+    decode steps (none) give the same tokens and logits to 1e-4 of their
+    max (f32 sums in other orders)."""
+    cfg = get_config("rwkv6-3b").reduced()
+    m_cpu = build_model(cfg, torch.float32, device="cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    m_dev = build_model(cfg, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    on_cpu = serve(m_cpu, p_cpu, prompt, 5)
+    ops.reset_launch_counts()
+    on_dev = serve(m_dev, p_dev, prompt.to(cuda), 5)
+    assert ops.launch_counts()["wkv6"] == cfg.num_layers
+    assert torch.equal(on_dev.tokens.cpu(), on_cpu.tokens)
+    torch.testing.assert_close(on_dev.logits.cpu(), on_cpu.logits, rtol=1e-4,
+                               atol=1e-4 * float(on_cpu.logits.abs().max()))
+    for a, b in zip(on_dev.cache["layers"], on_cpu.cache["layers"]):
+        for k in a:
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-4,
+                                       atol=1e-4 * float(b[k].abs().max()))

@@ -11,7 +11,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_logreg_config  # noqa: E402
+from repro_torch.configs import get_config, get_logreg_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.core import available, build_problem, make_solver  # noqa: E402
 from repro_torch.data import generate  # noqa: E402
 
@@ -51,7 +53,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch/kernels/robust_aggregate.py",
             "repro_torch/utils/threefry.py", "repro_torch/fleet/traces.py",
             "repro_torch/fleet/participation.py",
-            "repro_torch/fleet/faults.py"} <= names
+            "repro_torch/fleet/faults.py", "repro_torch/kernels/wkv6.py",
+            "repro_torch/models/rwkv.py", "repro_torch/models/model.py",
+            "repro_torch/models/transformer.py",
+            "repro_torch/launch/serve.py",
+            "repro_torch/configs/rwkv6_3b.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -78,3 +84,29 @@ def test_only_cpu_and_cuda_devices():
                                   device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         make_solver("gd", prob, device="meta")
+
+
+def test_serving_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
+    """build_model, the serve CLI and a generator's device: CUDA unless
+    asked for the CPU."""
+    cfg = get_config("rwkv6-3b").reduced()
+    model = build_model(cfg, torch.float32, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    prompt = torch.zeros((1, 32), dtype=torch.int64)
+    assert serve.serve(model, params, prompt, 2).tokens.shape == (1, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1", "--prompt-len", "32",
+                    "--max-new", "2"])
+    serve.main(["--requests", "1", "--prompt-len", "32", "--max-new", "2",
+                "--device", "cpu"])
+
+
+def test_unported_architectures_name_the_roadmap():
+    for arch in ("llama3-8b", "jamba-v0.1-52b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="A11"):
+            get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")

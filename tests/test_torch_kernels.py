@@ -24,6 +24,7 @@ from repro_torch.kernels import fedavg_update as cuda_fedavg_update  # noqa: E40
 from repro_torch.kernels import fsvrg_update as cuda_fsvrg_update  # noqa: E402
 from repro_torch.kernels import robust_aggregate as cuda_robust  # noqa: E402
 from repro_torch.kernels import scaled_aggregate as cuda_aggregate  # noqa: E402
+from repro_torch.kernels import wkv6 as cuda_wkv6  # noqa: E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -303,10 +304,14 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
         ops.robust_aggregate(x[0][0], x[1], valid, x[2][0], 0.25, "median"),
         ref.robust_aggregate_ref(x[0][0], x[1], valid, x[2][0], 0.25,
                                  "median"))
+    r, k, v = (t[:, :, None] for t in x)      # BH = 4, S = 33, D = 1
+    w, u = torch.sigmoid(v), x[0][:, :1]
+    assert all(torch.equal(a, b) for a, b in zip(
+        ops.wkv6(r, k, v, w, u, 11), ref.wkv6_ref(r, k, v, w, u, 11)))
     assert ops.launch_counts() == before
     assert set(before) == {"fused_aggregate", "fsvrg_update", "fedavg_update",
                            "dane_update", "cocoa_sdca_update",
-                           "robust_aggregate"}
+                           "robust_aggregate", "wkv6"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -325,6 +330,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_cocoa_sdca.cocoa_sdca_update(v, v, v)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_robust.robust_aggregate(v, v[None], torch.ones(1, dtype=bool), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wkv6.wkv6(v[None, None], v[None, None], v[None, None],
+                       v[None, None], v[None])
 
 
 def test_aggregate_splits_fill_the_card_at_paper_shape():
