@@ -103,7 +103,11 @@ FAULT_RATES = dict(nan_rate=0.01, sign_rate=0.05, scale_rate=0.02,
 #: PROMPT_LEN tokens, then DECODE_STEPS greedy decode steps
 ARCH = "rwkv6-3b"
 REQUESTS, PROMPT_LEN, DECODE_STEPS = 8, 2048, 32
-#: the full-width prefill-vs-decode check: one prompt of this length
+#: a ragged prompt length: wkv6 over 2,016 tokens, the sequential WKV over
+#: the tail of 31 from the kernel's state
+RAGGED_LEN = 2047
+#: the full-width prefill-vs-decode check: one prompt of this length, and
+#: of one token less (ragged: wkv6 over 224, a sequential tail of 31)
 CONSISTENCY_LEN = 256
 #: decode steps traced for the device's idle share
 DECODE_PROFILED = 8
@@ -139,8 +143,8 @@ def wkv6_inputs(dev, gen, BH, S, D, dtype=None, spread=1.0):
 
 
 def check_wkv6(dev, gen, compare) -> float:
-    """wkv6 against its plain version on the card; returns the max abs
-    error at the serving shape.
+    """wkv6 against its plain version on the card, from a zero and from a
+    given start state; returns the max abs error at the serving shape.
 
     Tolerance |kernel − plain| ≤ 1e-6·max|plain| + rtol·|plain|: both add
     the same f32 terms, the kernel in FMAs and its own order (atol scales
@@ -151,23 +155,29 @@ def check_wkv6(dev, gen, compare) -> float:
     from repro_torch.kernels import ops, ref
     serving = (REQUESTS * 40, PROMPT_LEN, 64)
     worst = 0.0
-    for (BH, S, D), chunk, dt, spread in [
-            (serving, 32, torch.float32, 1.0),
-            ((2, 32, 8), 32, torch.float32, 1.0),
-            ((2, 64, 8), 32, torch.float32, 1.0),
-            ((3, 96, 8), 32, torch.float32, 1.0),
-            ((2, 32, 64), 32, torch.float32, 1.0),
-            ((3, 64, 64), 32, torch.float32, 1.0),
-            ((2, 96, 64), 32, torch.float32, 1.0),
-            ((2, 16, 64), 16, torch.float32, 1.0),
-            ((4, 128, 64), 32, torch.bfloat16, 1.0),
-            ((4, 128, 64), 32, torch.float32, 3.0)]:
+    for (BH, S, D), chunk, dt, spread, given in [
+            (serving, 32, torch.float32, 1.0, False),
+            (serving, 32, torch.float32, 1.0, True),
+            ((8, 64, 64), 32, torch.float32, 1.0, True),
+            ((8, 16, 64), 16, torch.float32, 1.0, True),
+            ((8, 128, 64), 32, torch.bfloat16, 1.0, True),
+            ((2, 32, 8), 32, torch.float32, 1.0, False),
+            ((2, 64, 8), 32, torch.float32, 1.0, False),
+            ((3, 96, 8), 32, torch.float32, 1.0, False),
+            ((2, 32, 64), 32, torch.float32, 1.0, False),
+            ((3, 64, 64), 32, torch.float32, 1.0, False),
+            ((2, 96, 64), 32, torch.float32, 1.0, False),
+            ((2, 16, 64), 16, torch.float32, 1.0, False),
+            ((4, 128, 64), 32, torch.bfloat16, 1.0, False),
+            ((4, 128, 64), 32, torch.float32, 3.0, False)]:
         x = wkv6_inputs(dev, gen, BH, S, D, dt, spread)
-        out, st = ops.wkv6(*x, chunk)
+        s0 = (0.5 * torch.randn((BH, D, D), device=dev, generator=gen)
+              if given else None)
+        out, st = ops.wkv6(*x, chunk, state=s0)
         torch.cuda.synchronize()
-        p_out, p_st = ref.wkv6_ref(*x, chunk)
+        p_out, p_st = ref.wkv6_ref(*x, chunk, state=s0)
         label = (f"BH={BH} S={S} D={D} chunk={chunk} {dt} decay spread "
-                 f"{spread}")
+                 f"{spread}, {'a given' if given else 'zero'} start state")
         require(out.dtype == dt and st.dtype == torch.float32,
                 f"wkv6 {label}: wrong output dtypes")
         rtol = 1e-2 if dt == torch.bfloat16 else 1e-5
@@ -176,8 +186,8 @@ def check_wkv6(dev, gen, compare) -> float:
         compare("wkv6", label + " state", st, p_st, 1e-5,
                 1e-6 * float(p_st.abs().max()))
         if (BH, S, D) == serving:
-            worst = err
-        del x, out, st, p_out, p_st
+            worst = max(worst, err)
+        del x, s0, out, st, p_out, p_st
     r = torch.zeros((1, 33, 8), device=dev)
     try:
         ops.wkv6(r, r, r, r, torch.zeros((1, 8), device=dev))
@@ -191,8 +201,9 @@ def check_wkv6(dev, gen, compare) -> float:
 
 def serve_phase(dev, sync) -> dict:
     """Serve rwkv6-3b at full width and check it: the main path's run with
-    its launch counts, a second timed run, the full-width prefill-vs-decode
-    check and the small card-vs-CPU check.  Returns what the timing and
+    its launch counts, a second timed run, a run of ragged prompts with its
+    launch counts, the full-width prefill-vs-decode check and the small
+    card-vs-CPU check.  Returns what the timing and
     profile phases need."""
     import copy
 
@@ -265,14 +276,38 @@ def serve_phase(dev, sync) -> dict:
         f"{cfg.num_layers} wkv states finite; first tokens "
         f"{res.tokens[0, :8].tolist()}")
 
+    # a ragged prompt: the same requests cut to RAGGED_LEN tokens; the
+    # prefill still launches wkv6 once a layer (over the whole chunks) and
+    # runs the sequential WKV over the tail only
+    ragged = prompt[:, :RAGGED_LEN]
+    sync()
+    ops.reset_launch_counts()
+    res_r = serve(model, params, ragged, DECODE_STEPS + 1)
+    launches_r = ops.launch_counts()
+    n_tok = REQUESTS * RAGGED_LEN
+    log(f"[serve] ragged run: prefill {REQUESTS} × {RAGGED_LEN} tokens in "
+        f"{res_r.prefill_s:.4f} s ({n_tok / res_r.prefill_s:.0f} tok/s); "
+        f"{DECODE_STEPS} decode steps in {res_r.decode_s:.4f} s "
+        f"({res_r.decode_s / DECODE_STEPS * 1e3:.2f} ms a step); launches "
+        f"{launches_r}")
+    require(launches_r["wkv6"] == cfg.num_layers
+            and all(n == 0 for k, n in launches_r.items() if k != "wkv6"),
+            f"ragged prompt: launches {launches_r}, not one wkv6 a layer")
+    require(bool(((res_r.tokens >= 0) & (res_r.tokens < V)).all())
+            and bool(torch.isfinite(res_r.logits.float()).all())
+            and all(bool(torch.isfinite(layer["wkv"]).all())
+                    for layer in res_r.cache["layers"]),
+            "ragged prompt: non-finite logits or states, or tokens out of "
+            "range")
+    del res_r
+
     # full width: the prefill (wkv6 kernel) against token-by-token decode
     # from an empty cache (sequential WKV, no kernel), same weights, in f32
-    # (the bf16 weights cast up) and in bf16.  f32: the two paths add the
-    # same terms in other orders, an error that grows with depth — held at
-    # 5e-4 of each quantity's max, which a bf16 computation (≈ 5e-2) fails.
-    # bf16: matmuls of 256 rows and of one row round apart and the error
-    # compounds over 32 layers; the two bf16 paths must stand closer to
-    # each other than the bf16 prefill stands to the f32 one.
+    # (the bf16 weights cast up), for CONSISTENCY_LEN tokens and for one
+    # token less (ragged: wkv6 then a sequential tail).  The two paths add
+    # the same terms in other orders, an error that grows with depth: held
+    # at 5e-4 of each quantity's max, which a bf16 computation (≈ 5e-2)
+    # fails.
     one = prompt[:1, :CONSISTENCY_LEN]
 
     def rel(a, b):
@@ -281,45 +316,40 @@ def serve_phase(dev, sync) -> dict:
 
     m32 = build_model(cfg, torch.float32)
     p32 = copy.deepcopy(params).float()
-    out = {}
-    for name, m, p in (("f32", m32, p32), ("bf16", model, params)):
-        ops.reset_launch_counts()
-        logits_p, cache_p = m.prefill(p, {"tokens": one})
-        sync()
-        n_prefill = ops.launch_counts()["wkv6"]
-        ops.reset_launch_counts()
-        cache_d = m.init_cache(1, CONSISTENCY_LEN)
-        for t in range(CONSISTENCY_LEN):
-            logits_d, cache_d = m.decode_step(p, one[:, t:t + 1], cache_d)
-        sync()
-        n_decode = ops.launch_counts()["wkv6"]
-        require(n_prefill == cfg.num_layers and n_decode == 0,
-                f"wkv6 launches: prefill {n_prefill}, decode {n_decode}")
+    cut = CONSISTENCY_LEN - 1
+    ops.reset_launch_counts()
+    prefilled = {n: m32.prefill(p32, {"tokens": one[:, :n]})
+                 for n in (CONSISTENCY_LEN, cut)}
+    sync()
+    n_prefill = ops.launch_counts()["wkv6"]
+    ops.reset_launch_counts()
+    decoded = {}
+    cache_d = m32.init_cache(1, CONSISTENCY_LEN)
+    for t in range(CONSISTENCY_LEN):
+        logits_d, cache_d = m32.decode_step(p32, one[:, t:t + 1], cache_d)
+        if t + 1 in prefilled:
+            decoded[t + 1] = (logits_d, cache_d)
+    sync()
+    n_decode = ops.launch_counts()["wkv6"]
+    require(n_prefill == 2 * cfg.num_layers and n_decode == 0,
+            f"wkv6 launches: prefill {n_prefill}, decode {n_decode}")
+    worst = 0.0
+    for n, (logits_p, cache_p) in prefilled.items():
+        logits_d, cache_d = decoded[n]
         gaps = [rel(logits_p, logits_d)] + [
             rel(a["wkv"], b["wkv"])
             for a, b in zip(cache_p["layers"], cache_d["layers"])]
-        out[name] = (logits_p, [c["wkv"] for c in cache_p["layers"]], gaps)
-        log(f"[serve] {name} prefill vs {CONSISTENCY_LEN} decode steps "
-            f"(1 request, full width): wkv6 launches {n_prefill} / "
-            f"{n_decode}; logits max abs err {gaps[0]:.3e} of max |logit| "
-            f"{float(logits_d.float().abs().max()):.3f}; wkv states worst "
-            f"{max(gaps[1:]):.3e} (layer {gaps[1:].index(max(gaps[1:]))}) "
-            "of each layer's max")
-        del cache_p, cache_d
-    gaps32 = out["f32"][2]
-    require(max(gaps32) <= 5e-4,
+        worst = max(worst, *gaps)
+        log(f"[serve] f32 prefill of {n} tokens vs {n} decode steps "
+            f"(1 request, full width): logits max abs err {gaps[0]:.3e} of "
+            f"max |logit| {float(logits_d.abs().max()):.3f}; wkv states "
+            f"worst {max(gaps[1:]):.3e} (layer "
+            f"{gaps[1:].index(max(gaps[1:]))}) of each layer's max")
+    log(f"[serve] wkv6 launches: {n_prefill} in the two prefills, "
+        f"{n_decode} in the decode steps")
+    require(worst <= 5e-4,
             "full-width f32 prefill and decode disagree (tolerance 5e-4)")
-    dist = [rel(out["bf16"][0], out["f32"][0])] + [
-        rel(a, b) for a, b in zip(out["bf16"][1], out["f32"][1])]
-    gaps16 = out["bf16"][2]
-    log(f"[serve] bf16 prefill vs f32 prefill: logits {dist[0]:.3e}, wkv "
-        f"states worst {max(dist[1:]):.3e} of the f32 max; bf16 prefill vs "
-        f"decode within it at every layer: "
-        f"{all(g <= e for g, e in zip(gaps16, dist))}")
-    require(all(g <= e for g, e in zip(gaps16, dist)),
-            "bf16 prefill and decode disagree by more than bf16 differs "
-            "from f32")
-    del m32, p32, out
+    del m32, p32, prefilled, decoded, cache_d
     torch.cuda.empty_cache()
 
     # the reduced config in f32, the same weights on the card and the CPU;
@@ -330,22 +360,24 @@ def serve_phase(dev, sync) -> dict:
     p_cpu = m_cpu.init(torch.Generator().manual_seed(SEED))
     m_dev = build_model(small, torch.float32)
     p_dev = copy.deepcopy(p_cpu).to(dev)
-    toks = torch.randint(0, small.vocab_size, (2, 64),
-                         generator=torch.Generator().manual_seed(SEED))
-    lc, cc = m_cpu.prefill(p_cpu, {"tokens": toks})
-    ld, cd = m_dev.prefill(p_dev, {"tokens": toks.to(dev)})
-    errs = [rel(ld.cpu(), lc)]
-    errs += [rel(b[k].cpu(), a[k]) for a, b in zip(cc["layers"], cd["layers"])
-             for k in a]
-    for _ in range(4):
-        tok = lc.argmax(-1)[:, None]
-        lc, cc = m_cpu.decode_step(p_cpu, tok, cc)
-        ld, cd = m_dev.decode_step(p_dev, tok.to(dev), cd)
-        errs.append(rel(ld.cpu(), lc))
-    log(f"[serve] {small.name} f32 card vs CPU, prefill 2 × 64 and 4 decode "
-        f"steps: worst error {max(errs):.3e} of the quantity's max "
-        "(tolerance 1e-4)")
-    require(max(errs) <= 1e-4, "card and CPU serving disagree")
+    all_toks = torch.randint(0, small.vocab_size, (2, 64),
+                             generator=torch.Generator().manual_seed(SEED))
+    for S in (64, 47):                     # 47: a ragged tail of 15 tokens
+        toks = all_toks[:, :S]
+        lc, cc = m_cpu.prefill(p_cpu, {"tokens": toks})
+        ld, cd = m_dev.prefill(p_dev, {"tokens": toks.to(dev)})
+        errs = [rel(ld.cpu(), lc)]
+        errs += [rel(b[k].cpu(), a[k])
+                 for a, b in zip(cc["layers"], cd["layers"]) for k in a]
+        for _ in range(4):
+            tok = lc.argmax(-1)[:, None]
+            lc, cc = m_cpu.decode_step(p_cpu, tok, cc)
+            ld, cd = m_dev.decode_step(p_dev, tok.to(dev), cd)
+            errs.append(rel(ld.cpu(), lc))
+        log(f"[serve] {small.name} f32 card vs CPU, prefill 2 × {S} and 4 "
+            f"decode steps: worst error {max(errs):.3e} of the quantity's "
+            "max (tolerance 1e-4)")
+        require(max(errs) <= 1e-4, "card and CPU serving disagree")
     return dict(model=model, params=params, prompt=prompt,
                 launches=launches, runs=runs)
 
@@ -1141,7 +1173,12 @@ def main() -> int:
         "wkv6", lambda: ops.wkv6(*x6), lambda: ref.wkv6_ref(*x6),
         5 * BH * S_ * D_ * 4 + BH * D_ * 4 + BH * D_ * D_ * 4,
         chunk_ops * BH * (S_ // L_), launches=served["launches"]["wkv6"]))
-    del x6
+    s6 = torch.randn((BH, D_, D_), device=dev, generator=g)
+    zero_ms, given_ms = (cuda_ms(lambda st=st: ops.wkv6(*x6, state=st))
+                         for st in (None, s6))
+    log(f"[time] wkv6 from zeros {zero_ms:.4f} ms, from a given state "
+        f"{given_ms:.4f} ms (same inputs, this pair of timings)")
+    del x6, s6
     # the (B, S, Hn, D) -> (B·Hn, S, D) copies around each wkv6 launch, and
     # back, at the serving shape (bf16 model: r, k, v, w are f32)
     from repro_torch.models import rwkv as rwkv_mod

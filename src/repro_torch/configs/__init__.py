@@ -15,8 +15,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, Optional
 
-from repro_torch.configs.base import (INPUT_SHAPES, SHAPES, ArchConfig,
-                                      InputShape, MoEConfig)
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape,
+                                      MoEConfig)
 from repro_torch.configs.cocoa_gplus import CoCoARunConfig
 from repro_torch.configs.dane_gplus import DANERunConfig
 from repro_torch.configs.fedavg_gplus import FedAvgRunConfig
@@ -85,7 +85,7 @@ def get_cocoa_config() -> CoCoARunConfig:
     return cocoa_gplus.CONFIG
 
 
-__all__ = ["ArchConfig", "InputShape", "MoEConfig", "INPUT_SHAPES", "SHAPES",
+__all__ = ["ArchConfig", "InputShape", "MoEConfig", "INPUT_SHAPES",
            "ARCH_IDS", "get_config", "LogRegConfig", "FSVRGRunConfig",
            "GDRunConfig", "FedAvgRunConfig", "DANERunConfig",
            "CoCoARunConfig", "get_logreg_config", "get_fsvrg_config",

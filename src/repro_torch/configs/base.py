@@ -74,15 +74,6 @@ class ArchConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     # ------------------------------------------------------------------ #
-    @property
-    def subquadratic(self) -> bool:
-        """Eligible for long_500k decode (O(seq) or windowed state)."""
-        return self.attention_free or self.attn_period > 0 or self.sliding_window is not None
-
-    @property
-    def has_decoder(self) -> bool:
-        return True  # every assigned arch has an autoregressive decoder
-
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks), for roofline."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
@@ -95,18 +86,6 @@ class ArchConfig:
             for i in range(self.encoder_layers):
                 enc += self._attn_params() + self._dense_mlp_params() + 2 * d
         return emb + per_layer + enc + d  # final norm
-
-    def active_param_count(self) -> int:
-        """Parameters touched per token (MoE: only routed experts)."""
-        d, L, V = self.d_model, self.num_layers, self.vocab_size
-        emb = V * d * (1 if self.tie_embeddings else 2)
-        total = emb + d
-        for i in range(L):
-            total += self._layer_params(i, active_only=True)
-        if self.encoder_layers:
-            for i in range(self.encoder_layers):
-                total += self._attn_params() + self._dense_mlp_params() + 2 * d
-        return total
 
     # -- helpers ------------------------------------------------------- #
     def _attn_params(self) -> int:
@@ -133,7 +112,7 @@ class ArchConfig:
         d = self.d_model
         return 4 * d * d + 2 * d * self.d_ff + 10 * d  # r,k,v,o + ffn + mixes/decay
 
-    def _layer_params(self, i: int, active_only: bool = False) -> int:
+    def _layer_params(self, i: int) -> int:
         d = self.d_model
         norms = 2 * d
         if self.attention_free:
@@ -143,8 +122,7 @@ class ArchConfig:
         else:
             mixer = self._attn_params()
         if self.moe is not None and (self.moe_period == 0 or i % self.moe_period == self.moe_period - 1):
-            n_e = self.moe.experts_per_token if active_only else self.moe.num_experts
-            mlp = n_e * self._dense_mlp_params() + d * self.moe.num_experts
+            mlp = self.moe.num_experts * self._dense_mlp_params() + d * self.moe.num_experts
         else:
             mlp = self._dense_mlp_params()
         return mixer + mlp + norms
@@ -190,5 +168,3 @@ INPUT_SHAPES: Tuple[InputShape, ...] = (
     InputShape("decode_32k", 32768, 128, "decode"),
     InputShape("long_500k", 524288, 1, "decode"),
 )
-
-SHAPES = {s.name: s for s in INPUT_SHAPES}

@@ -62,8 +62,8 @@ SIGNATURES = {
     "robust_aggregate": ("robust_sort_launch",
                          [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _P,
                           _P]),
-    "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                             _P]),
+    "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                             _I, _P]),
 }
 EXTRA_SIGNATURES = {
     "robust_aggregate": {"robust_compact_launch": [_P, _I, _P, _P, _P]},

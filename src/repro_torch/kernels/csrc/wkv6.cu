@@ -1,16 +1,17 @@
 // RWKV-6 chunk-parallel WKV for Hopper (sm_90a).  Replaces the TPU kernel
 // kernels/wkv6.py:wkv6 of the reference package (same chunk math as its
-// models/rwkv._wkv_chunked, from a zero state).  Per (batch·head) pair, per
-// chunk of length L, in f32, with the (D, D) state S carried across the
-// pair's chunks:
+// models/rwkv._wkv_chunked).  Per (batch·head) pair, per chunk of length
+// L, in f32, with the (D, D) state S carried across the pair's chunks from
+// a given start state or zeros:
 //
 //     c     = cumprod(w)                     (along the chunk)
 //     r_t   = r ⊙ c_prev,   k_t = k / max(c, 1e-30)
 //     out   = [(r_t k_tᵀ) ⊙ strict-lower] v + rowsum(r ⊙ u ⊙ k) v + r_t S
 //     S    ← diag(c_L) (S + k_tᵀ v)
 //
-// r, k, v, w: (BH, S, D) f32 or bf16; u: (BH, D) f32; out: (BH, S, D) in
-// r's type; state: the final S, (BH, D, D) f32.
+// r, k, v, w: (BH, S, D) f32 or bf16; u: (BH, D) f32; state0: the start
+// S, (BH, D, D) f32, or null for zeros; out: (BH, S, D) in r's type;
+// state: the final S, (BH, D, D) f32.
 //
 // Bound: at the serving shape (BH = 320, S = 2,048, D = 64, f32) HBM bytes
 // (r, k, v, w read once, out written once: 0.84 GB, 0.25 ms) and the f32
@@ -60,8 +61,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ w,
-            const float* __restrict__ u, T* __restrict__ out,
-            float* __restrict__ state, int BH, int S, int D, int L) {
+            const float* __restrict__ u, const float* __restrict__ state0,
+            T* __restrict__ out, float* __restrict__ state, int BH, int S,
+            int D, int L) {
   __shared__ float rs[MAX_L][PAD];           // r, then r_t = r ⊙ c_prev
   __shared__ float ks[MAX_L][PAD];           // k, then k_t = k / max(c, 1e-30)
   __shared__ float ws[MAX_L][PAD];           // w
@@ -80,7 +82,12 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
     const int64_t base = static_cast<int64_t>(bh) * S * D;
     for (int i = tid; i < D; i += THREADS) us[i] = u[static_cast<int64_t>(bh) * D + i];
-    for (int i = tid; i < D * COLS; i += THREADS) st[i / COLS][i % COLS] = 0.f;
+    for (int i = tid; i < D * COLS; i += THREADS) {
+      const int d = i / COLS, e = i % COLS;
+      st[d][e] = state0 && e < E
+                     ? state0[(static_cast<int64_t>(bh) * D + d) * D + e0 + e]
+                     : 0.f;
+    }
 
     for (int c0 = 0; c0 < S; c0 += L) {
       const int64_t off = base + static_cast<int64_t>(c0) * D;
@@ -159,13 +166,13 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (r, k, v, w and out share it; u and
-// state are float32).  S must be a positive multiple of L, L ≤ 32, D ≤ 64.
-// Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16 (r, k, v, w and out share it; u,
+// state0 and state are float32; state0 may be null).  S must be a positive
+// multiple of L, L ≤ 32, D ≤ 64.  Returns the cudaError_t of the launch.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
-                           const void* w, const float* u, int dtype, void* out,
-                           float* state, int BH, int S, int D, int L,
-                           void* stream) {
+                           const void* w, const float* u, const float* state0,
+                           int dtype, void* out, float* state, int BH, int S,
+                           int D, int L, void* stream) {
   if (BH < 1 || D < 1 || D > MAX_D || L < 1 || L > MAX_L || S < L || S % L)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -175,13 +182,13 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
     wkv6_kernel<float><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(r), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(w), u,
-        static_cast<float*>(out), state, BH, S, D, L);
+        state0, static_cast<float*>(out), state, BH, S, D, L);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     wkv6_kernel<bf><<<grid, THREADS, 0, st>>>(
         static_cast<const bf*>(r), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(w), u,
-        static_cast<bf*>(out), state, BH, S, D, L);
+        state0, static_cast<bf*>(out), state, BH, S, D, L);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

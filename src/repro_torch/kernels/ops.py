@@ -127,11 +127,13 @@ def robust_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor, chunk: int = ref.WKV_CHUNK
+         u: torch.Tensor, chunk: int = ref.WKV_CHUNK, *,
+         state: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RWKV-6 WKV from a zero state over (BH, S, D) r, k, v, w and (BH, D)
-    u: out (BH, S, D) in r's dtype and the final state (BH, D, D) in f32.
-    S must be a multiple of ``chunk`` (``ValueError``)."""
+    """RWKV-6 WKV over (BH, S, D) r, k, v, w and (BH, D) u, from ``state``
+    (BH, D, D) f32 or zeros: out (BH, S, D) in r's dtype and the final
+    state (BH, D, D) in f32.  S must be a multiple of ``chunk``
+    (``ValueError``)."""
     if _on_cpu(r):
-        return ref.wkv6_ref(r, k, v, w, u, chunk)
-    return _wk.wkv6(r, k, v, w, u, chunk)
+        return ref.wkv6_ref(r, k, v, w, u, chunk, state=state)
+    return _wk.wkv6(r, k, v, w, u, chunk, state=state)

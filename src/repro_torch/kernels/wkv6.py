@@ -1,7 +1,8 @@
 """CUDA wrapper of the RWKV-6 chunk-parallel WKV (``csrc/wkv6.cu``; it
 replaces the reference's TPU kernel ``kernels/wkv6.py:wkv6``).
 
-From a zero state, per (batch·head) pair and chunk of length ``chunk``:
+From a given start state or zeros, per (batch·head) pair and chunk of
+length ``chunk``:
 
     out = [(r_t k_tᵀ) ⊙ strict-lower] v + rowsum(r ⊙ u ⊙ k) v + r_t S
     S  ← diag(c_L) (S + k_tᵀ v)
@@ -14,7 +15,7 @@ version.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,12 +34,14 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor, chunk: int = WKV_CHUNK
+         u: torch.Tensor, chunk: int = WKV_CHUNK, *,
+         state: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w: contiguous (BH, S, D) CUDA tensors of one dtype, f32 or
-    bf16, D ≤ 64; u: (BH, D), f32 or r's dtype.  S must be a multiple of
-    ``chunk`` ≤ 32 (``ValueError``).  Returns new tensors out (BH, S, D) in
-    r's dtype and the final state (BH, D, D) in f32."""
+    bf16, D ≤ 64; u: (BH, D), f32 or r's dtype; ``state``: the start state,
+    a contiguous (BH, D, D) f32 tensor, or None for zeros.  S must be a
+    multiple of ``chunk`` ≤ 32 (``ValueError``).  Returns new tensors out
+    (BH, S, D) in r's dtype and the final state (BH, D, D) in f32."""
     _require(isinstance(r, torch.Tensor) and r.is_cuda,
              "r must be a CUDA tensor")
     _require(r.dtype in _args.DTYPES,
@@ -57,6 +60,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
              and u.dtype in (torch.float32, r.dtype) and u.shape == (BH, D),
              f"u must be a ({BH}, {D}) float32 or {r.dtype} tensor on "
              f"{r.device}, got {tuple(u.shape)}")
+    _require(state is None
+             or (isinstance(state, torch.Tensor) and state.device == r.device
+                 and state.dtype == torch.float32
+                 and state.shape == (BH, D, D) and state.is_contiguous()),
+             f"state must be a contiguous ({BH}, {D}, {D}) float32 tensor on "
+             f"{r.device} or None")
     _require(D <= MAX_HEAD_DIM, f"head dimension {D} exceeds {MAX_HEAD_DIM}")
     _require(1 <= chunk <= MAX_CHUNK, f"chunk must be in [1, {MAX_CHUNK}]")
     if S % chunk:
@@ -64,15 +73,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
     u32 = u.to(torch.float32).contiguous()
     out = torch.empty_like(r)
-    state = torch.empty((BH, D, D), dtype=torch.float32, device=r.device)
+    final = torch.empty((BH, D, D), dtype=torch.float32, device=r.device)
     launch = _build.launcher(_NAME)
     with torch.cuda.device(r.device):
         err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                     u32.data_ptr(), _args.DTYPES[r.dtype], out.data_ptr(),
-                     state.data_ptr(), BH, S, D, chunk, _args.stream(r))
+                     u32.data_ptr(), None if state is None else state.data_ptr(),
+                     _args.DTYPES[r.dtype], out.data_ptr(), final.data_ptr(),
+                     BH, S, D, chunk, _args.stream(r))
     _build.check(err, _NAME)
     wkv6.launches += 1
-    return out, state
+    return out, final
 
 
 wkv6.launches = 0

@@ -19,7 +19,6 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import InputShape
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import LMParams, Model, build_model, make_batch
 from repro_torch.utils.device import resolve_device
 
@@ -39,8 +38,6 @@ def serve(model: Model, params: LMParams, prompt: torch.Tensor,
     decode steps.  Each phase's seconds end in a device synchronize."""
     if max_new < 1:
         raise ValueError("max_new must be at least 1")
-    prefill = make_prefill_step(model)
-    step = make_decode_step(model)
 
     def sync():
         if model.device.type == "cuda":
@@ -48,14 +45,14 @@ def serve(model: Model, params: LMParams, prompt: torch.Tensor,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompt})
+    logits, cache = model.prefill(params, {"tokens": prompt})
     tok = logits.argmax(-1)[:, None]
     sync()
     prefill_s = time.perf_counter() - t0
     toks = [tok]
     t0 = time.perf_counter()
     for _ in range(max_new - 1):
-        logits, cache = step(params, tok, cache)
+        logits, cache = model.decode_step(params, tok, cache)
         tok = logits.argmax(-1)[:, None]
         toks.append(tok)
     sync()

@@ -79,9 +79,6 @@ def _unembed(params: LMParams, cfg: ArchConfig) -> torch.Tensor:
 
 def _build_decoder_only(cfg: ArchConfig, dtype: torch.dtype,
                         device: torch.device) -> Model:
-    if cfg.family == "vlm":
-        raise T.unported(f"the vision front-end ({cfg.name})")
-
     def init(gen: torch.Generator) -> LMParams:
         if gen.device.type != device.type:
             raise ValueError(f"the generator is on {gen.device}, the model "
@@ -97,10 +94,8 @@ def _build_decoder_only(cfg: ArchConfig, dtype: torch.dtype,
     @torch.no_grad()
     def prefill(params: LMParams, batch: Mapping[str, torch.Tensor]):
         x = params.embed[batch["tokens"]]
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        h, _, entries = T.stack_forward(params.layers, cfg, x, positions,
-                                        collect_cache=True)
+        S = x.shape[1]
+        h, entries = T.stack_forward(params.layers, cfg, x)
         h = L.rms_norm(h, params.out_norm, cfg.norm_eps)
         logits = h[:, -1] @ _unembed(params, cfg)
         return logits, _prefill_cache_from_entries(cfg, entries, S)
@@ -143,6 +138,9 @@ def build_model(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16,
     dev = resolve_device(device)
     if cfg.family == "encdec_audio":
         raise T.unported(f"the encoder-decoder ({cfg.name})")
+    if cfg.family == "vlm":
+        raise T.unported(f"the vision front-end ({cfg.name})")
+    T.require_ported(cfg)
     return _build_decoder_only(cfg, dtype, dev)
 
 

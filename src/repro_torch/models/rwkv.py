@@ -9,13 +9,13 @@ Per head h with head_dim D, the recurrence over the (D, D) state S is
 where w_t = exp(-exp(decay_t)) is the data-dependent per-channel decay.
 Which WKV path a call takes (:func:`rwkv_time_mix`):
 
-* no state and S > 1 a multiple of min(32, S) — every prefill: the wkv6
-  kernel through :func:`repro_torch.kernels.ops.wkv6`, which computes the
-  reference's ``_wkv_chunked`` from a zero state;
-* S == 1 (decode) or a ragged S: :func:`_wkv_sequential`, the reference's
-  own branches;
-* a given state and S > 1: :func:`_wkv_chunked` (no serving path of the
-  reference reaches it).
+* S > 1 (every prefill, from zeros or a given state): the wkv6 kernel
+  through :func:`repro_torch.kernels.ops.wkv6` over the whole chunks of
+  L = min(32, S) tokens — the reference's ``_wkv_chunked`` — then
+  :func:`_wkv_sequential` over a ragged tail of fewer than L tokens, from
+  the kernel's final state (the reference runs a ragged S sequentially
+  throughout);
+* S == 1 (decode): :func:`_wkv_sequential`, the reference's own branch.
 
 Parameters are dicts (or ``nn.ParameterDict``s) of tensors with the
 reference's names and shapes; the simplifications of the reference (one
@@ -28,7 +28,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import WKV_CHUNK
 from repro_torch.models.layers import dense_init
 
 Params = Mapping[str, torch.Tensor]
@@ -105,19 +106,6 @@ def _seq_major(t: torch.Tensor, B: int) -> torch.Tensor:
     return t.reshape(B, BH // B, S, D).transpose(1, 2)
 
 
-def _wkv_chunked(r, k, v, w, u, state, chunk: int):
-    """Chunk-parallel WKV from a given state (the plain chunk math of
-    :func:`repro_torch.kernels.ref.wkv6_ref`, in the model's layout); a
-    ragged S takes the sequential path, as in the reference."""
-    B, S, Hn, D = r.shape
-    L = min(chunk, S)
-    if S % L:
-        return _wkv_sequential(r, k, v, w, u, state)
-    out, s = ref.wkv6_ref(*map(_heads_major, (r, k, v, w)), u.repeat(B, 1),
-                          L, state=state.reshape(B * Hn, D, D))
-    return _seq_major(out, B), s.reshape(B, Hn, D, D)
-
-
 def rwkv_time_mix(params: Params, x: torch.Tensor, cfg, *,
                   state: Optional[torch.Tensor] = None,
                   shift_last: Optional[torch.Tensor] = None
@@ -142,18 +130,22 @@ def rwkv_time_mix(params: Params, x: torch.Tensor, cfg, *,
     w = torch.exp(-torch.exp(decay)).reshape(B, S, Hn, hd)    # in (0, 1)
 
     u = params["bonus_u"]
-    L = min(ref.WKV_CHUNK, S)
-    if state is None and S > 1 and S % L == 0:
-        out, st = ops.wkv6(*map(_heads_major, (r, k, v, w)), u.repeat(B, 1),
-                           L)
-        out, state = _seq_major(out, B), st.reshape(B, Hn, hd, hd)
-    else:
+    if S == 1:
         if state is None:
             state = torch.zeros((B, Hn, hd, hd), dtype=_F32, device=x.device)
-        if S == 1 or S % L:
-            out, state = _wkv_sequential(r, k, v, w, u, state)
-        else:
-            out, state = _wkv_chunked(r, k, v, w, u, state, ref.WKV_CHUNK)
+        out, state = _wkv_sequential(r, k, v, w, u, state)
+    else:
+        L = min(WKV_CHUNK, S)
+        n = S - S % L
+        if state is not None:
+            state = state.reshape(B * Hn, hd, hd).contiguous()
+        out, st = ops.wkv6(*(_heads_major(t[:, :n]) for t in (r, k, v, w)),
+                           u.repeat(B, 1), L, state=state)
+        out, state = _seq_major(out, B), st.reshape(B, Hn, hd, hd)
+        if n < S:
+            tail, state = _wkv_sequential(r[:, n:], k[:, n:], v[:, n:],
+                                          w[:, n:], u, state)
+            out = torch.cat([out, tail], dim=1)
 
     # group norm over heads (ln_x in the reference implementation)
     out = out.reshape(B, S, Hn, hd)

@@ -4,10 +4,11 @@ families the port runs so far: RWKV-6.
 The reference stacks each pattern position's parameters on a leading
 (num_layers // P) axis and drives the stack with one ``lax.scan``; here
 each layer is an :class:`Layer` module in an ``nn.ModuleList`` and a Python
-loop walks them in order (layer i sits at pattern position i % P).  The
-attention, Mamba and MoE kinds raise ``NotImplementedError`` (ROADMAP
-A11).  Serving only: no remat, no sharding hints (the reference's
-``gather_fsdp`` / ``constrain_activations`` are no-ops on one device).
+loop walks them in order.  :func:`require_ported` checks the layer kinds
+once, when the model is built: the attention, Mamba and MoE kinds raise
+``NotImplementedError`` (ROADMAP A11).  Serving only: no remat, no
+auxiliary loss, no sharding hints (the reference's ``gather_fsdp`` /
+``constrain_activations`` are no-ops on one device).
 
 A decode cache is ``{"len": int, "layers": [per-layer dict]}``; an RWKV
 layer's dict holds ``wkv`` (B, Hn, D, D) f32 and ``shift_tm`` /
@@ -58,10 +59,12 @@ def layer_kind(cfg: ArchConfig, j: int) -> Tuple[str, str]:
     return mixer, mlp
 
 
-def _require_rwkv(cfg: ArchConfig, j: int) -> None:
-    mixer, mlp = layer_kind(cfg, j)
-    if (mixer, mlp) != ("rwkv", "rwkv_cm"):
-        raise unported(f"a {mixer} / {mlp} layer ({cfg.name})")
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise unless every layer of ``cfg`` is an RWKV layer."""
+    for j in range(pattern_period(cfg)):
+        mixer, mlp = layer_kind(cfg, j)
+        if (mixer, mlp) != ("rwkv", "rwkv_cm"):
+            raise unported(f"a {mixer} / {mlp} layer ({cfg.name})")
 
 
 # --------------------------------------------------------------------- #
@@ -88,9 +91,8 @@ class Layer(nn.Module):
             {k: _frozen(v) for k, v in params["rwkv_cm"].items()})
 
 
-def _init_layer(gen: torch.Generator, cfg: ArchConfig, j: int,
+def _init_layer(gen: torch.Generator, cfg: ArchConfig,
                 dtype: torch.dtype) -> Layer:
-    _require_rwkv(cfg, j)
     ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=gen.device)
     return Layer({"norm1": ones, "norm2": ones.clone(),
                   "rwkv_tm": R.init_rwkv_time_mix(gen, cfg, dtype),
@@ -100,12 +102,8 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig, j: int,
 def init_stack(gen: torch.Generator, cfg: ArchConfig,
                dtype: torch.dtype) -> nn.ModuleList:
     """cfg.num_layers layers, drawn in order from ``gen``."""
-    P = pattern_period(cfg)
-    if cfg.num_layers % P:
-        raise ValueError(f"{cfg.num_layers} layers are not whole periods of "
-                         f"{P}")
-    return nn.ModuleList(_init_layer(gen, cfg, i % P, dtype)
-                         for i in range(cfg.num_layers))
+    return nn.ModuleList(_init_layer(gen, cfg, dtype)
+                         for _ in range(cfg.num_layers))
 
 
 # --------------------------------------------------------------------- #
@@ -113,39 +111,23 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig,
 # --------------------------------------------------------------------- #
 
 
-def _apply_layer_fwd(p: Layer, x: torch.Tensor, cfg: ArchConfig, j: int,
-                     collect_cache: bool):
-    """Returns (x, aux_loss, cache_entry or None)."""
-    _require_rwkv(cfg, j)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def _apply_layer_fwd(p: Layer, x: torch.Tensor, cfg: ArchConfig):
+    """Returns (x, cache_entry)."""
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     o, (st, sl) = R.rwkv_time_mix(p.rwkv_tm, h, cfg)
-    entry = {"wkv": st, "shift_tm": sl} if collect_cache else None
     x = x + o
     h = L.rms_norm(x, p.norm2, cfg.norm_eps)
     o, sl_cm = R.rwkv_channel_mix(p.rwkv_cm, h)
-    x = x + o
-    if entry is not None:
-        entry["shift_cm"] = sl_cm
-    return x, aux, entry
+    return x + o, {"wkv": st, "shift_tm": sl, "shift_cm": sl_cm}
 
 
-def stack_forward(layers: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor,
-                  positions: torch.Tensor, *, collect_cache: bool = False):
-    """x: (B, S, d) -> (hidden, aux_loss[, per-layer cache entries]).
-    ``positions`` is unused by RWKV; it is kept for the reference's
-    signature."""
-    P = pattern_period(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def stack_forward(layers: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor):
+    """x: (B, S, d) -> (hidden, per-layer cache entries)."""
     entries: List[Dict] = []
-    for i, p in enumerate(layers):
-        x, a, entry = _apply_layer_fwd(p, x, cfg, i % P, collect_cache)
-        aux = aux + a
-        if entry is not None:
-            entries.append(entry)
-    if collect_cache:
-        return x, aux, entries
-    return x, aux
+    for p in layers:
+        x, entry = _apply_layer_fwd(p, x, cfg)
+        entries.append(entry)
+    return x, entries
 
 
 # --------------------------------------------------------------------- #
@@ -153,20 +135,12 @@ def stack_forward(layers: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor,
 # --------------------------------------------------------------------- #
 
 
-def cache_max_len(cfg: ArchConfig, max_seq: int) -> int:
-    if cfg.sliding_window is not None:
-        return min(max_seq, cfg.sliding_window)
-    return max_seq
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
                device: torch.device) -> Dict:
     """An empty cache (RWKV's state does not grow with ``max_seq``)."""
-    P = pattern_period(cfg)
     d, hd = cfg.d_model, cfg.rwkv_head_dim
     layers = []
-    for i in range(cfg.num_layers):
-        _require_rwkv(cfg, i % P)
+    for _ in range(cfg.num_layers):
         layers.append({
             "wkv": torch.zeros((batch, d // hd, hd, hd), dtype=torch.float32,
                                device=device),
@@ -176,9 +150,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
     return {"len": 0, "layers": layers}
 
 
-def _apply_layer_decode(p: Layer, x: torch.Tensor, cfg: ArchConfig, j: int,
+def _apply_layer_decode(p: Layer, x: torch.Tensor, cfg: ArchConfig,
                         cache_j: Mapping[str, torch.Tensor]):
-    _require_rwkv(cfg, j)
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     o, (st, sl) = R.rwkv_time_mix(p.rwkv_tm, h, cfg, state=cache_j["wkv"],
                                   shift_last=cache_j["shift_tm"])
@@ -193,9 +166,8 @@ def _apply_layer_decode(p: Layer, x: torch.Tensor, cfg: ArchConfig, j: int,
 def stack_decode(layers: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor,
                  cache: Dict):
     """x: (B, 1, d).  Returns (x, new_cache); ``cache`` is not modified."""
-    P = pattern_period(cfg)
     new_layers = []
-    for i, (p, cj) in enumerate(zip(layers, cache["layers"])):
-        x, nc = _apply_layer_decode(p, x, cfg, i % P, cj)
+    for p, cj in zip(layers, cache["layers"]):
+        x, nc = _apply_layer_decode(p, x, cfg, cj)
         new_layers.append(nc)
     return x, {"len": cache["len"] + 1, "layers": new_layers}

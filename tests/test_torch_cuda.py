@@ -440,6 +440,27 @@ def test_wkv6_matches_plain(cuda, BH, S, D, chunk, dtype, spread):
                                atol=1e-6 * float(p_state.abs().max()))
 
 
+@pytest.mark.parametrize("S,chunk,dtype", [
+    (64, 32, torch.float32), (16, 16, torch.float32),
+    (2048, 32, torch.float32), (128, 32, torch.bfloat16)],
+    ids=["64", "16c16", "2048", "bf16"])
+def test_wkv6_from_a_given_state_matches_plain(cuda, S, chunk, dtype):
+    """The kernel's optional start state (a prompt that continues a cache)
+    against the plain version from the same state; tolerances as above."""
+    BH, D = 8, 64
+    x = _wkv6_inputs(cuda, BH, S, D, dtype, seed=S)
+    s0 = 0.5 * torch.randn((BH, D, D), device=cuda, generator=_gen(cuda, 1))
+    out, state = ops.wkv6(*x, chunk, state=s0)
+    torch.cuda.synchronize()
+    p_out, p_state = ref.wkv6_ref(*x, chunk, state=s0)
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(
+        out.float(), p_out.float(), rtol=rtol,
+        atol=1e-6 * float(p_out.float().abs().max()))
+    torch.testing.assert_close(state, p_state, rtol=1e-5,
+                               atol=1e-6 * float(p_state.abs().max()))
+
+
 def test_wkv6_rejects_what_it_does_not_take(cuda):
     r, k, v, w, u = _wkv6_inputs(cuda, 2, 64, 8)
     bad = [
@@ -454,6 +475,11 @@ def test_wkv6_rejects_what_it_does_not_take(cuda):
                          k, v, w, u),                                # layout
         lambda: ops.wkv6(r, k, v, w, u, 64),                         # chunk
         lambda: ops.wkv6(*_wkv6_inputs(cuda, 1, 32, 65)),            # D
+        lambda: ops.wkv6(r, k, v, w, u, state=torch.zeros(
+            (2, 8, 4), device=cuda)),                                # state
+        lambda: ops.wkv6(r, k, v, w, u, state=torch.zeros(
+            (2, 8, 8), device=cuda, dtype=torch.bfloat16)),
+        lambda: ops.wkv6(r, k, v, w, u, state=torch.zeros((2, 8, 8))),
     ]
     for call in bad:
         with pytest.raises(ValueError):
@@ -463,17 +489,19 @@ def test_wkv6_rejects_what_it_does_not_take(cuda):
         wkv6_kernel.wkv6(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
 
 
-def test_small_serve_on_the_card_matches_the_cpu(cuda):
+@pytest.mark.parametrize("S", [64, 47])
+def test_small_serve_on_the_card_matches_the_cpu(cuda, S):
     """The reduced rwkv6-3b in f32 with the same weights on the card and
-    the CPU: prefill (one wkv6 launch a layer on the card) and 4 greedy
-    decode steps (none) give the same tokens and logits to 1e-4 of their
-    max (f32 sums in other orders)."""
+    the CPU: prefill (one wkv6 launch a layer on the card, also for a
+    ragged 47-token prompt, whose tail of 15 runs the sequential WKV) and 4
+    greedy decode steps (none) give the same tokens and logits to 1e-4 of
+    their max (f32 sums in other orders)."""
     cfg = get_config("rwkv6-3b").reduced()
     m_cpu = build_model(cfg, torch.float32, device="cpu")
     p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
     m_dev = build_model(cfg, torch.float32)
     p_dev = copy.deepcopy(p_cpu).to(cuda)
-    prompt = torch.randint(0, cfg.vocab_size, (2, 64),
+    prompt = torch.randint(0, cfg.vocab_size, (2, S),
                            generator=torch.Generator().manual_seed(1))
     on_cpu = serve(m_cpu, p_cpu, prompt, 5)
     ops.reset_launch_counts()

@@ -81,22 +81,26 @@ def _array(rng, shape, jdtype, scale=1.0):
     return a, bridge.tensor_like_array(np.asarray(a), "cpu")
 
 
-@pytest.mark.parametrize("mode", ["prefill", "decode", "continue", "ragged"])
+@pytest.mark.parametrize("mode", ["prefill", "decode", "continue", "ragged",
+                                  "continue_ragged"])
 @pytest.mark.parametrize("jdtype,tol", [(jnp.float32, F32_TOL),
                                         (jnp.bfloat16, BF16_TOL)],
                          ids=["f32", "bf16"])
 def test_time_and_channel_mix_match_reference(mode, jdtype, tol, cfgs):
     """Prefill (S = 64, no state: the wkv6 path), decode (S = 1 with a
-    state and shift: sequential), a given state with S = 64 (chunked) and a
-    ragged S = 40 (sequential), with a nonzero bonus u."""
+    state and shift: sequential), a given state with S = 64 (wkv6 from that
+    state), a ragged S = 40 (wkv6 over 32 tokens, then 8 sequential; the
+    reference runs all 40 sequentially) and a ragged S = 40 from a given
+    state, with a nonzero bonus u."""
     ref_cfg, cfg = cfgs
     (jtm, ttm), (jcm, tcm) = _layer0(jdtype)
     rng = np.random.default_rng(1)
     B, d, Hn, hd = 2, cfg.d_model, cfg.d_model // 64, 64
-    S = {"prefill": 64, "decode": 1, "continue": 64, "ragged": 40}[mode]
+    S = {"prefill": 64, "decode": 1, "continue": 64, "ragged": 40,
+         "continue_ragged": 40}[mode]
     jx, tx = _array(rng, (B, S, d), jdtype)
     kw_j, kw_t = {}, {}
-    if mode in ("decode", "continue"):
+    if mode in ("decode", "continue", "continue_ragged"):
         js, ts = _array(rng, (B, Hn, hd, hd), jnp.float32, 0.5)
         jl, tl = _array(rng, (B, d), jdtype)
         kw_j = dict(state=js, shift_last=jl)
@@ -173,6 +177,52 @@ def test_prefill_equals_token_by_token_decode(f32_models):
         for k in a:
             torch.testing.assert_close(a[k], b[k], rtol=1e-4, atol=1e-4)
     assert cache["len"] == cp["len"] == 64
+
+
+def test_ragged_prefill_equals_token_by_token_decode(f32_models):
+    """A ragged prompt (47 tokens: wkv6 over 32, the sequential WKV over
+    the tail of 15 from the kernel's state) against the port's own decode
+    of it from an empty cache; tolerance as above."""
+    _, _, pm, pp = f32_models
+    toks = torch.from_numpy(np.random.default_rng(10).integers(0, 1024,
+                                                               (2, 47)))
+    lp, cp = pm.prefill(pp, {"tokens": toks})
+    cache = pm.init_cache(2, 47)
+    for t in range(47):
+        ld, cache = pm.decode_step(pp, toks[:, t:t + 1], cache)
+    torch.testing.assert_close(ld, lp, rtol=1e-4, atol=1e-4)
+    for a, b in zip(cp["layers"], cache["layers"]):
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,given", [(64, False), (40, False), (16, False),
+                                     (20, False), (64, True), (40, True),
+                                     (1, True)])
+def test_every_multi_token_call_runs_wkv6(S, given, cfgs, monkeypatch):
+    """Every S > 1 time mix sends its whole chunks of min(32, S) tokens to
+    ``ops.wkv6`` once, with the given state or none; decode (S = 1) does
+    not call it."""
+    _, cfg = cfgs
+    (_, ttm), _ = _layer0(jnp.float32)
+    calls = []
+    real = rwkv.ops.wkv6
+
+    def counted(r, k, v, w, u, chunk, *, state=None):
+        calls.append((r.shape[1], chunk, state is not None))
+        return real(r, k, v, w, u, chunk, state=state)
+
+    monkeypatch.setattr(rwkv.ops, "wkv6", counted)
+    B, d, Hn = 2, cfg.d_model, cfg.d_model // 64
+    x = torch.randn((B, S, d), generator=torch.Generator().manual_seed(S))
+    kw = {}
+    if given:
+        kw = dict(state=torch.zeros((B, Hn, 64, 64)),
+                  shift_last=torch.zeros((B, d)))
+    out, (state, _) = rwkv.rwkv_time_mix(ttm, x, cfg, **kw)
+    assert out.shape == (B, S, d) and state.shape == (B, Hn, 64, 64)
+    L = min(32, S)
+    assert calls == ([] if S == 1 else [(S - S % L, L, given)])
 
 
 def test_bridged_bf16_params_keep_their_dtypes(cfgs):

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import rwkv as jrwkv  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 
@@ -106,6 +107,32 @@ def test_wkv6_plain_given_state_continues_the_sequence():
     torch.testing.assert_close(torch.cat([first, second], 1), whole,
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(s2, s_whole, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S,chunk", [(32, 32), (64, 32), (16, 16)])
+def test_wkv6_given_state_matches_reference_chunked(S, chunk):
+    """``ops.wkv6`` from a given start state (what the model runs for a
+    prompt that continues a cache) against the reference's
+    ``models/rwkv._wkv_chunked`` from the same state, in the model's
+    (B, S, Hn, D) layout: the same chunk math, 1e-6 of max + rtol 1e-5."""
+    B, Hn, D = 2, 2, 16
+    r, k, v, w, _ = _inputs(S + chunk, B * Hn, S, D)
+    rng = np.random.default_rng(S)
+    u = (0.1 * rng.standard_normal((Hn, D))).astype(np.float32)
+    s0 = (0.5 * rng.standard_normal((B, Hn, D, D))).astype(np.float32)
+
+    def model_layout(a):                      # (B·Hn, S, D) -> (B, S, Hn, D)
+        return jnp.asarray(a.reshape(B, Hn, S, D).transpose(0, 2, 1, 3))
+
+    j_out, j_state = jrwkv._wkv_chunked(*map(model_layout, (r, k, v, w)),
+                                        jnp.asarray(u), jnp.asarray(s0),
+                                        chunk=chunk)
+    out, state = ops.wkv6(*map(torch.from_numpy, (r, k, v, w)),
+                          torch.from_numpy(np.tile(u, (B, 1))), chunk,
+                          state=torch.from_numpy(s0.reshape(B * Hn, D, D)))
+    _close(out.reshape(B, Hn, S, D).permute(0, 2, 1, 3),
+           np.asarray(j_out), 1e-5, 1e-6)
+    _close(state.reshape(B, Hn, D, D), np.asarray(j_state), 1e-5, 1e-6)
 
 
 @pytest.mark.parametrize("S,chunk", [(33, 32), (48, 32), (8, 3)])
