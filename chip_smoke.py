@@ -7,12 +7,14 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. record the machine: torch and CUDA versions, ``nvcc --version``, whether
    ``import triton`` works, the card's name and power limit;
-2. build the seven kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all at once) and print the build seconds and each
-   library's register and spill report;
+2. build the seven kernel libraries from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once) and print the build seconds and
+   each library's register and spill report;
 3. hold each kernel, and the three aggregation wrappers, against its plain
    PyTorch version on the card, at the main paths' shapes and at ragged
-   small ones, with the stated tolerance (``robust_aggregate`` also at
+   small ones, with the stated tolerance (``fused_aggregate`` also at
+   K = d = 1, odd d, d ≡ 2 (mod 4), f32 and bf16, a tensor scale, and bit
+   for bit from call to call; ``robust_aggregate`` also at
    m = 0, 1, 2, heavy ties, the f32 floor of trim·m, bf16 deltas and
    non-finite valid rows; ``wkv6`` at the serving prefill's shape, at
    small shapes, with bf16 inputs and strong decays, and refusing a
@@ -23,7 +25,11 @@ Phases, in order (any failure raises and exits non-zero):
    d = 20,002 features, n = 2,166,693 examples) and ``build_problem`` once,
    then ``make_solver("fsvrg" | "fedavg" | "dane" | "cocoa",
    aggregator="pallas")`` → ``Trainer`` for 3 rounds each — with the launch
-   counts set to 0 just before each solver and read just after; then each
+   counts set to 0 just before each solver and read just after (CoCoA+:
+   one ``cocoa_sdca_pass`` launch a bucket, no ``cocoa_sdca_update``);
+   CoCoA+'s pass kernel against the plain step loop on the card at every
+   full-width bucket and at one with repeated features in a row, and 3
+   more CoCoA+ rounds through the plain loop, which must agree; then each
    solver on a small problem on the card and on the CPU (plain versions)
    with the same data and draws, which must agree;
 5. the fault-tolerant rounds at full width: a fleet trace, delta faults
@@ -31,7 +37,8 @@ Phases, in order (any failure raises and exits non-zero):
    mean, FedAvg with the median (both through ``robust_aggregate``),
    CoCoA+ with the clip guard — 3 rounds each, counts set to 0 just before
    each and read just after, the robust kernel's m checked against the
-   realized cohort minus the poisoned clients every round; the same faults
+   realized cohort minus the poisoned clients every round, CoCoA+ + clip
+   again through the plain pass, which must agree; the same faults
    unguarded must stop FSVRG in round 0; then the three on a small problem
    on the card and on the CPU, which must agree;
 6. serve rwkv6-3b at full width (32 layers, d 2,560, vocab 65,536, bf16,
@@ -44,7 +51,9 @@ Phases, in order (any failure raises and exits non-zero):
    against the CPU with the same weights;
 7. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
-   card could take), and the layout copies around ``wkv6``; break one
+   card could take) — ``cocoa_sdca_pass`` at every bucket of a round, the
+   host-bound wrappers also by the profiler's device time — and the
+   layout copies around ``wkv6``; break one
    full-width round of each plain solver into its parts; trace one plain
    round of each solver for the device's idle share, and one full-width
    prefill for its busy share and top operations;
@@ -53,6 +62,7 @@ Phases, in order (any failure raises and exits non-zero):
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -67,12 +77,15 @@ SEED = 0
 # the card's published peaks (H100 SXM data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+#: the kernels line: a row for each of the reference's seven TPU kernels,
+#: named for the kernel that runs it on the main path (the SDCA solve's:
+#: the pass entry, one launch a bucket; the coordinate entry is timed apart)
 TPU_KERNELS = {
     "fused_aggregate": "src/repro/kernels/scaled_aggregate.py:66",
     "fsvrg_update": "src/repro/kernels/fsvrg_update.py:36",
     "fedavg_update": "src/repro/kernels/fedavg_update.py:39",
     "dane_update": "src/repro/kernels/dane_update.py:51",
-    "cocoa_sdca_update": "src/repro/kernels/cocoa_sdca.py:55",
+    "cocoa_sdca_pass": "src/repro/kernels/cocoa_sdca.py:55",
     "robust_aggregate": "src/repro/kernels/robust_aggregate.py:67",
     "wkv6": "src/repro/kernels/wkv6.py:71",
 }
@@ -82,13 +95,13 @@ SOURCES = {
     "fsvrg_update": CSRC + "fsvrg_update.cu",
     "fedavg_update": CSRC + "fedavg_update.cu",
     "dane_update": CSRC + "dane_update.cu",
-    "cocoa_sdca_update": CSRC + "cocoa_sdca.cu",
+    "cocoa_sdca_pass": CSRC + "cocoa_sdca.cu",
     "robust_aggregate": CSRC + "robust_aggregate.cu",
     "wkv6": CSRC + "wkv6.cu",
 }
-#: solver -> the local-step kernel its client pass launches
+#: solver -> the kernel its client pass launches
 STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
-               "dane": "dane_update", "cocoa": "cocoa_sdca_update"}
+               "dane": "dane_update", "cocoa": "cocoa_sdca_pass"}
 # about 20 f32 operations a Newton step (log and divisions counted as one)
 # and 5 for the start: the SDCA solve's work per coordinate at 12 steps
 SDCA_OPS_PER_COORD = 5 + 12 * 20
@@ -430,10 +443,11 @@ def main() -> int:
     log(f"[build] {len(seconds)} libraries, {time.perf_counter() - t0:.2f} s "
         "in all; per library "
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
-    require(len(seconds) == len(SOURCES), "not every kernel was built")
+    require(len(seconds) == len(_build.SOURCES),
+            "not every kernel was built")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions --------------------------- #
@@ -450,6 +464,25 @@ def main() -> int:
         require(bool((err <= bound).all()), f"{name} {label} disagrees")
         return worst
 
+    def cuda_ms(fn, iters=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / iters
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
     def randn(shape, dt=torch.float32, scale=1.0):
         return (torch.randn(shape, device=dev, generator=g) * scale).to(dt)
 
@@ -459,9 +492,14 @@ def main() -> int:
     K, d = 10_000, 20_002
     R = 6_478                            # the largest bucket's clients
     # summation order: the kernel adds K in splits of fused multiply-adds,
-    # the plain version reduces in torch's order
-    for KK, dd, dt in [(K, d, torch.float32), (33, 999, torch.float32),
-                       (K, d, torch.bfloat16)]:
+    # the plain version reduces in torch's order.  Shapes: the main path's,
+    # K = d = 1, d odd (scalar lanes) and d ≡ 2 (mod 4) (float2 lanes, rows
+    # not 16-byte aligned), f32 and bf16; a tensor and a float scale
+    for KK, dd, dt in [(K, d, torch.float32), (K, d, torch.bfloat16),
+                       (33, 999, torch.float32), (1, 1, torch.float32),
+                       (1, 1, torch.bfloat16), (7, 1001, torch.float32),
+                       (7, 1001, torch.bfloat16), (5, 1002, torch.float32),
+                       (5, 1002, torch.bfloat16)]:
         deltas = randn((KK, dd), dt, 0.01)
         wts = rand(KK)
         wts /= wts.sum()
@@ -469,10 +507,17 @@ def main() -> int:
         a = rand(dd) * 3 + 1
         s = torch.tensor(1.25, device=dev)
         label = f"K={KK} d={dd} {dt}"
-        err = compare("fused_aggregate", label,
-                      ops.fused_aggregate(w_t, deltas, wts, a, s),
+        got = ops.fused_aggregate(w_t, deltas, wts, a, s)
+        err = compare("fused_aggregate", label, got,
                       ref.fused_aggregate_ref(w_t, deltas, wts, a, s),
                       1e-5, 1e-6)
+        compare("fused_aggregate", label + " float scale",
+                ops.fused_aggregate(w_t, deltas, wts, a, 0.75),
+                ref.fused_aggregate_ref(w_t, deltas, wts, a, 0.75),
+                1e-5, 1e-6)
+        require(torch.equal(ops.fused_aggregate(w_t, deltas, wts, a, s), got),
+                f"fused_aggregate {label}: two calls differ")
+        log(f"[check] fused_aggregate {label}: two calls bit-equal")
         if (KK, dd, dt) == (K, d, torch.float32):
             max_err["fused_aggregate"] = err
         if dt == torch.float32:
@@ -688,11 +733,13 @@ def main() -> int:
     f0 = float(prob.flat.loss(torch.zeros(prob.d, device=dev)))
 
     def local_steps(name, solver):
-        """Batched local steps (= launches of the step kernel) a round."""
+        """Launches of the client pass's kernel a round: a batched local
+        step each (CoCoA+: the whole pass of a bucket each)."""
         if name == "fedavg":
             return solver.cfg.local_epochs * steps
-        if name == "dane":
-            return solver.cfg.local_steps * len(prob.buckets)
+        if name in ("dane", "cocoa"):
+            return (solver.cfg.local_steps if name == "dane" else 1) * len(
+                prob.buckets)
         return steps
 
     # the prelude's full gradients, counted where they are computed
@@ -795,6 +842,92 @@ def main() -> int:
         require(run_["grads"] == (ROUNDS if name in ("fsvrg", "dane") else 0),
                 f"{name}: not one full gradient per round")
 
+    # CoCoA+'s pass kernel against the plain step loop on the card, at every
+    # full-width bucket from the run's iterate and dual blocks, and at the
+    # largest bucket with features repeated in its rows (entry 1 = entry 0
+    # everywhere, and every third row one feature five times).  Tolerance
+    # 1e-5 of max |plain| for u and r: the kernel reduces each row in
+    # another order and adds repeated features in atomic order
+    cocoa_solver, cocoa_res = runs["cocoa"]["solver"], runs["cocoa"]["res"]
+    flat = prob.flat
+    sdca_args = []
+    pass_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for bi, b in enumerate(prob.buckets):
+        sdca_args.append((cocoa_res.w, cocoa_res.state.aux[bi], b.idx, b.val,
+                          b.y, b.n_k, cocoa_solver.permutations(pass_gen, bi,
+                                                                b)))
+    big_b = max(range(len(prob.buckets)),
+                key=lambda i: prob.buckets[i].num_clients)
+    rep_idx = prob.buckets[big_b].idx.clone()
+    rep_idx[:, :, 1] = rep_idx[:, :, 0]
+    rep_idx[:, ::3, 1:5] = rep_idx[:, ::3, 5:6]
+    pass_cases = [(f"bucket {bi} ({b.num_clients}×{b.m_pad})", sdca_args[bi])
+                  for bi, b in enumerate(prob.buckets)]
+    pass_cases.append((f"bucket {big_b} with repeated features in every row",
+                       sdca_args[big_b][:2] + (rep_idx,)
+                       + sdca_args[big_b][3:]))
+    sdca_scalars = (cocoa_solver.sigma, flat.lam, flat.n)
+    worst = 0.0
+    pass_times = []      # per bucket: (kernel ms by events, plain ms)
+    for label, args in pass_cases:
+        Kb = args[1].shape[0]
+        r_k = torch.empty((Kb, prob.d), device=dev)
+        r_p = torch.empty((Kb, prob.d), device=dev)
+        before = ops.launch_counts()["cocoa_sdca_pass"]
+        u_k = ops.cocoa_sdca_pass(*args, *sdca_scalars, r_k)
+        require(ops.launch_counts()["cocoa_sdca_pass"] == before + 1,
+                "cocoa_sdca_pass did not launch")
+        sync()
+        t0 = time.perf_counter()
+        u_p = ref.cocoa_sdca_pass_ref(*args, *sdca_scalars, r_p)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for part, got, expect in (("u", u_k, u_p), ("r", r_k, r_p)):
+            worst = max(worst, compare(
+                "cocoa_sdca_pass", f"{label} {part}", got, expect, 0.0,
+                1e-5 * float(expect.abs().max())))
+        if len(pass_times) < len(prob.buckets):
+            pass_times.append((cuda_ms(lambda: ops.cocoa_sdca_pass(
+                *args, *sdca_scalars, r_k), iters=5, warmup=0), plain_ms))
+        del r_k, r_p, u_k, u_p, args
+    max_err["cocoa_sdca_pass"] = worst
+    del rep_idx, pass_cases, sdca_args   # before the runs that report a peak
+    torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def plain_sdca_pass():
+        """CoCoA+'s pass through the plain step loop on the card (the
+        yardstick of the kernel; the port's main path never runs it)."""
+        kernel = ops.cocoa_sdca_pass
+        ops.cocoa_sdca_pass = ref.cocoa_sdca_pass_ref
+        try:
+            yield
+        finally:
+            ops.cocoa_sdca_pass = kernel
+
+    def held_to_plain_pass(label, run_, make):
+        """ROUNDS rounds of a fresh solver from ``make()`` through the plain
+        pass, same seed: w within 1e-4 of max |w| of the kernel run's."""
+        with plain_sdca_pass():
+            plain = drive("cocoa", make())
+        w_k, w_p = run_["res"].w, plain["res"].w
+        err = float((w_k - w_p).abs().max())
+        scale = float(w_p.abs().max())
+        log(f"[main] {label}: seconds per round through the pass kernel "
+            + ", ".join(f"{x:.4f}" for x in run_["round_s"])
+            + "; through the plain step loop "
+            + ", ".join(f"{x:.3f}" for x in plain["round_s"])
+            + f" (same call); w after {ROUNDS} rounds: max_abs_err {err:.3e}"
+            f", max |w| {scale:.3e} (tolerance 1e-4·max|w|)")
+        require(err <= 1e-4 * scale,
+                f"{label}: the kernel's rounds and the plain pass's disagree")
+        del plain                  # its solver's buffers, before the next run
+        torch.cuda.empty_cache()
+
+    held_to_plain_pass(
+        "cocoa", runs["cocoa"],
+        lambda: make_solver("cocoa", prob, aggregator="pallas"))
+
     # each solver on a small problem, kernels on the card vs plain versions
     # on the CPU, same data and the same permutations (drawn on the CPU
     # from one generator per round and bucket)
@@ -891,6 +1024,13 @@ def main() -> int:
                         if k not in expected),
                 f"{name}: faulted launch counts {launches}, expected "
                 f"{expected}")
+        if name == "cocoa":
+            held_to_plain_pass(
+                "cocoa + clip under faults", run_,
+                lambda guard=guard: make_solver(
+                    "cocoa", prob, aggregator="pallas",
+                    participation_model=participation, fault_model=faults,
+                    **guard))
     # the same faults unguarded: the poison reaches the iterate in round 0
     unguarded = make_solver("fsvrg", prob, aggregator="pallas",
                             participation_model=participation,
@@ -938,25 +1078,8 @@ def main() -> int:
 
     # -- 7. timing ----------------------------------------------------------- #
     phase("timing")
-
-    def cuda_ms(fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        sync()
-        return start.elapsed_time(end) / iters
-
-    def bound(nbytes, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOP_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                            "operations")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def row(name, kernel_fn, plain_fn, nbytes, flops, library_fn=None,
             launches=None):
@@ -1036,8 +1159,9 @@ def main() -> int:
             + (f"trace masks {mask_s:.4f} s, fault injection {fault_s:.4f} "
                "s, " if faulted else "")
             + f"prelude {prelude_s:.4f} s, client passes {sum(pass_s):.3f} s"
-            f" over {n_steps} batched local steps "
-            f"({sum(pass_s) / n_steps * 1e6:.1f} µs a step; by bucket "
+            f" over {n_steps} "
+            + ("pass launches" if name == "cocoa" else "batched local steps")
+            + f" ({sum(pass_s) / n_steps * 1e6:.1f} µs a launch; by bucket "
             + ", ".join(f"{s:.3f}" for s in pass_s)
             + f" s), aggregation {agg_s:.4f} s, loss eval "
             f"{sum(eval_s) / len(eval_s):.4f} s")
@@ -1054,11 +1178,50 @@ def main() -> int:
     wts = torch.cat([eng.bucket_weights(wi, b.num_clients)
                      for wi, b in zip(eng._offsets, prob.buckets)])
     a = fsvrg.a_diag
-    rows.append(row(
-        "fused_aggregate", lambda: ops.fused_aggregate(w, deltas, wts, a, 1.0),
-        lambda: ref.fused_aggregate_ref(w, deltas, wts, a, 1.0),
-        K * d * 4 + K * 4 + 3 * d * 4, 2 * K * d + 3 * d,
-        lambda: torch.addcmul(w, a, torch.mv(deltas.t(), wts), value=1.0)))
+    # in turns, three times, each a mean of 20 launches after 3 warm-ups:
+    # the kernel, torch.mv + addcmul (the same function) and torch.addmv
+    # (w^t + Σ, no A); the line takes the medians
+    turns = {"kernel": lambda: ops.fused_aggregate(w, deltas, wts, a, 1.0),
+             "torch.mv + addcmul": lambda: torch.addcmul(
+                 w, a, torch.mv(deltas.t(), wts), value=1.0),
+             "torch.addmv": lambda: torch.addmv(w, deltas.t(), wts)}
+    turn_ms = {k: [] for k in turns}
+    for _ in range(3):
+        for key, fn in turns.items():
+            turn_ms[key].append(cuda_ms(fn))
+    med = {k: sorted(v)[1] for k, v in turn_ms.items()}
+    log("[time] fused_aggregate in turns (ms, three of each; median): "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in v)
+                    + f" ({med[k]:.4f})" for k, v in turn_ms.items()))
+    b_ms, b_by = bound(K * d * 4 + K * 4 + 3 * d * 4, 2 * K * d + 3 * d)
+    rows.append(dict(
+        name="fused_aggregate", route="cuda", source=SOURCES["fused_aggregate"],
+        replaces=TPU_KERNELS["fused_aggregate"],
+        launches=sum(r_["launches"]["fused_aggregate"]
+                     for r_ in (*runs.values(), *fault_runs.values())),
+        max_abs_err=max_err["fused_aggregate"],
+        ms=med["kernel"],
+        plain_ms=cuda_ms(lambda: ref.fused_aggregate_ref(w, deltas, wts, a,
+                                                         1.0)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=med["torch.mv + addcmul"]))
+
+    def device_ms(fn, iters=50):
+        """Device time a call by torch.profiler's key_averages() (None if
+        it saw no device time)."""
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        return us / iters / 1e3 if us > 0 else None
+
+    def show_ms(x):
+        return "not measured (the profiler saw no device time)" if x is None \
+            else f"{x:.4f} ms"
+
     # the three wrappers of the same kernel (not kernels of their own, so
     # not in the kernels line): kernel, plain, yardstick and bound
     acc = fg.clone()
@@ -1083,8 +1246,11 @@ def main() -> int:
         log(f"[time] wrapper {name}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, library "
             + ("null (no single call)" if l_ms is None else f"{l_ms:.4f} ms")
-            + f", bound {b_ms:.4f} ms ({b_by}); {b_ms / k_ms:.1%} of the "
-            "bound")
+            + f", bound {b_ms:.6f} ms ({b_by}); {b_ms / k_ms:.1%} of the "
+            "bound" + (f"; by the profiler: kernel {show_ms(device_ms(k_fn))}"
+                       f" on the device, library "
+                       f"{show_ms(device_ms(lib_fn))}"
+                       if name == "fused_epilogue" else ""))
     del deltas
     torch.cuda.empty_cache()
 
@@ -1123,10 +1289,51 @@ def main() -> int:
     b0 = rand(Kb) * 0.9 + 0.05
     m = randn(Kb, scale=3.0)
     c = rand(Kb) * 1e4
-    rows.append(row(
-        "cocoa_sdca_update", lambda: ops.cocoa_sdca_update(b0, m, c),
-        lambda: ref.cocoa_sdca_update_ref(b0, m, c),
-        4 * 4 * Kb, SDCA_OPS_PER_COORD * Kb))
+    # the coordinate entry (the TPU kernel's own function, off the main
+    # path since the pass replaced its launch a step; not in the kernels
+    # line, whose SDCA row is the pass): host-bound, so the device time too
+    b_ms, b_by = bound(4 * 4 * Kb, SDCA_OPS_PER_COORD * Kb)
+    k_ms = cuda_ms(lambda: ops.cocoa_sdca_update(b0, m, c))
+    log(f"[time] cocoa_sdca_update (N = {Kb}, the coordinate entry): kernel "
+        f"{k_ms:.4f} ms a call by events (host-bound), "
+        + show_ms(device_ms(lambda: ops.cocoa_sdca_update(b0, m, c)))
+        + " on the device by the profiler; plain "
+        f"{cuda_ms(lambda: ref.cocoa_sdca_update_ref(b0, m, c)):.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}); max_abs_err "
+        f"{max_err['cocoa_sdca_update']:.3e} at N = {R}")
+    # CoCoA+'s pass at every bucket of a round, from the CoCoA+ run's
+    # iterate and dual blocks.  Bound: idx (8 B) and val (4 B) of every
+    # padded row's nnz entries, y, α, perms (8 B) and u of every padded
+    # row, r written once, w and n_k read: bytes over the HBM rate; the
+    # f32 work (3 products a row entry, the Newton solve a row) never
+    # binds.  Times from the checks: the kernel by events over 5 launches,
+    # the plain step loop by the host clock around one pass ending in a
+    # synchronize
+    pass_ms, plain_pass_ms, pass_bytes, pass_ops = 0.0, 0.0, 0, 0
+    for bi, (b, (k_ms, p_ms)) in enumerate(zip(prob.buckets, pass_times)):
+        Kb_, m_pad_, nnz_ = b.idx.shape
+        nbytes = (Kb_ * m_pad_ * (12 * nnz_ + 4 + 4 + 8 + 4) + Kb_ * d * 4
+                  + d * 4 + Kb_ * 8)
+        pass_ms += k_ms
+        plain_pass_ms += p_ms
+        pass_bytes += nbytes
+        pass_ops += Kb_ * m_pad_ * (6 * nnz_ + SDCA_OPS_PER_COORD)
+        log(f"[time] cocoa_sdca_pass bucket {bi} ({Kb_}×{m_pad_}): kernel "
+            f"{k_ms:.4f} ms ({k_ms / m_pad_ * 1e3:.3f} µs a sequential step),"
+            f" plain step loop {p_ms:.2f} ms, bound "
+            f"{bound(nbytes, 0)[0]:.4f} ms (bytes)")
+    b_ms, b_by = bound(pass_bytes, pass_ops)
+    rows.append(dict(
+        name="cocoa_sdca_pass", route="cuda", source=SOURCES["cocoa_sdca_pass"],
+        replaces=TPU_KERNELS["cocoa_sdca_pass"],
+        launches=sum(r_["launches"]["cocoa_sdca_pass"]
+                     for r_ in (*runs.values(), *fault_runs.values())),
+        max_abs_err=max_err["cocoa_sdca_pass"], ms=pass_ms,
+        plain_ms=plain_pass_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
+    log(f"[time] cocoa_sdca_pass, a round's {len(prob.buckets)} launches: "
+        f"kernel {pass_ms:.4f} ms, plain step loop {plain_pass_ms:.2f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {pass_bytes / 1e9:.3f} GB)")
     # the order-statistic update at the full shape, over the trace's round-0
     # cohort (the faulted runs' m) and over every client; the bound counts
     # the valid rows the function must read, (m·d·4 + K + 3·d·4) B; the
@@ -1203,8 +1410,6 @@ def main() -> int:
     # more full-width round of each solver, traced by the profiler (device
     # activity only: tracing the host's operator calls too takes minutes),
     # over the unprofiled rounds' wall time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     phase("profile")
     for name, run_ in runs.items():
         solver, res = run_["solver"], run_["res"]

@@ -11,9 +11,10 @@ Under partial participation the engine freezes the dual blocks of the
 clients the round's draw left out, so w = (1/λn) Σ_k X_k α_k keeps holding.
 
 The local solver is one permutation pass of SDCA per round.  A bucket's
-clients step in lockstep — at step t every client updates the t-th
-coordinate of its own permutation — so each step's β-solve is one
-``cocoa_sdca_update`` call over a (Kb,) vector.
+clients are independent, so the whole bucket's pass is one
+``cocoa_sdca_pass`` call: on the card one kernel launch that runs every
+client's chain of m_pad steps (a warp a client), in place of the
+reference's ``lax.scan`` of one β-solve launch a step.
 
 Not ported yet: ``PrimalMethod`` and ``DualMethod`` (they need
 ``build_dense_problem``), and the streamed, cohort and virtual options.
@@ -29,7 +30,7 @@ from repro_torch.core.engine import EngineConfig, RoundEngine
 from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.utils.device import DeviceLike, random_permutations
 
 
@@ -61,41 +62,13 @@ def sdca_local_pass_keyed(w: torch.Tensor, alpha: torch.Tensor,
                           r: torch.Tensor) -> torch.Tensor:
     """One permutation pass of SDCA on every client's local dual
     subproblem, over explicit permutations ``perms`` (Kb, m_pad) — the
-    counterpart of the reference's ``_sdca_local_pass_keyed``.
-
-    With β_i = y_i α_i ∈ (0, 1), coordinate i solves (from eq. 15)
-
-        min_β  m_i (β − β_old) + c_i (β − β_old)² + H(β),
-        m_i = y_i x_iᵀ(w + (σ/λn) r),   c_i = σ||x_i||²/(2λn),
-
-    where r = X_k u tracks the client's own updates within the round.  r is
-    accumulated in ``r`` (Kb, d), which this zeroes first; returns u
-    (Kb, m_pad), the change of α."""
-    Kb, m_pad, nnz = bucket.idx.shape
-    eps = ref.SDCA_EPS
-    take = perms[..., None].expand(Kb, m_pad, nnz)
-    pidx = bucket.idx.gather(1, take).transpose(0, 1).contiguous()
-    pval = bucket.val.gather(1, take).transpose(0, 1).contiguous()
-    py = bucket.y.gather(1, perms).t().contiguous()                # (m_pad, Kb)
-    valid = (perms < bucket.n_k[:, None]).to(torch.float32).t()
-    beta_old = torch.clamp(py * alpha.gather(1, perms).t(), eps,
-                           1.0 - eps).contiguous()
-    # the parts of each step's coefficients that r does not change: all at
-    # once, with the scalars rounded as the reference rounds them
-    zw = (pval * w[pidx]).sum(dim=-1)
-    xn2 = (pval * pval).sum(dim=-1)
-    ccoef = (sigma * xn2) / torch.full_like(xn2, 2.0 * lam * n)
-    shift = sigma / (lam * n)
-    u = torch.zeros((Kb, m_pad), device=w.device)
-    r.zero_()
-    for t in range(m_pad):
-        xi, vi, yi = pidx[t], pval[t], py[t]
-        mcoef = yi * (zw[t] + shift * (vi * r.gather(1, xi)).sum(dim=1))
-        beta = ops.cocoa_sdca_update(beta_old[t], mcoef, ccoef[t])
-        du = valid[t] * yi * (beta - beta_old[t])
-        u.scatter_add_(1, perms[:, t:t + 1], du[:, None])
-        r.scatter_add_(1, xi, du[:, None] * vi)
-    return u
+    counterpart of the reference's ``_sdca_local_pass_keyed``: one
+    ``cocoa_sdca_pass`` over the bucket (on the card one kernel launch; on
+    the CPU the plain step loop, see ``ref.cocoa_sdca_pass_ref``).  r = X_k u
+    is written into ``r`` (Kb, d); returns u (Kb, m_pad), the change of
+    α."""
+    return ops.cocoa_sdca_pass(w, alpha, bucket.idx, bucket.val, bucket.y,
+                               bucket.n_k, perms, sigma, lam, n, r)
 
 
 class CoCoAPlus(FederatedSolver):

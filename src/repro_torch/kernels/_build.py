@@ -49,8 +49,8 @@ _F = ctypes.c_float
 #: cudaError_t); EXTRA_SIGNATURES lists a library's other launchers
 SIGNATURES = {
     "fused_aggregate": ("fused_aggregate_launch",
-                        [_P, _I, _P, _P, _P, _P, _F, _P, _P, _L, _L, _L, _I,
-                         _P]),
+                        [_P, _I, _I, _P, _P, _P, _P, _F, _P, _P, _L, _L, _L,
+                         _L, _L, _P]),
     "fsvrg_update": ("fsvrg_update_launch",
                      [_P, _P, _P, _P, _P, _I, _P, _F, _P, _L, _L, _L, _L, _L,
                       _L, _P]),
@@ -66,6 +66,12 @@ SIGNATURES = {
                              _I, _P]),
 }
 EXTRA_SIGNATURES = {
+    "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],
+                        "fused_epilogue_launch": [_P, _P, _P, _P, _F, _P, _L,
+                                                  _P]},
+    "cocoa_sdca": {"cocoa_sdca_pass_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                              _P, _L, _I, _I, _L, _F, _F, _F,
+                                              _I, _I, _P]},
     "robust_aggregate": {"robust_compact_launch": [_P, _I, _P, _P, _P]},
 }
 

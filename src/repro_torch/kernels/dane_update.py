@@ -36,7 +36,7 @@ def dane_update(w: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     out = _args.output(_NAME, out, w)
 
     launch = _build.launcher(_NAME)
-    with torch.cuda.device(w.device):
+    with _args.on_card(w.device):
         err = launch(w.data_ptr(), g.data_ptr(), a.data_ptr(), w_t.data_ptr(),
                      _args.DTYPES[w.dtype], float(lr), float(lam), float(mu),
                      out.data_ptr(), R, d, wt_stride, _args.stream(w))

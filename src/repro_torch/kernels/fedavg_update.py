@@ -35,7 +35,7 @@ def fedavg_update(w: torch.Tensor, g: torch.Tensor,
     out = _args.output(_NAME, out, w)
 
     launch = _build.launcher(_NAME)
-    with torch.cuda.device(w.device):
+    with _args.on_card(w.device):
         err = launch(w.data_ptr(), g.data_ptr(), _args.DTYPES[w.dtype], h_ptr,
                      h_value, float(lam), out.data_ptr(), R, d, h_stride,
                      _args.stream(w))

@@ -37,7 +37,7 @@ def fsvrg_update(w: torch.Tensor, s: torch.Tensor, g_new: torch.Tensor,
     out = _args.output(_NAME, out, w)
 
     launch = _build.launcher(_NAME)
-    with torch.cuda.device(w.device):
+    with _args.on_card(w.device):
         err = launch(w.data_ptr(), s.data_ptr(), g_new.data_ptr(),
                      g_old.data_ptr(), g_bar.data_ptr(), _args.DTYPES[w.dtype],
                      h_ptr, h_value, out.data_ptr(), R, d, s_stride,

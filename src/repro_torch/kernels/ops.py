@@ -30,6 +30,7 @@ KERNELS = {
     "fedavg_update": _fa.fedavg_update,
     "dane_update": _du.dane_update,
     "cocoa_sdca_update": _cs.cocoa_sdca_update,
+    "cocoa_sdca_pass": _cs.cocoa_sdca_pass,
     "robust_aggregate": _ra.robust_aggregate,
     "wkv6": _wk.wkv6,
 }
@@ -78,6 +79,19 @@ def cocoa_sdca_update(beta0: torch.Tensor, mcoef: torch.Tensor,
     if _on_cpu(beta0):
         return ref.cocoa_sdca_update_ref(beta0, mcoef, ccoef, newton_iters)
     return _cs.cocoa_sdca_update(beta0, mcoef, ccoef, newton_iters)
+
+
+def cocoa_sdca_pass(w: torch.Tensor, alpha: torch.Tensor, idx: torch.Tensor,
+                    val: torch.Tensor, y: torch.Tensor, n_k: torch.Tensor,
+                    perms: torch.Tensor, sigma: float, lam: float, n: int,
+                    r: torch.Tensor, newton_iters: int = 12) -> torch.Tensor:
+    """One permutation pass of SDCA for every client of a bucket: writes
+    r = X_k u into ``r`` (Kb, d) and returns u (Kb, m_pad)."""
+    if _on_cpu(w):
+        return ref.cocoa_sdca_pass_ref(w, alpha, idx, val, y, n_k, perms,
+                                       sigma, lam, n, r, newton_iters)
+    return _cs.cocoa_sdca_pass(w, alpha, idx, val, y, n_k, perms, sigma, lam,
+                               n, r, newton_iters)
 
 
 def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,

@@ -113,6 +113,52 @@ def cocoa_sdca_update_ref(beta0: torch.Tensor, mcoef: torch.Tensor,
     return b.to(beta0.dtype)
 
 
+def cocoa_sdca_pass_ref(w: torch.Tensor, alpha: torch.Tensor,
+                        idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor,
+                        n_k: torch.Tensor, perms: torch.Tensor, sigma: float,
+                        lam: float, n: int, r: torch.Tensor,
+                        newton_iters: int = 12) -> torch.Tensor:
+    """One permutation pass of SDCA on every client's local dual
+    subproblem of a bucket (idx, val (Kb, m_pad, nnz); y, alpha, perms
+    (Kb, m_pad); n_k (Kb,)), the clients in lockstep: at step t client k
+    updates coordinate i = perms[k, t].  With β_i = y_i α_i ∈ (0, 1),
+    coordinate i solves (from eq. 15)
+
+        min_β  m_i (β − β_old) + c_i (β − β_old)² + H(β),
+        m_i = y_i x_iᵀ(w + (σ/λn) r),   c_i = σ||x_i||²/(2λn),
+
+    by :func:`cocoa_sdca_update_ref`, where r = X_k u tracks the client's
+    own updates within the pass.  r is accumulated in ``r`` (Kb, d), which
+    this zeroes first; returns u (Kb, m_pad), the change of α.  The
+    counterpart of the reference's ``_sdca_local_pass_keyed``."""
+    Kb, m_pad, nnz = idx.shape
+    eps = SDCA_EPS
+    take = perms[..., None].expand(Kb, m_pad, nnz)
+    pidx = idx.gather(1, take).transpose(0, 1).contiguous()
+    pval = val.gather(1, take).transpose(0, 1).contiguous()
+    py = y.gather(1, perms).t().contiguous()                     # (m_pad, Kb)
+    valid = (perms < n_k[:, None]).to(_F32).t()
+    beta_old = torch.clamp(py * alpha.gather(1, perms).t(), eps,
+                           1.0 - eps).contiguous()
+    # the parts of each step's coefficients that r does not change: all at
+    # once, with the scalars rounded as the reference rounds them
+    zw = (pval * w[pidx]).sum(dim=-1)
+    xn2 = (pval * pval).sum(dim=-1)
+    ccoef = (sigma * xn2) / torch.full_like(xn2, 2.0 * lam * n)
+    shift = sigma / (lam * n)
+    u = torch.zeros((Kb, m_pad), device=w.device)
+    r.zero_()
+    for t in range(m_pad):
+        xi, vi, yi = pidx[t], pval[t], py[t]
+        mcoef = yi * (zw[t] + shift * (vi * r.gather(1, xi)).sum(dim=1))
+        beta = cocoa_sdca_update_ref(beta_old[t], mcoef, ccoef[t],
+                                     newton_iters)
+        du = valid[t] * yi * (beta - beta_old[t])
+        u.scatter_add_(1, perms[:, t:t + 1], du[:, None])
+        r.scatter_add_(1, xi, du[:, None] * vi)
+    return u
+
+
 def fused_aggregate_ref(w_t: torch.Tensor, deltas: torch.Tensor,
                         weights: torch.Tensor, a_diag: torch.Tensor,
                         scale: Scalar = 1.0) -> torch.Tensor:

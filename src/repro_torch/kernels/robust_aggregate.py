@@ -51,7 +51,7 @@ def robust_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
     idx = torch.empty((K,), dtype=torch.int32, device=dev)
     m_dev = torch.empty((1,), dtype=torch.int32, device=dev)
     stream = _args.stream(deltas)
-    with torch.cuda.device(dev):
+    with _args.on_card(dev):
         err = _build.launcher(_NAME, "robust_compact_launch")(
             flags.data_ptr(), K, idx.data_ptr(), m_dev.data_ptr(), stream)
         _build.check(err, _NAME)

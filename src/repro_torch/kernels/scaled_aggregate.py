@@ -5,70 +5,142 @@
     w ← w^t + A ⊙ (s · Σ_k weights_k · δ_k),      δ_k = w_k − w^t
 
 :func:`fused_aggregate` launches the kernel on CUDA tensors and counts its
-launches in ``fused_aggregate.launches``.  :func:`fused_accumulate`,
-:func:`fused_epilogue` and :func:`scaled_aggregate` are thin wrappers over
-it, as in the reference.  Callers go through :mod:`repro_torch.kernels.ops`,
-which sends CPU tensors to the plain versions in ``ref.py``.
+launches in ``fused_aggregate.launches``.  :func:`fused_accumulate` is the
+same kernel with an identity epilogue, :func:`fused_epilogue` the
+epilogue's own one-launch entry, and :func:`scaled_aggregate` the
+iterate-consuming compatibility entry; each counts its launch there too.
+Callers go through :mod:`repro_torch.kernels.ops`, which sends CPU tensors
+to the plain versions in ``ref.py``.
 """
 from __future__ import annotations
 
-from typing import Union
+import ctypes
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import _args, _build
 
-COLS = 256            # columns per block (csrc/fused_aggregate.cu)
-TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
-MIN_ROWS = 32         # fewest rows of K one split walks
+THREADS = 256     # threads a block (csrc/fused_aggregate.cu)
+LANES = 32        # a warp: one unit of work is a warp on a strip of columns
+MIN_ROWS = 32     # fewest rows of K one split walks
+
+_Scalar = Union[float, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call cuts the (K, d) stack: ``strips`` of LANES·vec columns
+    × ``splits`` of at most ``rows`` rows, one warp a (strip, split)."""
+
+    vec: int
+    strips: int
+    splits: int
+    rows: int
+
+    @property
+    def units(self) -> int:
+        return self.strips * self.splits
+
+
+def plan(K: int, d: int, vec: int, warp_slots: int) -> Plan:
+    """The grid rule: as many splits of K as leave every strip's units in
+    one wave of the card's ``warp_slots`` resident warps, but no more than
+    ⌈K / MIN_ROWS⌉, and none empty.  Depends on the shape and the card
+    only, so the summation order is fixed."""
+    strips = -(-(-(-d // vec)) // LANES)
+    splits = max(1, min(warp_slots // strips, -(-K // MIN_ROWS)))
+    rows = -(-K // splits)
+    return Plan(vec, strips, -(-K // rows), rows)
+
+
+def vec_for(deltas: torch.Tensor) -> int:
+    """2 columns a lane when every row starts aligned to two elements (d
+    even and an aligned base), else 1."""
+    pair = 2 * deltas.element_size()
+    aligned = deltas.shape[1] % 2 == 0 and deltas.data_ptr() % pair == 0
+    return 2 if aligned else 1
+
+
+_SLOTS: Dict[Tuple[int, int, int], int] = {}
+_SCRATCH: Dict[Tuple[torch.device, int, int], torch.Tensor] = {}
+
+
+def warp_slots(dev: torch.device, dtype_code: int, vec: int) -> int:
+    """Resident warps of the kernel on the whole card: SMs × its blocks a
+    SM (the CUDA occupancy calculator) × warps a block; read once."""
+    key = (dev.index, dtype_code, vec)
+    if key not in _SLOTS:
+        blocks = ctypes.c_int(0)
+        with _args.on_card(dev):
+            err = _build.launcher("fused_aggregate",
+                                  "fused_aggregate_occupancy")(
+                dtype_code, vec, ctypes.byref(blocks))
+        _build.check(err, "fused_aggregate occupancy")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SLOTS[key] = sms * blocks.value * (THREADS // LANES)
+    return _SLOTS[key]
+
+
+def _scratch(dev: torch.device, splits: int, d: int) -> torch.Tensor:
+    """The (splits, d) f32 partial sums of one shape, allocated once."""
+    key = (dev, splits, d)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.empty((splits, d), dtype=torch.float32,
+                                    device=dev)
+    return _SCRATCH[key]
 
 
 def _require(cond: bool, msg: str) -> None:
     _args.require("fused_aggregate", cond, msg)
 
 
-def splits_for(K: int, d: int) -> int:
-    """How many parts the K axis is cut into: enough that the grid holds
-    about TARGET_BLOCKS blocks, but no part shorter than MIN_ROWS rows.
-    Depends on the shape only, so the summation order is fixed."""
-    col_blocks = -(-d // COLS)
-    splits = max(1, min(-(-K // MIN_ROWS), -(-TARGET_BLOCKS // col_blocks)))
-    rows = -(-K // splits)
-    return -(-K // rows)
-
-
-def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
-                    weights: torch.Tensor, a_diag: torch.Tensor,
-                    scale: Union[float, torch.Tensor] = 1.0) -> torch.Tensor:
-    """w_t, a_diag: (d,) f32; deltas: (K, d) f32 or bf16, contiguous;
-    weights: (K,) f32; scale: a float or a 0-d f32 tensor on the device.
-    Returns a new (d,) f32 tensor."""
-    K, d = _args.stack("fused_aggregate", deltas)
-    dev = deltas.device
-    for x, n, name in ((w_t, d, "w_t"), (a_diag, d, "a_diag"),
-                       (weights, K, "weights")):
-        _args.vector("fused_aggregate", x, n, name, dev)
+def _scale(scale: _Scalar, dev: torch.device) -> Tuple[Optional[int], float]:
+    """A float, or a one-value f32 tensor on the device: (pointer, value)."""
     if isinstance(scale, torch.Tensor):
         _require(scale.device == dev and scale.dtype == torch.float32
                  and scale.numel() == 1,
                  "a tensor scale must be one float32 value on the device")
-        scale_ptr, scale_value = scale.data_ptr(), 0.0
-    else:
-        scale_ptr, scale_value = None, float(scale)
+        return scale.data_ptr(), 0.0
+    return None, float(scale)
 
-    splits = splits_for(K, d)
-    rows = -(-K // splits)
-    partial = torch.empty((splits, d), dtype=torch.float32, device=dev)
+
+def _aggregate(w_t: torch.Tensor, deltas: torch.Tensor, weights: torch.Tensor,
+               a_diag: Optional[torch.Tensor], scale: _Scalar) -> torch.Tensor:
+    """One launch of the kernel; ``a_diag`` None is the identity epilogue."""
+    K, d = _args.stack("fused_aggregate", deltas)
+    dev = deltas.device
+    for x, n, name in ((w_t, d, "w_t"), (a_diag, d, "a_diag"),
+                       (weights, K, "weights")):
+        if x is not None:
+            _args.vector("fused_aggregate", x, n, name, dev)
+    scale_ptr, scale_value = _scale(scale, dev)
+    code, vec = _args.DTYPES[deltas.dtype], vec_for(deltas)
+    p = plan(K, d, vec, warp_slots(dev, code, vec))
+    partial = _scratch(dev, p.splits, d)
     out = torch.empty((d,), dtype=torch.float32, device=dev)
     launch = _build.launcher("fused_aggregate")
-    with torch.cuda.device(dev):
-        err = launch(deltas.data_ptr(), _args.DTYPES[deltas.dtype],
-                     weights.data_ptr(), w_t.data_ptr(), a_diag.data_ptr(),
+    with _args.on_card(dev):
+        err = launch(deltas.data_ptr(), code, p.vec, weights.data_ptr(),
+                     w_t.data_ptr(),
+                     None if a_diag is None else a_diag.data_ptr(),
                      scale_ptr, scale_value, partial.data_ptr(),
-                     out.data_ptr(), K, d, rows, splits, _args.stream(deltas))
+                     out.data_ptr(), K, d, p.strips, p.splits, p.rows,
+                     _args.stream(deltas))
     _build.check(err, "fused_aggregate")
     fused_aggregate.launches += 1
     return out
+
+
+def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
+                    weights: torch.Tensor, a_diag: torch.Tensor,
+                    scale: _Scalar = 1.0) -> torch.Tensor:
+    """w_t, a_diag: (d,) f32; deltas: (K, d) f32 or bf16, contiguous;
+    weights: (K,) f32; scale: a float or a 0-d f32 tensor on the device.
+    Returns a new (d,) f32 tensor."""
+    _require(a_diag is not None, "a_diag must be a tensor")
+    return _aggregate(w_t, deltas, weights, a_diag, scale)
 
 
 fused_aggregate.launches = 0
@@ -77,15 +149,28 @@ fused_aggregate.launches = 0
 def fused_accumulate(acc: torch.Tensor, deltas: torch.Tensor,
                      weights: torch.Tensor) -> torch.Tensor:
     """acc + Σ_k weights_k δ_k: the kernel with an identity epilogue."""
-    return fused_aggregate(acc, deltas, weights, torch.ones_like(acc), 1.0)
+    return _aggregate(acc, deltas, weights, None, 1.0)
 
 
 def fused_epilogue(w_t: torch.Tensor, acc: torch.Tensor, a_diag: torch.Tensor,
-                   scale: Union[float, torch.Tensor] = 1.0) -> torch.Tensor:
-    """w^t + A ⊙ (s · acc): the kernel over one pre-reduced row."""
-    return fused_aggregate(w_t, acc.reshape(1, -1).contiguous(),
-                           torch.ones((1,), dtype=torch.float32,
-                                      device=acc.device), a_diag, scale)
+                   scale: _Scalar = 1.0) -> torch.Tensor:
+    """w^t + A ⊙ (s · acc) over a pre-reduced (d,) f32 row: one launch of
+    the epilogue entry, one thread a column."""
+    _args.require("fused_aggregate", isinstance(acc, torch.Tensor)
+                  and acc.is_cuda, "acc must be a CUDA tensor")
+    d, dev = acc.shape[-1], acc.device
+    for x, name in ((acc, "acc"), (w_t, "w_t"), (a_diag, "a_diag")):
+        _args.vector("fused_aggregate", x, d, name, dev)
+    scale_ptr, scale_value = _scale(scale, dev)
+    out = torch.empty((d,), dtype=torch.float32, device=dev)
+    launch = _build.launcher("fused_aggregate", "fused_epilogue_launch")
+    with _args.on_card(dev):
+        err = launch(w_t.data_ptr(), acc.data_ptr(), a_diag.data_ptr(),
+                     scale_ptr, scale_value, out.data_ptr(), d,
+                     _args.stream(acc))
+    _build.check(err, "fused_epilogue")
+    fused_aggregate.launches += 1
+    return out
 
 
 def scaled_aggregate(w_t: torch.Tensor, w_ks: torch.Tensor,

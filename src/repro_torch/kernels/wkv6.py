@@ -75,7 +75,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     out = torch.empty_like(r)
     final = torch.empty((BH, D, D), dtype=torch.float32, device=r.device)
     launch = _build.launcher(_NAME)
-    with torch.cuda.device(r.device):
+    with _args.on_card(r.device):
         err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                      u32.data_ptr(), None if state is None else state.data_ptr(),
                      _args.DTYPES[r.dtype], out.data_ptr(), final.data_ptr(),

@@ -22,10 +22,12 @@ torch = pytest.importorskip("torch")
 from repro.core import Trainer as RefTrainer  # noqa: E402
 from repro.core import make_solver as ref_make_solver  # noqa: E402
 from repro.core.cocoa import _sdca_local_pass_keyed  # noqa: E402
+from repro.core.problem import ClientBucket as RefBucket  # noqa: E402
 from repro_torch.bridge import dataset_from_arrays, state_from_array  # noqa: E402
 from repro_torch.core import CoCoAPlus, CoCoAConfig, Trainer  # noqa: E402
 from repro_torch.core import build_problem, make_solver  # noqa: E402
 from repro_torch.core.cocoa import sdca_local_pass_keyed  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 ROUNDS = 3
 
@@ -103,6 +105,65 @@ def test_one_bucket_sdca_pass_matches_reference(small_problem, port_problem):
     # padded coordinates never move
     pad = torch.arange(pb.m_pad)[None, :] >= pb.n_k[:, None]
     assert not u[pad].any()
+
+
+def _bucket_with_repeats(rng, Kb, m_pad, nnz, d):
+    """A bucket whose rows repeat features — entry 1 of every row is entry
+    0's feature, and every third row holds one feature four more times —
+    and whose clients after the first have n_k < m_pad where m_pad > 1
+    (padded slots: idx 0, val 0, y 1, as ``build_problem`` pads)."""
+    n_k = rng.integers(1, m_pad + 1, Kb)
+    n_k[0] = m_pad
+    idx = rng.integers(0, d, (Kb, m_pad, nnz))
+    if nnz > 1:
+        idx[:, :, 1] = idx[:, :, 0]
+    if nnz > 5:
+        idx[:, ::3, 1:5] = idx[:, ::3, 5:6]
+    val = rng.uniform(0.05, 1.0, (Kb, m_pad, nnz)).astype(np.float32)
+    y = rng.choice([-1.0, 1.0], (Kb, m_pad)).astype(np.float32)
+    pad = np.arange(m_pad)[None, :] >= n_k[:, None]
+    idx[pad], val[pad], y[pad] = 0, 0.0, 1.0
+    return idx.astype(np.int64), val, y, n_k.astype(np.int64)
+
+
+@pytest.mark.parametrize("Kb,m_pad,nnz,d", [(1, 1, 3, 5), (4, 9, 7, 50),
+                                            (6, 33, 62, 400)])
+def test_plain_pass_matches_reference_with_repeats(Kb, m_pad, nnz, d):
+    """``ref.cocoa_sdca_pass_ref`` (what ``ops.cocoa_sdca_pass`` runs on the
+    CPU) against the reference's ``_sdca_local_pass_keyed`` with the plain
+    Newton (``use_kernel=False``) and the reference's permutations, on a
+    bucket with repeated features in a row and padded slots: u and r at
+    atol 1e-7 / rtol 1e-5; padded coordinates never move."""
+    rng = np.random.default_rng(Kb * 1000 + m_pad)
+    idx, val, y, n_k = _bucket_with_repeats(rng, Kb, m_pad, nnz, d)
+    w = (rng.standard_normal(d) * 0.3).astype(np.float32)
+    alpha = (y * rng.uniform(0.05, 0.95, y.shape)).astype(np.float32)
+    n = int(n_k.sum())
+    lam, sigma = 1.0 / n, float(Kb)
+    keys = jax.random.split(jax.random.PRNGKey(Kb + m_pad), Kb)
+    u_ref, r_ref = _sdca_local_pass_keyed(
+        jnp.asarray(w), jnp.asarray(alpha),
+        RefBucket(jnp.asarray(idx, jnp.int32), jnp.asarray(val),
+                  jnp.asarray(y), jnp.asarray(n_k, jnp.int32)),
+        lam, n, sigma, False, keys)
+    perms = torch.as_tensor(np.stack(
+        [np.asarray(jax.random.permutation(keys[k], m_pad))
+         for k in range(Kb)]).astype(np.int64))
+    T = torch.as_tensor
+    r = torch.full((Kb, d), float("nan"))
+    u = ref.cocoa_sdca_pass_ref(T(w), T(alpha), T(idx), T(val), T(y),
+                                T(n_k), perms, sigma, lam, n, r)
+    np.testing.assert_allclose(u.numpy(), np.asarray(u_ref), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(r.numpy(), np.asarray(r_ref), rtol=1e-5,
+                               atol=1e-7)
+    assert not u[torch.as_tensor(np.arange(m_pad)[None, :]
+                                 >= n_k[:, None])].any()
+    r2 = torch.empty_like(r)
+    assert torch.equal(ops.cocoa_sdca_pass(T(w), T(alpha), T(idx), T(val),
+                                           T(y), T(n_k), perms, sigma, lam,
+                                           n, r2), u)
+    assert torch.equal(r2, r)
 
 
 def _dual_blocks_to_primal(pp, alphas):

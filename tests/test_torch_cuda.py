@@ -29,6 +29,7 @@ from repro_torch.data import generate  # noqa: E402
 from repro_torch.fleet import (DeltaFaults, FleetTrace,  # noqa: E402
                                TraceParticipation, fleet_masks)
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import cocoa_sdca as cs_kernel  # noqa: E402
 from repro_torch.kernels import robust_aggregate as ra_kernel  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -51,7 +52,8 @@ def _gen(dev, seed=0):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-5)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("K,d", [(1, 1), (9, 999), (33, 1000), (300, 20_002)])
+@pytest.mark.parametrize("K,d", [(1, 1), (9, 999), (33, 1000), (5, 1002),
+                                 (300, 20_002)])
 def test_fused_aggregate_matches_plain(cuda, K, d, dtype, tol):
     g = _gen(cuda)
     wt, a = (torch.randn(d, device=cuda, generator=g) for _ in range(2))
@@ -75,6 +77,28 @@ def test_fused_aggregate_matches_plain(cuda, K, d, dtype, tol):
     torch.testing.assert_close(ops.scaled_aggregate(wt, w_ks, wts, a),
                                ref.scaled_aggregate_ref(wt, w_ks, wts, a),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("K,d", [(1, 1), (9, 999), (5, 1002), (2_000, 20_002)])
+def test_fused_aggregate_is_bit_equal_from_call_to_call(cuda, K, d, dtype):
+    """Two calls give the same bits (the splits' partial sums are added in
+    a fixed order, no atomics); the epilogue entry counts one launch."""
+    g = _gen(cuda, 9)
+    wt, a, acc = (torch.randn(d, device=cuda, generator=g) for _ in range(3))
+    deltas = torch.randn((K, d), device=cuda, generator=g).to(dtype)
+    wts = torch.rand(K, device=cuda, generator=g)
+    s = torch.tensor(0.7, device=cuda)
+    first = ops.fused_aggregate(wt, deltas, wts, a, s)
+    assert torch.equal(ops.fused_aggregate(wt, deltas, wts, a, s), first)
+    assert torch.equal(ops.fused_accumulate(acc, deltas, wts),
+                       ops.fused_accumulate(acc, deltas, wts))
+    before = ops.launch_counts()["fused_aggregate"]
+    out = ops.fused_epilogue(wt, acc, a, s)
+    assert ops.launch_counts()["fused_aggregate"] == before + 1
+    torch.testing.assert_close(out, ref.fused_epilogue_ref(wt, acc, a, s),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -170,6 +194,80 @@ def test_cocoa_sdca_update_matches_plain(cuda, n, dtype, tol):
     assert torch.equal(ops.cocoa_sdca_update(pad, zero, zero), pad)
 
 
+def _pass_bucket(dev, Kb, m_pad, nnz, d, seed=0):
+    """A bucket whose rows repeat features (entry 1 is entry 0's feature;
+    every third row holds one feature five times) and whose clients after
+    the first have n_k < m_pad (padded slots: idx 0, val 0, y 1), with a
+    dual block, an iterate and each client's permutation."""
+    g = torch.Generator().manual_seed(seed)
+    n_k = torch.randint(1, m_pad + 1, (Kb,), generator=g)
+    n_k[0] = m_pad
+    idx = torch.randint(0, d, (Kb, m_pad, nnz), generator=g)
+    if nnz > 1:
+        idx[:, :, 1] = idx[:, :, 0]
+    if nnz > 5:
+        idx[:, ::3, 1:5] = idx[:, ::3, 5:6]
+    val = torch.rand((Kb, m_pad, nnz), generator=g) * 0.95 + 0.05
+    y = torch.randint(0, 2, (Kb, m_pad), generator=g).float() * 2 - 1
+    pad = torch.arange(m_pad)[None, :] >= n_k[:, None]
+    idx[pad], val[pad], y[pad] = 0, 0.0, 1.0
+    alpha = y * (torch.rand((Kb, m_pad), generator=g) * 0.9 + 0.05)
+    w = torch.randn(d, generator=g) * 0.3
+    perms = torch.argsort(torch.rand((Kb, m_pad), generator=g), dim=1)
+    return [x.to(dev) for x in (w, alpha, idx, val, y, n_k, perms)]
+
+
+@pytest.mark.parametrize("Kb,m_pad,nnz,d", [
+    (1, 1, 3, 5), (1, 40, 62, 300), (7, 33, 62, 1_000), (3, 17, 1, 50),
+    (5, 12, 100, 400), (4, 9, 256, 2_000), (300, 64, 62, 20_002)])
+def test_cocoa_sdca_pass_matches_plain(cuda, Kb, m_pad, nnz, d):
+    """The pass kernel against its plain version on the card: u and r
+    within 1e-5 of their max abs (the kernel reduces each row in another
+    order, in FMAs, and adds repeated features in the atomics' order);
+    padded coordinates never move; one launch."""
+    w, alpha, idx, val, y, n_k, perms = _pass_bucket(cuda, Kb, m_pad, nnz, d)
+    n, sigma = int(n_k.sum()) * 3, float(Kb)
+    lam = 1.0 / n
+    r = torch.full((Kb, d), float("nan"), device=cuda)
+    before = ops.launch_counts()
+    u = ops.cocoa_sdca_pass(w, alpha, idx, val, y, n_k, perms, sigma, lam, n,
+                            r)
+    after = ops.launch_counts()
+    assert after["cocoa_sdca_pass"] == before["cocoa_sdca_pass"] + 1
+    assert after["cocoa_sdca_update"] == before["cocoa_sdca_update"]
+    r_ref = torch.empty_like(r)
+    u_ref = ref.cocoa_sdca_pass_ref(w, alpha, idx, val, y, n_k, perms, sigma,
+                                    lam, n, r_ref)
+    for got, expect in ((u, u_ref), (r, r_ref)):
+        torch.testing.assert_close(got, expect, rtol=0, atol=1e-5 * max(
+            float(expect.abs().max()), 1e-30))
+    pad = torch.arange(m_pad, device=cuda)[None, :] >= n_k[:, None]
+    assert not u[pad].any()
+
+
+def test_cocoa_sdca_pass_rejects_what_it_does_not_take(cuda):
+    """The pass kernel's wrapper refuses CPU tensors, wrong dtypes,
+    non-contiguous and mismatched inputs, and rows wider than 256."""
+    w, alpha, idx, val, y, n_k, perms = _pass_bucket(cuda, 3, 8, 5, 40)
+    r = torch.empty((3, 40), device=cuda)
+    args = dict(w=w, alpha=alpha, idx=idx, val=val, y=y, n_k=n_k,
+                perms=perms, r=r)
+    big = torch.zeros((3, 8, 257), dtype=torch.int64, device=cuda)
+    for name, bad in [("w", w.cpu()), ("alpha", alpha.cpu()),
+                      ("idx", idx.int()),
+                      ("val", val.double()), ("perms", perms.t().contiguous()
+                                              .t()),
+                      ("alpha", alpha[:, :7]), ("y", y[:2]),
+                      ("n_k", n_k.float()), ("r", r[:, :39]),
+                      ("r", r.t().contiguous().t())]:
+        with pytest.raises(ValueError):
+            cs_kernel.cocoa_sdca_pass(**{**args, name: bad}, sigma=1.0,
+                                      lam=0.1, n=24)
+    with pytest.raises(ValueError, match="nnz"):
+        cs_kernel.cocoa_sdca_pass(**{**args, "idx": big, "val": big.float()},
+                                  sigma=1.0, lam=0.1, n=24)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     v = torch.zeros(16, device=cuda)
     m = torch.zeros((4, 16), device=cuda)
@@ -240,7 +338,8 @@ def _shared_draws(cls):
 def test_new_solvers_small_runs_on_the_card(cuda, name):
     """FedAvg, DANE (GD) and CoCoA+ for three rounds on the card and on
     the CPU from the same data and draws agree to rtol 1e-4 of max |w|;
-    on the card each local step launches its kernel once and each round
+    on the card each local step of FedAvg and DANE launches its kernel
+    once, CoCoA+'s pass launches its kernel once a bucket, and each round
     launches fused_aggregate once."""
     ds = generate(get_logreg_config().scaled(0.002), 0, device="cpu")
     cls = {"fedavg": _shared_draws(FedAvg), "cocoa": _shared_draws(CoCoAPlus),
@@ -262,8 +361,9 @@ def test_new_solvers_small_runs_on_the_card(cuda, name):
     m_pads = sum(b.m_pad for b in prob.buckets)
     expected = {"fedavg": ("fedavg_update", 3 * 2 * m_pads),
                 "dane": ("dane_update", 3 * 25 * len(prob.buckets)),
-                "cocoa": ("cocoa_sdca_update", 3 * m_pads)}[name]
+                "cocoa": ("cocoa_sdca_pass", 3 * len(prob.buckets))}[name]
     assert counts[expected[0]] == expected[1]
+    assert counts["cocoa_sdca_update"] == 0
     assert counts["fused_aggregate"] == 3
 
 

@@ -299,6 +299,20 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     b0 = torch.sigmoid(x[0][0])
     assert torch.equal(ops.cocoa_sdca_update(b0, x[1][0], x[2][0].abs()),
                        ref.cocoa_sdca_update_ref(b0, x[1][0], x[2][0].abs()))
+    # a bucket of 4 clients × 33 steps, 3 features a row (one repeated)
+    idx = torch.as_tensor(rng.integers(0, 5, (4, 33, 3)))
+    idx[..., 1] = idx[..., 0]
+    val, y = x[1][..., None].expand(4, 33, 3).contiguous(), x[2].sign()
+    n_k = torch.tensor([33, 20, 1, 7])
+    perms = torch.stack([torch.randperm(33, generator=torch.Generator()
+                                        .manual_seed(k)) for k in range(4)])
+    r1, r2 = torch.empty(4, 5), torch.empty(4, 5)
+    assert torch.equal(
+        ops.cocoa_sdca_pass(x[0][0, :5], wts[:, None] * y, idx, val, y, n_k,
+                            perms, 4.0, 0.01, 60, r1),
+        ref.cocoa_sdca_pass_ref(x[0][0, :5], wts[:, None] * y, idx, val, y,
+                                n_k, perms, 4.0, 0.01, 60, r2))
+    assert torch.equal(r1, r2)
     valid = torch.tensor([True, False, True, True])
     assert torch.equal(
         ops.robust_aggregate(x[0][0], x[1], valid, x[2][0], 0.25, "median"),
@@ -311,7 +325,7 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     assert ops.launch_counts() == before
     assert set(before) == {"fused_aggregate", "fsvrg_update", "fedavg_update",
                            "dane_update", "cocoa_sdca_update",
-                           "robust_aggregate", "wkv6"}
+                           "cocoa_sdca_pass", "robust_aggregate", "wkv6"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -328,6 +342,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_dane_update.dane_update(v, v, v, v, 0.5, 0.1, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_cocoa_sdca.cocoa_sdca_update(v, v, v)
+    i3 = torch.zeros((1, 8, 1), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cocoa_sdca.cocoa_sdca_pass(v, v[None], i3, i3.float(), v[None],
+                                        torch.ones(1, dtype=torch.int64),
+                                        i3[..., 0], 1.0, 0.1, 8, v[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_aggregate.fused_epilogue(v, v, v)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_robust.robust_aggregate(v, v[None], torch.ones(1, dtype=bool), v)
     with pytest.raises(ValueError, match="CUDA"):
@@ -336,14 +357,30 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_aggregate_splits_fill_the_card_at_paper_shape():
-    """At the paper's K = 10,000, d = 20,002 the K axis is cut so that
-    several hundred blocks are in flight; small K is never over-cut."""
-    splits = cuda_aggregate.splits_for(10_000, 20_002)
-    blocks = splits * -(-20_002 // cuda_aggregate.COLS)
-    assert 500 <= blocks <= 2 * cuda_aggregate.TARGET_BLOCKS
-    assert cuda_aggregate.splits_for(1, 20_002) == 1
-    assert cuda_aggregate.splits_for(33, 1) == 2
-    for K, d in [(9, 999), (10_000, 20_002), (6_478, 20_002), (1, 1)]:
-        s = cuda_aggregate.splits_for(K, d)
-        rows = -(-K // s)
-        assert (s - 1) * rows < K <= s * rows      # no empty split
+    """The grid rule at the paper's K = 10,000, d = 20,002 f32, on 132 SMs
+    holding 8 blocks of 8 warps each: float2 lanes, 313 strips × 26 splits
+    of 385 rows = 8,138 units of one warp, all in one wave of the 8,448
+    resident warps (one more split of every strip would not fit), no split
+    empty, no strip wider than it must be; small K is never over-cut."""
+    lanes = cuda_aggregate.LANES
+    slots = 132 * 8 * (cuda_aggregate.THREADS // lanes)
+    p = cuda_aggregate.plan(10_000, 20_002, 2, slots)
+    assert (p.vec, p.strips, p.splits, p.rows) == (2, 313, 26, 385)
+    assert p.units <= slots < p.units + p.strips
+    for K, d, vec in [(9, 999, 1), (10_000, 20_002, 2), (6_478, 20_002, 2),
+                      (1, 1, 1), (10_000, 1, 1), (33, 1_000, 2),
+                      (300, 20_001, 1), (5, 400_000, 2)]:
+        p = cuda_aggregate.plan(K, d, vec, slots)
+        assert (p.splits - 1) * p.rows < K <= p.splits * p.rows   # none empty
+        assert (p.strips - 1) * lanes * vec < d <= p.strips * lanes * vec
+        assert p.units <= slots or p.splits == 1
+        assert p.splits <= -(-K // cuda_aggregate.MIN_ROWS)
+    assert cuda_aggregate.plan(1, 20_002, 2, slots).splits == 1
+    assert cuda_aggregate.plan(33, 1, 1, slots).splits == 2
+    # float2 lanes only where every row starts 8-byte aligned
+    flat = torch.zeros(4 * 20_003)
+    assert cuda_aggregate.vec_for(flat[:3 * 20_002].view(3, 20_002)) == 2
+    assert cuda_aggregate.vec_for(flat[1:1 + 3 * 20_002].view(3, 20_002)) == 1
+    assert cuda_aggregate.vec_for(flat[:3 * 999].view(3, 999)) == 1
+    assert cuda_aggregate.vec_for(
+        flat[:3 * 1_002].view(3, 1_002).to(torch.bfloat16)) == 2
