@@ -9,17 +9,20 @@ Phases, in order (any failure raises and exits non-zero):
    ``import triton`` works, the card's name and power limit;
 2. build the seven kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print the build seconds and
-   each library's register and spill report;
+   each library's register and spill report, and ``wkv6``'s registers,
+   shared memory and blocks an SM;
 3. hold each kernel, and the three aggregation wrappers, against its plain
    PyTorch version on the card, at the main paths' shapes and at ragged
    small ones, with the stated tolerance (``fused_aggregate`` also at
    K = d = 1, odd d, d ≡ 2 (mod 4), f32 and bf16, a tensor scale, and bit
    for bit from call to call; ``robust_aggregate`` also at
    m = 0, 1, 2, heavy ties, the f32 floor of trim·m, bf16 deltas and
-   non-finite valid rows; ``wkv6`` at the serving prefill's shape, at
-   small shapes, with bf16 inputs and strong decays, and refusing a
-   ragged S); then the card's threefry draws, fleet masks and fault kinds
-   against the CPU's, bit for bit;
+   non-finite valid rows; ``wkv6`` at the serving prefill's shape in
+   both entries — (B·Hn, S, D) and the model's (B, S, Hn, D), whole and
+   as a ragged prompt's strided 2,016 tokens, from zeros and a given
+   state, f32 and bf16 — at small shapes, with strong decays, and
+   refusing a ragged S); then the card's threefry draws, fleet masks and
+   fault kinds against the CPU's, bit for bit;
 4. run the four solvers of Fig. 2 that the port has kernels for at the
    paper's full width — ``generate`` of the §4 config (K = 10,000 clients,
    d = 20,002 features, n = 2,166,693 examples) and ``build_problem`` once,
@@ -52,8 +55,8 @@ Phases, in order (any failure raises and exits non-zero):
 7. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
    card could take) — ``cocoa_sdca_pass`` at every bucket of a round, the
-   host-bound wrappers also by the profiler's device time — and the
-   layout copies around ``wkv6``; break one
+   host-bound wrappers also by the profiler's device time — ``wkv6`` in
+   both entries and the layout copies it no longer needs; break one
    full-width round of each plain solver into its parts; trace one plain
    round of each solver for the device's idle share, and one full-width
    prefill for its busy share and top operations;
@@ -141,15 +144,19 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def wkv6_inputs(dev, gen, BH, S, D, dtype=None, spread=1.0):
+def wkv6_inputs(dev, gen, BH, S, D, dtype=None, spread=1.0, heads=None):
     """r, k, v ~ N(0, 1), RWKV-like decays w = exp(−exp(−6 + spread·N(0, 1)))
-    and a nonzero bonus u ~ 0.1·N(0, 1) (a fresh model's u is 0)."""
+    and a nonzero bonus u ~ 0.1·N(0, 1) (a fresh model's u is 0): (BH, S,
+    D) and (BH, D), or with ``heads`` the model's (BH, S, heads, D) and
+    (heads, D)."""
     import torch
-    r, k, v = (torch.randn((BH, S, D), device=dev, generator=gen)
+    shape = (BH, S, D) if heads is None else (BH, S, heads, D)
+    r, k, v = (torch.randn(shape, device=dev, generator=gen)
                for _ in range(3))
     w = torch.exp(-torch.exp(-6.0 + spread * torch.randn(
-        (BH, S, D), device=dev, generator=gen)))
-    u = torch.randn((BH, D), device=dev, generator=gen) * 0.1
+        shape, device=dev, generator=gen)))
+    u = torch.randn((shape[0] if heads is None else heads, D), device=dev,
+                    generator=gen) * 0.1
     if dtype is not None:
         r, k, v, w = (x.to(dtype) for x in (r, k, v, w))
     return r, k, v, w, u
@@ -157,7 +164,8 @@ def wkv6_inputs(dev, gen, BH, S, D, dtype=None, spread=1.0):
 
 def check_wkv6(dev, gen, compare) -> float:
     """wkv6 against its plain version on the card, from a zero and from a
-    given start state; returns the max abs error at the serving shape.
+    given start state, in both entries ((B·Hn, S, D) and the model's
+    (B, S, Hn, D)); returns the max abs error at the serving shape in f32.
 
     Tolerance |kernel − plain| ≤ 1e-6·max|plain| + rtol·|plain|: both add
     the same f32 terms, the kernel in FMAs and its own order (atol scales
@@ -201,6 +209,37 @@ def check_wkv6(dev, gen, compare) -> float:
         if (BH, S, D) == serving:
             worst = max(worst, err)
         del x, s0, out, st, p_out, p_st
+    # the entry the model calls: its (B, S, Hn, D) projections read in
+    # place, whole or as a ragged prompt's whole chunks (the first 2,016 of
+    # 2,047 tokens: a view with the batch stride of 2,047)
+    B, Hn, D = REQUESTS, 40, 64
+    for S, n in ((PROMPT_LEN, PROMPT_LEN),
+                 (RAGGED_LEN, RAGGED_LEN - RAGGED_LEN % 32)):
+        for dt in (torch.float32, torch.bfloat16):
+            for given in (False, True):
+                *x, u = wkv6_inputs(dev, gen, B, S, D, dt, heads=Hn)
+                views = [t[:, :n] for t in x]
+                s0 = (0.5 * torch.randn((B, Hn, D, D), device=dev,
+                                        generator=gen) if given else None)
+                out, st = ops.wkv6(*views, u, state=s0)
+                torch.cuda.synchronize()
+                p_out, p_st = ref.wkv6_ref(*views, u, state=s0)
+                label = (f"(B, S, Hn, D) = ({B}, {n}, {Hn}, {D})"
+                         + (f" of {S} tokens" if n < S else "")
+                         + f" {dt}, {'a given' if given else 'zero'} start "
+                         "state")
+                require(out.shape == (B, n, Hn, D) and out.is_contiguous()
+                        and out.dtype == dt and st.shape == (B, Hn, D, D)
+                        and st.dtype == torch.float32,
+                        f"wkv6 {label}: wrong output shapes or dtypes")
+                rtol = 1e-2 if dt == torch.bfloat16 else 1e-5
+                err = compare("wkv6", label + " out", out, p_out, rtol,
+                              1e-6 * float(p_out.float().abs().max()))
+                compare("wkv6", label + " state", st, p_st, 1e-5,
+                        1e-6 * float(p_st.abs().max()))
+                if dt == torch.float32:
+                    worst = max(worst, err)
+                del x, views, s0, out, st, p_out, p_st
     r = torch.zeros((1, 33, 8), device=dev)
     try:
         ops.wkv6(r, r, r, r, torch.zeros((1, 8), device=dev))
@@ -449,6 +488,15 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    from repro_torch.kernels import wkv6 as wkv6_kernel
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dt in (torch.float32, torch.bfloat16):
+        res = wkv6_kernel.resources(dev, dt)
+        log(f"[build] wkv6 {dt}: {res['registers']} registers a thread, "
+            f"{res['shared_bytes']} B of shared memory a block, "
+            f"{res['blocks_per_sm']} blocks of 256 an SM (the occupancy "
+            f"calculator): {res['blocks_per_sm'] * sms} resident on {sms} "
+            f"SMs for the {REQUESTS * 40} pairs of the serving prefill")
 
     # -- 3. kernels against their plain versions --------------------------- #
     phase("checks")
@@ -1365,39 +1413,47 @@ def main() -> int:
             f"for all K rows); {r['bound_ms'] / r['ms']:.1%} of the bound")
     rows.append({k: v for k, v in robust_rows[0].items() if k != "m"})
     del deltas
-    # wkv6 at the serving prefill's shape (B·Hn = 320, S = 2,048, D = 64,
-    # f32, chunk 32) with RWKV-like decays; launches from the serving run.
-    # Bound: r, k, v, w read and out written once, u read, the state
-    # written; the f32 work a chunk that the function needs — the strict
-    # lower L(L−1)/2 scores and their product with v, r_t·S, the state
-    # update k_tᵀv and its scale, the bonus, the cumulative decay
-    BH, S_, D_ = REQUESTS * 40, PROMPT_LEN, 64
-    L_ = 32
-    x6 = wkv6_inputs(dev, g, BH, S_, D_)
+    # wkv6 at the serving prefill's shape, in the entry the model calls:
+    # (B, S, Hn, D) = (8, 2,048, 40, 64) f32, chunk 32, with RWKV-like
+    # decays; launches from the serving run.  Bound: r, k, v, w read and
+    # out written once, u read, the state written; the f32 work a chunk
+    # that the function needs — the strict lower L(L−1)/2 scores and their
+    # product with v, r_t·S, the state update k_tᵀv and its scale, the
+    # bonus, the cumulative decay
+    B_, Hn_, S_, D_ = REQUESTS, 40, PROMPT_LEN, 64
+    BH, L_ = B_ * Hn_, 32
+    x6 = wkv6_inputs(dev, g, B_, S_, D_, heads=Hn_)
     chunk_ops = (2 * (L_ * (L_ - 1) // 2) * D_ * 2 + 2 * L_ * D_ * D_
                  + 2 * D_ * D_ * L_ + 2 * D_ * D_ + 4 * L_ * D_ + 3 * L_ * D_)
     rows.append(row(
         "wkv6", lambda: ops.wkv6(*x6), lambda: ref.wkv6_ref(*x6),
-        5 * BH * S_ * D_ * 4 + BH * D_ * 4 + BH * D_ * D_ * 4,
+        5 * BH * S_ * D_ * 4 + Hn_ * D_ * 4 + BH * D_ * D_ * 4,
         chunk_ops * BH * (S_ // L_), launches=served["launches"]["wkv6"]))
-    s6 = torch.randn((BH, D_, D_), device=dev, generator=g)
-    zero_ms, given_ms = (cuda_ms(lambda st=st: ops.wkv6(*x6, state=st))
-                         for st in (None, s6))
-    log(f"[time] wkv6 from zeros {zero_ms:.4f} ms, from a given state "
-        f"{given_ms:.4f} ms (same inputs, this pair of timings)")
-    del x6, s6
-    # the (B, S, Hn, D) -> (B·Hn, S, D) copies around each wkv6 launch, and
-    # back, at the serving shape (bf16 model: r, k, v, w are f32)
-    from repro_torch.models import rwkv as rwkv_mod
-    xs = torch.randn((REQUESTS, PROMPT_LEN, 40, 64), device=dev,
-                     generator=g)
-    copy_ms = cuda_ms(lambda: rwkv_mod._heads_major(xs))
-    log(f"[time] wkv6 layout: one (B, S, Hn, D) -> (B·Hn, S, D) f32 copy "
-        f"{copy_ms:.4f} ms ({xs.numel() * 8 / copy_ms / 1e6:.0f} GB/s read "
-        "and written); a "
-        f"prefill layer makes 4 such copies and 1 back "
-        f"(≈ {5 * copy_ms:.3f} ms), {5 * copy_ms * 32:.2f} ms a prefill")
-    del xs
+    s6 = torch.randn((B_, Hn_, D_, D_), device=dev, generator=g)
+    ragged6 = [t[:, :RAGGED_LEN - RAGGED_LEN % L_] for t in x6[:4]]
+
+    def heads_major(t):
+        return t.transpose(1, 2).reshape(BH, S_, D_).contiguous()
+
+    x3 = [heads_major(t) for t in x6[:4]] + [x6[4].repeat(B_, 1)]
+    turns = {"model layout from zeros": lambda: ops.wkv6(*x6),
+             "model layout from a given state":
+                 lambda: ops.wkv6(*x6, state=s6),
+             f"model layout, {ragged6[0].shape[1]:,} of {S_:,} tokens":
+                 lambda: ops.wkv6(*ragged6, x6[4]),
+             "(B·Hn, S, D) entry": lambda: ops.wkv6(*x3)}
+    log(f"[time] wkv6 ({B_}, {S_:,}, {Hn_}, {D_}) f32: "
+        + "; ".join(f"{k} {cuda_ms(fn):.4f} ms" for k, fn in turns.items()))
+    # the layout copies around the kernel: none remain; what the four
+    # (B, S, Hn, D) -> (B·Hn, S, D) copies in and the one back that the
+    # model made before cost at this shape, for the record
+    copy_ms = cuda_ms(lambda: heads_major(x6[0]))
+    log(f"[time] wkv6 layout: 0 copies a layer (the kernel reads r, k, v, "
+        f"w in the projections' (B, S, Hn, D) storage and writes out in "
+        f"it); one f32 (B, S, Hn, D) -> (B·Hn, S, D) copy takes "
+        f"{copy_ms:.4f} ms, so the 5 a layer it replaces took "
+        f"≈ {5 * copy_ms:.3f} ms, {5 * copy_ms * 32:.2f} ms a prefill")
+    del x6, s6, ragged6, x3
     for r in rows:
         report(r)
     require(sorted(r["name"] for r in rows) == sorted(SOURCES),

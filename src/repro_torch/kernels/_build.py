@@ -62,8 +62,8 @@ SIGNATURES = {
     "robust_aggregate": ("robust_sort_launch",
                          [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _P,
                           _P]),
-    "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                             _I, _P]),
+    "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _L, _P, _I, _P, _P, _I, _I,
+                             _I, _I, _I, _L, _L, _L, _P]),
 }
 EXTRA_SIGNATURES = {
     "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],
@@ -73,6 +73,7 @@ EXTRA_SIGNATURES = {
                                               _P, _L, _I, _I, _L, _F, _F, _F,
                                               _I, _I, _P]},
     "robust_aggregate": {"robust_compact_launch": [_P, _I, _P, _P, _P]},
+    "wkv6": {"wkv6_occupancy": [_I, _P, _P, _P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

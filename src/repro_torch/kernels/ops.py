@@ -144,9 +144,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, chunk: int = ref.WKV_CHUNK, *,
          state: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RWKV-6 WKV over (BH, S, D) r, k, v, w and (BH, D) u, from ``state``
-    (BH, D, D) f32 or zeros: out (BH, S, D) in r's dtype and the final
-    state (BH, D, D) in f32.  S must be a multiple of ``chunk``
+    """RWKV-6 WKV over (BH, S, D) r, k, v, w with (BH, D) u and ``state``
+    (BH, D, D), or over the model's (B, S, Hn, D) with (Hn, D) u and
+    ``state`` (B, Hn, D, D) (read in place on the card: D contiguous, any
+    other strides), from ``state`` f32 or zeros: out in r's layout and
+    dtype and the final state in f32.  S must be a multiple of ``chunk``
     (``ValueError``)."""
     if _on_cpu(r):
         return ref.wkv6_ref(r, k, v, w, u, chunk, state=state)

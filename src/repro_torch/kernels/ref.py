@@ -252,17 +252,30 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel and the port's counterpart of the reference's
     ``models/rwkv._wkv_chunked``.
 
-    r, k, v, w: (BH, S, D); u: (BH, D).  Per chunk of length L = ``chunk``,
+    r, k, v, w: (BH, S, D) with u (BH, D) and ``state`` (BH, D, D), or the
+    model's (B, S, Hn, D) with u (Hn, D) and ``state`` (B, Hn, D, D) (run
+    as B·Hn pairs after a transpose).  Per chunk of length L = ``chunk``,
     with the state S (D, D) carried across the chunks of each pair, from
-    ``state`` (BH, D, D) or zeros:
+    ``state`` or zeros:
 
         c     = cumprod(w)                      (along the chunk)
         r_t   = r ⊙ c_prev,   k_t = k / max(c, 1e-30)
         out   = [(r_t k_tᵀ) ⊙ strict-lower] v + rowsum(r ⊙ u ⊙ k) v + r_t S
         S    ← diag(c_L) (S + k_tᵀ v)
 
-    Returns out (BH, S, D) in r's dtype and the final state (BH, D, D) in
-    f32.  S must be a multiple of ``chunk`` (``ValueError``)."""
+    Returns out in r's layout and dtype and the final state in f32.  S
+    must be a multiple of ``chunk`` (``ValueError``)."""
+    if r.dim() == 4:
+        B, S, Hn, D = r.shape
+
+        def heads(t):
+            return t.transpose(1, 2).reshape(B * Hn, S, D)
+
+        out, s = wkv6_ref(*map(heads, (r, k, v, w)), u.repeat(B, 1), chunk,
+                          state=None if state is None
+                          else state.reshape(B * Hn, D, D))
+        return (out.reshape(B, Hn, S, D).transpose(1, 2).contiguous(),
+                s.reshape(B, Hn, D, D))
     BH, S, D = r.shape
     if chunk < 1 or S % chunk:
         raise ValueError(f"S={S} must be a multiple of chunk={chunk}")

@@ -11,7 +11,8 @@ Which WKV path a call takes (:func:`rwkv_time_mix`):
 
 * S > 1 (every prefill, from zeros or a given state): the wkv6 kernel
   through :func:`repro_torch.kernels.ops.wkv6` over the whole chunks of
-  L = min(32, S) tokens — the reference's ``_wkv_chunked`` — then
+  L = min(32, S) tokens — the reference's ``_wkv_chunked`` — reading the
+  projections in their (B, S, Hn, D) layout with no copy, then
   :func:`_wkv_sequential` over a ragged tail of fewer than L tokens, from
   the kernel's final state (the reference runs a ragged S sequentially
   throughout);
@@ -93,19 +94,6 @@ def _wkv_sequential(r, k, v, w, u, state):
     return torch.stack(outs, dim=1), s
 
 
-def _heads_major(t: torch.Tensor) -> torch.Tensor:
-    """(B, S, Hn, D) -> contiguous (B·Hn, S, D), the kernel's layout (for
-    B = 1 the reshape alone would be a strided view)."""
-    B, S, Hn, D = t.shape
-    return t.transpose(1, 2).reshape(B * Hn, S, D).contiguous()
-
-
-def _seq_major(t: torch.Tensor, B: int) -> torch.Tensor:
-    """(B·Hn, S, D) -> (B, S, Hn, D)."""
-    BH, S, D = t.shape
-    return t.reshape(B, BH // B, S, D).transpose(1, 2)
-
-
 def rwkv_time_mix(params: Params, x: torch.Tensor, cfg, *,
                   state: Optional[torch.Tensor] = None,
                   shift_last: Optional[torch.Tensor] = None
@@ -137,11 +125,12 @@ def rwkv_time_mix(params: Params, x: torch.Tensor, cfg, *,
     else:
         L = min(WKV_CHUNK, S)
         n = S - S % L
+        # the kernel reads the projections' (B, S, Hn, D) storage in place
+        # (for a ragged S a strided view) and writes out in that layout
         if state is not None:
-            state = state.reshape(B * Hn, hd, hd).contiguous()
-        out, st = ops.wkv6(*(_heads_major(t[:, :n]) for t in (r, k, v, w)),
-                           u.repeat(B, 1), L, state=state)
-        out, state = _seq_major(out, B), st.reshape(B, Hn, hd, hd)
+            state = state.contiguous()
+        out, state = ops.wkv6(r[:, :n], k[:, :n], v[:, :n], w[:, :n], u, L,
+                              state=state)
         if n < S:
             tail, state = _wkv_sequential(r[:, n:], k[:, n:], v[:, n:],
                                           w[:, n:], u, state)

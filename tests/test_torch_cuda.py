@@ -589,6 +589,77 @@ def test_wkv6_rejects_what_it_does_not_take(cuda):
         wkv6_kernel.wkv6(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
 
 
+def _wkv6_model_inputs(dev, B, S, Hn, D, dtype=torch.float32, spread=1.0,
+                       seed=0):
+    """(B, S, Hn, D) r, k, v, w drawn as ``_wkv6_inputs`` draws them, an
+    (Hn, D) u and a (B, Hn, D, D) start state."""
+    g = _gen(dev, seed)
+    r, k, v = (torch.randn((B, S, Hn, D), device=dev, generator=g)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + spread * torch.randn(
+        (B, S, Hn, D), device=dev, generator=g)))
+    u = torch.randn((Hn, D), device=dev, generator=g) * 0.1
+    s0 = 0.5 * torch.randn((B, Hn, D, D), device=dev, generator=g)
+    return [x.to(dtype) for x in (r, k, v, w)], u, s0
+
+
+@pytest.mark.parametrize("B,S,n,dtype,spread,given", [
+    (1, 2048, 2048, torch.float32, 1.0, False),
+    (8, 2048, 2048, torch.float32, 1.0, False),
+    (8, 2048, 2048, torch.float32, 1.0, True),
+    (8, 2047, 2016, torch.float32, 1.0, False),
+    (8, 2047, 2016, torch.float32, 1.0, True),
+    (1, 256, 224, torch.float32, 1.0, True),
+    (8, 256, 256, torch.bfloat16, 1.0, True),
+    (8, 255, 224, torch.bfloat16, 1.0, False),
+    (8, 256, 256, torch.float32, 3.0, True)],
+    ids=["b1", "b8", "b8-given", "b8-slice", "b8-slice-given",
+         "b1-slice-given", "bf16-given", "bf16-slice", "strong-decay"])
+def test_wkv6_model_layout_matches_plain(cuda, B, S, n, dtype, spread, given):
+    """The kernel on the model's (B, S, Hn, D) layout with Hn = 40, D = 64
+    — whole tensors, or the first n tokens of S (a ragged prompt's whole
+    chunks: the batch stride of S tokens) — from zeros or a given state,
+    against the plain version on the same views; one launch; tolerances
+    as above."""
+    Hn, D = 40, 64
+    x, u, s0 = _wkv6_model_inputs(cuda, B, S, Hn, D, dtype, spread, seed=n)
+    views = [t[:, :n] for t in x]
+    state = s0 if given else None
+    before = ops.launch_counts()["wkv6"]
+    out, st = ops.wkv6(*views, u, state=state)
+    assert ops.launch_counts()["wkv6"] == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (B, n, Hn, D) and out.is_contiguous()
+    assert out.dtype == dtype and st.shape == (B, Hn, D, D)
+    p_out, p_st = ref.wkv6_ref(*views, u, state=state)
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(
+        out.float(), p_out.float(), rtol=rtol,
+        atol=1e-6 * float(p_out.float().abs().max()))
+    torch.testing.assert_close(st, p_st, rtol=1e-5,
+                               atol=1e-6 * float(p_st.abs().max()))
+
+
+def test_wkv6_model_layout_rejects_what_it_does_not_take(cuda):
+    x, u, s0 = _wkv6_model_inputs(cuda, 2, 64, 3, 8)
+    r, k, v, w = x
+    bad = [
+        lambda: ops.wkv6(r, k, v, w, u[:, :4]),                      # u shape
+        lambda: ops.wkv6(r, k, v, w, u.repeat(2, 1)),                # (BH, D) u
+        lambda: ops.wkv6(r, k[..., :4], v, w, u),                    # shape
+        lambda: ops.wkv6(*(t.transpose(2, 3) for t in x),
+                         torch.zeros((8, 3), device=cuda)),          # layout
+        lambda: ops.wkv6(r[:, :32], k[:, :32].contiguous(), v[:, :32],
+                         w[:, :32], u),                              # strides
+        lambda: ops.wkv6(r, k, v, w, u, state=s0.reshape(6, 8, 8)),  # state
+        lambda: ops.wkv6(r, k, v, w, u, state=s0.transpose(2, 3)),
+        lambda: ops.wkv6(r[:, :40], k[:, :40], v[:, :40], w[:, :40], u),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
 @pytest.mark.parametrize("S", [64, 47])
 def test_small_serve_on_the_card_matches_the_cpu(cuda, S):
     """The reduced rwkv6-3b in f32 with the same weights on the card and

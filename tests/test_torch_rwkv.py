@@ -243,9 +243,59 @@ def test_bridged_bf16_params_keep_their_dtypes(cfgs):
 
 @pytest.mark.parametrize("B", [1, 2])
 def test_kernel_layout_is_contiguous_and_round_trips(B):
-    """The wkv6 kernel takes contiguous (B·Hn, S, D) tensors, also for one
-    request, where a reshape of the transposed view is no copy."""
-    x = torch.randn((B, 32, 4, 64))
-    heads = rwkv._heads_major(x)
-    assert heads.shape == (B * 4, 32, 64) and heads.is_contiguous()
-    assert torch.equal(rwkv._seq_major(heads, B), x)
+    """The wkv6 entry in the model's (B, S, Hn, D) layout returns a
+    contiguous out in that layout and a (B, Hn, D, D) state, equal to the
+    (B·Hn, S, D) entry's on the transposed copies, also for one request."""
+    Hn, S, D = 4, 64, 16
+    g = torch.Generator().manual_seed(B)
+    r, k, v = (torch.randn((B, S, Hn, D), generator=g) for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + torch.randn((B, S, Hn, D), generator=g)))
+    u = 0.1 * torch.randn((Hn, D), generator=g)
+    s0 = torch.randn((B, Hn, D, D), generator=g)
+    out, state = rwkv.ops.wkv6(r, k, v, w, u, 32, state=s0)
+    assert out.shape == (B, S, Hn, D) and out.is_contiguous()
+    assert state.shape == (B, Hn, D, D)
+
+    def heads(t):
+        return t.transpose(1, 2).reshape(B * Hn, S, D).contiguous()
+
+    out3, state3 = rwkv.ops.wkv6(*map(heads, (r, k, v, w)), u.repeat(B, 1),
+                                 32, state=s0.reshape(B * Hn, D, D))
+    assert torch.equal(out3.reshape(B, Hn, S, D).transpose(1, 2), out)
+    assert torch.equal(state3.reshape(B, Hn, D, D), state)
+
+
+@pytest.mark.parametrize("S,given", [(64, False), (40, False), (47, True),
+                                     (16, True)])
+def test_time_mix_hands_wkv6_the_projections_storage(S, given, cfgs,
+                                                     monkeypatch):
+    """``rwkv_time_mix`` passes ``ops.wkv6`` views of the projections'
+    own (B, S, Hn, D) storage — for a ragged S the strided slice of its
+    whole chunks — and u as (Hn, D): no copy into another layout."""
+    _, cfg = cfgs
+    (_, ttm), _ = _layer0(jnp.float32)
+    seen = []
+    real = rwkv.ops.wkv6
+
+    def capture(r, k, v, w, u, chunk, *, state=None):
+        seen.append(((r, k, v, w), u, state))
+        return real(r, k, v, w, u, chunk, state=state)
+
+    monkeypatch.setattr(rwkv.ops, "wkv6", capture)
+    B, d, Hn, hd = 2, cfg.d_model, cfg.d_model // 64, 64
+    x = torch.randn((B, S, d), generator=torch.Generator().manual_seed(S))
+    kw = {}
+    if given:
+        kw = dict(state=torch.randn((B, Hn, hd, hd)),
+                  shift_last=torch.zeros((B, d)))
+    rwkv.rwkv_time_mix(ttm, x, cfg, **kw)
+    (tensors, u, state), = seen
+    n = S - S % min(32, S)
+    for t in tensors:
+        assert t.shape == (B, n, Hn, hd)
+        assert t.stride() == (S * d, d, hd, 1)
+        assert t.untyped_storage().nbytes() == B * S * d * 4
+    assert u.shape == (Hn, hd)
+    assert (state is not None) == given
+    if given:
+        assert state.shape == (B, Hn, hd, hd)

@@ -140,3 +140,89 @@ def test_wkv6_ragged_sequence_raises(S, chunk):
     r = torch.zeros((1, S, 8))
     with pytest.raises(ValueError, match="multiple of chunk"):
         ops.wkv6(r, r, r, r, torch.zeros((1, 8)), chunk)
+
+
+def _model_layout_inputs(seed, B, S, Hn, D, spread=1.0):
+    """The model's (B, S, Hn, D) r, k, v, w, (Hn, D) u and a (B, Hn, D, D)
+    start state, drawn as ``_inputs`` draws them."""
+    r, k, v, w, _ = _inputs(seed, B * Hn, S, D, spread)
+    rng = np.random.default_rng(seed + 1)
+    u = (0.1 * rng.standard_normal((Hn, D))).astype(np.float32)
+    s0 = (0.5 * rng.standard_normal((B, Hn, D, D))).astype(np.float32)
+    return [a.reshape(B, Hn, S, D).transpose(0, 2, 1, 3).copy()
+            for a in (r, k, v, w)] + [u, s0]
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["zeros", "given"])
+@pytest.mark.parametrize("ragged", [False, True], ids=["whole", "slice"])
+@pytest.mark.parametrize("B", [1, 2])
+def test_wkv6_model_layout_matches_reference(B, ragged, given):
+    """``ops.wkv6`` on the model's (B, S, Hn, D) layout — the whole
+    projections, or ``t[:, :64]`` of 72 tokens as the model passes a ragged
+    prompt's whole chunks (a strided view) — from zeros or a given state,
+    against the reference's ``models/rwkv._wkv_chunked`` on the same
+    chunks, and from zeros also against its interpret-mode Pallas kernel
+    on the (B·Hn, S, D) transposes: the same chunk math, 1e-6 of max +
+    rtol 1e-5."""
+    Hn, D, n, chunk = 3, 16, 64, 32
+    S = 72 if ragged else n
+    *x, u, s0 = _model_layout_inputs(10 * B + ragged, B, S, Hn, D)
+    views = [torch.from_numpy(a)[:, :n] for a in x]
+    assert views[0].stride()[:2] == (S * Hn * D, Hn * D)
+    state = torch.from_numpy(s0) if given else None
+    out, st = ops.wkv6(*views, torch.from_numpy(u), chunk, state=state)
+    assert out.shape == (B, n, Hn, D) and out.is_contiguous()
+    assert st.shape == (B, Hn, D, D) and st.dtype == torch.float32
+    j_s0 = s0 if given else np.zeros_like(s0)
+    j_out, j_state = jrwkv._wkv_chunked(*(jnp.asarray(a[:, :n]) for a in x),
+                                        jnp.asarray(u), jnp.asarray(j_s0),
+                                        chunk=chunk)
+    _close(out, j_out, 1e-5, 1e-6)
+    _close(st, j_state, 1e-5, 1e-6)
+    if not given:
+        heads = [jnp.asarray(a[:, :n].transpose(0, 2, 1, 3).reshape(
+            B * Hn, n, D)) for a in x]
+        k_out, k_state = jops.wkv6(*heads, jnp.asarray(np.tile(u, (B, 1))),
+                                   chunk=chunk)
+        _close(out.permute(0, 2, 1, 3).reshape(B * Hn, n, D), k_out, 1e-5,
+               1e-6)
+        _close(st.reshape(B * Hn, D, D), k_state, 1e-5, 1e-6)
+
+
+def test_wkv6_model_layout_bf16_inputs():
+    """bf16 (B, S, Hn, D) inputs with an f32 u: out in bf16 and the state
+    in f32, against the interpret-mode Pallas kernel on the bf16
+    transposes (tolerances of ``test_wkv6_plain_bf16_inputs``)."""
+    B, S, Hn, D = 2, 64, 2, 16
+    *x, u, _ = _model_layout_inputs(4, B, S, Hn, D)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in x]
+    tb = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in jb]
+    out, state = ops.wkv6(*tb, torch.from_numpy(u))
+    assert out.dtype == torch.bfloat16 and state.dtype == torch.float32
+    heads = [a.transpose(0, 2, 1, 3).reshape(B * Hn, S, D) for a in jb]
+    k_out, k_state = jops.wkv6(*heads, jnp.asarray(np.tile(u, (B, 1))))
+    _close(out.float().permute(0, 2, 1, 3).reshape(B * Hn, S, D),
+           np.asarray(k_out.astype(jnp.float32)), 8e-3, 1e-6)
+    _close(state.reshape(B * Hn, D, D), k_state, 1e-5, 1e-6)
+
+
+def test_wkv6_model_layout_strong_decay():
+    """Spread 3.0 (c_t toward the 1e-30 floor) in the model's layout,
+    against the reference's ``_wkv_chunked`` from a given state."""
+    B, S, Hn, D = 2, 64, 2, 8
+    *x, u, s0 = _model_layout_inputs(8, B, S, Hn, D, spread=3.0)
+    out, state = ops.wkv6(*map(torch.from_numpy, x), torch.from_numpy(u),
+                          state=torch.from_numpy(s0))
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    j_out, j_state = jrwkv._wkv_chunked(*map(jnp.asarray, x),
+                                        jnp.asarray(u), jnp.asarray(s0),
+                                        chunk=32)
+    _close(out, j_out, 1e-5, 1e-6)
+    _close(state, j_state, 1e-5, 1e-6)
+
+
+def test_wkv6_model_layout_ragged_sequence_raises():
+    r = torch.zeros((2, 40, 3, 8))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.wkv6(r, r, r, r, torch.zeros((3, 8)))
