@@ -488,14 +488,17 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    from repro_torch.kernels import wkv6 as wkv6_kernel
+    import ctypes
+    occupancy = _build.launcher("wkv6", "wkv6_occupancy")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for dt in (torch.float32, torch.bfloat16):
-        res = wkv6_kernel.resources(dev, dt)
-        log(f"[build] wkv6 {dt}: {res['registers']} registers a thread, "
-            f"{res['shared_bytes']} B of shared memory a block, "
-            f"{res['blocks_per_sm']} blocks of 256 an SM (the occupancy "
-            f"calculator): {res['blocks_per_sm'] * sms} resident on {sms} "
+    for code, dt in enumerate(("float32", "bfloat16")):
+        blocks, regs, smem = (ctypes.c_int(0) for _ in range(3))
+        _build.check(occupancy(code, ctypes.byref(blocks), ctypes.byref(regs),
+                               ctypes.byref(smem)), "wkv6 occupancy")
+        log(f"[build] wkv6 {dt}: {regs.value} registers a thread, "
+            f"{smem.value} B of shared memory a block, "
+            f"{blocks.value} blocks of 256 an SM (the occupancy "
+            f"calculator): {blocks.value * sms} resident on {sms} "
             f"SMs for the {REQUESTS * 40} pairs of the serving prefill")
 
     # -- 3. kernels against their plain versions --------------------------- #

@@ -53,6 +53,7 @@
 //     runs in order, and out is (intra + bonus) + inter.
 //
 // No tensor cores: the products are plain f32, as the plain version's.
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -397,16 +398,23 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 }
 
 // the dynamic shared memory above 48 KB, and the largest carveout so that
-// MIN_BLOCKS blocks fit (set on the current card, at every launch)
+// MIN_BLOCKS blocks fit: set once a card (the first 64) and dtype
 template <typename T>
 cudaError_t prepare() {
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<T>()));
+  static std::atomic<unsigned long long> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (ready.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(wkv6_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_bytes<T>()));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(wkv6_kernel<T>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) ready.fetch_or(bit);
   return err;
 }
 

@@ -22,8 +22,7 @@ version.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -115,22 +114,3 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 wkv6.launches = 0
-
-_RESOURCES: Dict[Tuple[int, torch.dtype], Dict[str, int]] = {}
-
-
-def resources(dev: torch.device, dtype: torch.dtype) -> Dict[str, int]:
-    """The kernel's registers a thread, shared memory a block (bytes) and
-    resident blocks an SM (the CUDA occupancy calculator) on ``dev`` for
-    inputs of ``dtype``; read once."""
-    key = (dev.index, dtype)
-    if key not in _RESOURCES:
-        vals = [ctypes.c_int(0) for _ in range(3)]
-        with _args.on_card(dev):
-            err = _build.launcher(_NAME, "wkv6_occupancy")(
-                _args.DTYPES[dtype], *map(ctypes.byref, vals))
-        _build.check(err, "wkv6 occupancy")
-        _RESOURCES[key] = dict(zip(("blocks_per_sm", "registers",
-                                    "shared_bytes"),
-                                   (x.value for x in vals)))
-    return _RESOURCES[key]
