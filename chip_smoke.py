@@ -9,15 +9,16 @@ Phases, in order (any failure raises and exits non-zero):
    ``import triton`` works, the card's name and power limit;
 2. build the seven kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print the build seconds and
-   each library's register and spill report, and ``wkv6``'s registers,
-   shared memory and blocks an SM;
+   each library's register and spill report, and ``wkv6``'s and the
+   robust select's registers, shared memory and blocks an SM;
 3. hold each kernel, and the three aggregation wrappers, against its plain
    PyTorch version on the card, at the main paths' shapes and at ragged
    small ones, with the stated tolerance (``fused_aggregate`` also at
    K = d = 1, odd d, d ≡ 2 (mod 4), f32 and bf16, a tensor scale, and bit
-   for bit from call to call; ``robust_aggregate`` also at
-   m = 0, 1, 2, heavy ties, the f32 floor of trim·m, bf16 deltas and
-   non-finite valid rows; ``wkv6`` at the serving prefill's shape in
+   for bit from call to call; ``robust_aggregate`` also with 2 % of the
+   rows scaled ×100, bit for bit from call to call, at m = 0, 1, 2, heavy
+   ties, the f32 floor of trim·m, bf16 deltas and non-finite valid rows;
+   ``wkv6`` at the serving prefill's shape in
    both entries — (B·Hn, S, D) and the model's (B, S, Hn, D), whole and
    as a ragged prompt's strided 2,016 tokens, from zeros and a given
    state, f32 and bf16 — at small shapes, with strong decays, and
@@ -54,8 +55,9 @@ Phases, in order (any failure raises and exits non-zero):
    against the CPU with the same weights;
 7. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
-   card could take) — ``cocoa_sdca_pass`` at every bucket of a round, the
-   host-bound wrappers also by the profiler's device time — ``wkv6`` in
+   card could take) — ``robust_aggregate``'s trimmed mean and median at
+   the faulted cells' m and at m = K, ``cocoa_sdca_pass`` at every bucket
+   of a round, the host-bound wrappers also by the profiler's device time — ``wkv6`` in
    both entries and the layout copies it no longer needs; break one
    full-width round of each plain solver into its parts; trace one plain
    round of each solver for the device's idle share, and one full-width
@@ -500,6 +502,16 @@ def main() -> int:
             f"{blocks.value} blocks of 256 an SM (the occupancy "
             f"calculator): {blocks.value * sms} resident on {sms} "
             f"SMs for the {REQUESTS * 40} pairs of the serving prefill")
+    occupancy = _build.launcher("robust_aggregate", "robust_select_occupancy")
+    for m_occ in (3922, 10_000, ra_kernel.MAX_VALID):
+        cols, blocks, regs, smem = (ctypes.c_int(0) for _ in range(4))
+        _build.check(occupancy(0, m_occ, ctypes.byref(cols),
+                               ctypes.byref(blocks), ctypes.byref(regs),
+                               ctypes.byref(smem)), "robust_select occupancy")
+        log(f"[build] robust_select float32 at m = {m_occ}: {cols.value} "
+            f"columns a block, {regs.value} registers a thread, {smem.value} "
+            f"B of shared memory a block, {blocks.value} blocks of 512 an SM "
+            "(the occupancy calculator)")
 
     # -- 3. kernels against their plain versions --------------------------- #
     phase("checks")
@@ -691,12 +703,23 @@ def main() -> int:
 
     deltas = randn((K, d), scale=0.01)
     w_t, a = randn(d), rand(d) * 3 + 1
+    # the scale fault's ×100 on 2 % of the rows: heavy-tailed columns
+    heavy = deltas.clone()
+    heavy[torch.randperm(K, device=dev, generator=g)[:K // 50]] *= 100
     for mode in ("trimmed_mean", "median"):
-        err = robust(f"K={K} d={d} m={m_trace} {mode}", w_t, deltas,
-                     valid_k, a, 0.1, mode)
-        max_err["robust_aggregate"] = max(max_err.get("robust_aggregate",
-                                                      0.0), err)
-    del deltas
+        for x, label in ((deltas, ""), (heavy, ", 2 % of rows ×100")):
+            err = robust(f"K={K} d={d} m={m_trace} {mode}{label}", w_t, x,
+                         valid_k, a, 0.1, mode)
+            max_err["robust_aggregate"] = max(
+                max_err.get("robust_aggregate", 0.0), err)
+        require(torch.equal(ops.robust_aggregate(w_t, deltas, valid_k, a,
+                                                 0.1, mode),
+                            ops.robust_aggregate(w_t, deltas, valid_k, a,
+                                                 0.1, mode)),
+                f"robust_aggregate {mode}: two calls differ")
+        log(f"[check] robust_aggregate K={K} d={d} m={m_trace} {mode}: two "
+            "calls bit-equal")
+    del deltas, heavy
     for KK in (1, 127, 999):
         for dd in (1, 127, 999):
             x, w1, a1 = randn((KK, dd)), randn(dd), rand(dd) + 0.5
@@ -1394,27 +1417,30 @@ def main() -> int:
     every = torch.ones(K, dtype=torch.bool, device=dev)
     cohort = fleet_masks(trace, 0, torch.arange(K, device=dev)).returned > 0
     robust_rows = []
-    for v in (cohort, every):
+    for v, mode in ((cohort, "trimmed_mean"), (cohort, "median"),
+                    (every, "trimmed_mean"), (every, "median")):
         m = int(v.sum())
         masked = torch.where(v[:, None], deltas, float("inf"))
         robust_rows.append(row(
             "robust_aggregate",
-            lambda v=v: ops.robust_aggregate(w_r, deltas, v, a_r, 0.1,
-                                             "trimmed_mean"),
-            lambda v=v: ref.robust_aggregate_ref(w_r, deltas, v, a_r, 0.1,
-                                                 "trimmed_mean"),
+            lambda v=v, mode=mode: ops.robust_aggregate(w_r, deltas, v, a_r,
+                                                        0.1, mode),
+            lambda v=v, mode=mode: ref.robust_aggregate_ref(
+                w_r, deltas, v, a_r, 0.1, mode),
             m * d * 4 + K + 3 * d * 4, m * d,
             lambda masked=masked: torch.sort(masked, dim=0)))
-        robust_rows[-1]["m"] = m
+        robust_rows[-1].update(m=m, mode=mode)
         del masked
     for r in robust_rows:
-        log(f"[time] robust_aggregate at m = {r['m']} (K = {K}, trimmed "
-            f"mean): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"torch.sort of the masked stack {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms (bytes of the m valid rows; "
+        log(f"[time] robust_aggregate at m = {r['m']} (K = {K}, "
+            f"{r['mode']}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.sort of the masked stack "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes "
+            f"of the m valid rows; "
             f"{(K * d * 4 + K + 3 * d * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms "
             f"for all K rows); {r['bound_ms'] / r['ms']:.1%} of the bound")
-    rows.append({k: v for k, v in robust_rows[0].items() if k != "m"})
+    rows.append({k: v for k, v in robust_rows[0].items()
+                 if k not in ("m", "mode")})
     del deltas
     # wkv6 at the serving prefill's shape, in the entry the model calls:
     # (B, S, Hn, D) = (8, 2,048, 40, 64) f32, chunk 32, with RWKV-like

@@ -59,9 +59,8 @@ SIGNATURES = {
     "dane_update": ("dane_update_launch",
                     [_P, _P, _P, _P, _I, _F, _F, _F, _P, _L, _L, _L, _P]),
     "cocoa_sdca": ("cocoa_sdca_launch", [_P, _P, _P, _I, _P, _L, _I, _P]),
-    "robust_aggregate": ("robust_sort_launch",
-                         [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _P,
-                          _P]),
+    "robust_aggregate": ("robust_select_launch",
+                         [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _P, _P]),
     "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _L, _P, _I, _P, _P, _I, _I,
                              _I, _I, _I, _L, _L, _L, _P]),
 }
@@ -72,7 +71,9 @@ EXTRA_SIGNATURES = {
     "cocoa_sdca": {"cocoa_sdca_pass_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                               _P, _L, _I, _I, _L, _F, _F, _F,
                                               _I, _I, _P]},
-    "robust_aggregate": {"robust_compact_launch": [_P, _I, _P, _P, _P]},
+    "robust_aggregate": {"robust_compact_launch": [_P, _I, _P, _P, _P],
+                         "robust_select_occupancy": [_I, _I, _P, _P, _P,
+                                                     _P]},
     "wkv6": {"wkv6_occupancy": [_I, _P, _P, _P]},
 }
 

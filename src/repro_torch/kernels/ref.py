@@ -7,6 +7,8 @@ mirror the reference's ``kernels/ref.py`` oracles of the same names.
 """
 from __future__ import annotations
 
+import math
+import struct
 from typing import Optional, Union
 
 import torch
@@ -18,6 +20,11 @@ _F32 = torch.float32
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(_F32)
+
+
+def _round_f32(x: float) -> float:
+    """``x`` rounded to the nearest float32 (ties to even)."""
+    return struct.unpack("f", struct.pack("f", x))[0]
 
 
 def _row_scalar(h: Scalar, w: torch.Tensor) -> Union[float, torch.Tensor]:
@@ -207,8 +214,10 @@ def robust_window(m: int, trim: float, mode: str) -> tuple:
         return 0, 0
     if mode == "median":
         return (m - 1) // 2, m // 2 + 1
-    lo = int(torch.floor(torch.tensor(trim, dtype=_F32)
-                         * torch.tensor(float(m), dtype=_F32)))
+    # two f32 significands multiply exactly in a double; one rounding to
+    # f32 then gives the f32 product (no tensors: the card's wrapper calls
+    # this between reading m back and its second launch)
+    lo = math.floor(_round_f32(_round_f32(trim) * _round_f32(float(m))))
     return lo, m - lo
 
 
@@ -237,6 +246,91 @@ def robust_aggregate_ref(w_t: torch.Tensor, deltas: torch.Tensor,
     agg = agg / torch.full_like(agg, float(max(hi - lo, 1)))
     if m == 0:
         agg = torch.zeros_like(agg)
+    return _f32(w_t) + _f32(a_diag) * agg
+
+
+#: the robust_aggregate kernel's digit widths, most significant first: one
+#: select pass a digit over the 32-bit order-preserving keys
+RADIX_DIGITS = (8, 8, 8, 8)
+_NAN_KEY = 0xFFFFFFFF
+
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving 32-bit key of each value, as int64:
+    the f32 bits with the sign bit set (sign clear) or all flipped (sign
+    set), so unsigned key order is value order (−0 before +0); every NaN
+    gets the largest key, after +inf's."""
+    b = _f32(x).contiguous().view(torch.int32).to(torch.int64) & _NAN_KEY
+    k = torch.where(b >= 2 ** 31, b ^ _NAN_KEY, b | 2 ** 31)
+    return torch.where(torch.isnan(_f32(x)), torch.full_like(k, _NAN_KEY), k)
+
+
+def key_values(k: torch.Tensor) -> torch.Tensor:
+    """The f32 values of keys from :func:`order_keys` (a NaN for NaN's)."""
+    b = torch.where(k >= 2 ** 31, k & 0x7FFFFFFF, k ^ _NAN_KEY)
+    return torch.where(b >= 2 ** 31, b - 2 ** 32, b).to(torch.int32).view(_F32)
+
+
+def radix_edges(keys: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """The keys at ``ranks`` (E, d) of each column of ``keys`` (m, d), found
+    as the kernel finds them: a pass a digit of :data:`RADIX_DIGITS`, each
+    counting the digits of the keys that match an edge's prefix so far and
+    taking the bin that holds the edge's remaining rank."""
+    prefix, rem = torch.zeros_like(ranks), ranks.clone()
+    low = 32
+    for bits in RADIX_DIGITS:
+        low -= bits
+        digit = (keys >> low) & ((1 << bits) - 1)
+        high = keys >> (low + bits)
+        for e in range(ranks.shape[0]):
+            match = (high == prefix[e]).to(torch.int64)
+            hist = torch.zeros((1 << bits, keys.shape[1]), dtype=torch.int64)
+            cum = hist.scatter_add_(0, digit, match).cumsum(0)
+            b = (cum <= rem[e]).sum(0)                 # the bin holding it
+            below = cum.gather(0, (b - 1).clamp(min=0)[None])[0]
+            rem[e] -= torch.where(b > 0, below, torch.zeros_like(below))
+            prefix[e] = (prefix[e] << bits) | b
+    return prefix
+
+
+def robust_select_ref(w_t: torch.Tensor, deltas: torch.Tensor,
+                      valid: torch.Tensor, a_diag: torch.Tensor,
+                      trim: float = 0.1,
+                      mode: str = "trimmed_mean") -> torch.Tensor:
+    """:func:`robust_aggregate_ref` by the kernel's arithmetic, on the CPU
+    (the tests' model of csrc/robust_aggregate.cu): no sort, the window's
+    edges e_lo, e_hi by :func:`radix_edges` and its sum from them,
+
+        e_lo = e_hi:  (hi − lo)·v(e)
+        otherwise:    Σ v(k) over e_lo < k < e_hi
+                      + (#{k ≤ e_lo} − lo)·v(e_lo) + (hi − #{k < e_hi})·v(e_hi)
+
+    over the finite ranks [lo, min(hi, m − n_nan)) of each column; the
+    ranks past them are +inf, or NaN from rank K − n_nan on."""
+    lo, hi = robust_window(int((valid > 0).sum()), trim, mode)
+    x = _f32(deltas)[valid.reshape(-1) > 0]
+    m, K = x.shape[0], deltas.shape[0]
+    if m == 0:
+        return _f32(w_t) + _f32(a_diag) * torch.zeros_like(_f32(w_t))
+    keys = order_keys(x)
+    n_nan = torch.isnan(x).sum(0)
+    hf = (m - n_nan).clamp(max=hi)
+    finite = hf > lo
+    zero = torch.zeros_like(hf)
+    el, eh = radix_edges(keys, torch.stack([
+        torch.where(finite, zero + lo, zero),
+        torch.where(finite, hf - 1, zero)]))
+    vl, vh = key_values(el), key_values(eh)
+    inside = (keys > el) & (keys < eh)
+    between = torch.where(inside, key_values(keys), 0.0).sum(0)
+    le_lo, lt_hi = (keys <= el).sum(0), (keys < eh).sum(0)
+    tails = (between + (le_lo - lo).to(_F32) * vl
+             + (hf - lt_hi).to(_F32) * vh)
+    s = torch.where(el == eh, (hf - lo).to(_F32) * vl, tails)
+    s = torch.where(finite, s, 0.0)
+    past = torch.where(hi > K - n_nan, float("nan"), float("inf"))
+    s = torch.where(hi > hf, s + past, s)
+    agg = s / torch.full_like(s, float(hi - lo))
     return _f32(w_t) + _f32(a_diag) * agg
 
 

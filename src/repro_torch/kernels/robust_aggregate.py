@@ -7,8 +7,10 @@
 with ``robust_agg`` the coordinate-wise trimmed mean or median over the
 valid rows of the (K, d) delta stack (:func:`ref.robust_window` gives the
 rank window).  One call is two launches: the valid rows are compacted on
-the device, their count m is read back (the sort's shape depends on it),
-and then every column is sorted in shared memory.  The call is counted
+the device, their count m is read back (the window and the columns a
+block depend on it), and then a radix select finds each column's two
+window edges among its m keys held in shared memory and sums the window
+between them; no column is sorted.  The call is counted
 once in ``robust_aggregate.launches``, and its m is kept in
 ``robust_aggregate.last_m``.  More than :data:`MAX_VALID` valid rows raise:
 there is no fallback to the plain version.  Callers go through
@@ -23,8 +25,8 @@ from repro_torch.kernels import _args, _build, ref
 
 _NAME = "robust_aggregate"
 
-#: the most valid rows one call takes: a column of P = 2^15 keys fills
-#: 128 KB of a block's shared memory (csrc/robust_aggregate.cu)
+#: the most valid rows one call takes: a block then holds one column's
+#: 32,768 keys (128 KB) in shared memory (csrc/robust_aggregate.cu)
 MAX_VALID = 32768
 
 
@@ -47,9 +49,12 @@ def robust_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
              and valid.shape == (K,), f"valid must be a ({K},) tensor on {dev}")
     _require(K < 2 ** 31, "K must fit in an int32 row index")
 
-    flags = (valid > 0).to(torch.uint8)
+    # a bool mask is read as its bytes; any other is turned into one
+    flags = (valid if valid.dtype == torch.bool and valid.is_contiguous()
+             else (valid > 0).to(torch.uint8))
     idx = torch.empty((K,), dtype=torch.int32, device=dev)
     m_dev = torch.empty((1,), dtype=torch.int32, device=dev)
+    out = torch.empty((d,), dtype=torch.float32, device=dev)
     stream = _args.stream(deltas)
     with _args.on_card(dev):
         err = _build.launcher(_NAME, "robust_compact_launch")(
@@ -58,13 +63,12 @@ def robust_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
         m = int(m_dev.item())
         _require(m <= MAX_VALID,
                  f"{m} valid rows exceed the kernel's capacity of "
-                 f"{MAX_VALID} (one column sorted in 128 KB of shared memory)")
+                 f"{MAX_VALID} (one column's keys in a block's shared "
+                 "memory)")
         lo, hi = ref.robust_window(m, trim, mode)
-        log_p = max(m - 1, 0).bit_length()
-        out = torch.empty((d,), dtype=torch.float32, device=dev)
         err = _build.launcher(_NAME)(
             w_t.data_ptr(), deltas.data_ptr(), _args.DTYPES[deltas.dtype],
-            a_diag.data_ptr(), idx.data_ptr(), m, K, d, log_p, lo, hi,
+            a_diag.data_ptr(), idx.data_ptr(), m, K, d, lo, hi,
             out.data_ptr(), stream)
     _build.check(err, _NAME)
     robust_aggregate.launches += 1

@@ -431,6 +431,65 @@ def test_robust_aggregate_edge_cases(cuda, mode):
             rtol=1e-5, atol=1e-6, equal_nan=True)
 
 
+def _cohort(dev, K, m, g):
+    valid = torch.zeros(K, dtype=torch.bool, device=dev)
+    valid[torch.randperm(K, device=dev, generator=g)[:m]] = True
+    return valid
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+@pytest.mark.parametrize("m", [3922, 10_000])
+def test_robust_aggregate_at_the_main_shape(cuda, m, mode):
+    """K = 10,000 × d = 20,002 f32 deltas ≈ N(0, 0.01²), at the faulted
+    cells' m (≈ 3,922 clients return) and at m = K."""
+    K, d = 10_000, 20_002
+    g = _gen(cuda, 3)
+    wt = torch.randn(d, device=cuda, generator=g)
+    a = torch.rand(d, device=cuda, generator=g) * 3 + 1
+    deltas = torch.randn((K, d), device=cuda, generator=g) * 0.01
+    valid = _cohort(cuda, K, m, g)
+    out = ops.robust_aggregate(wt, deltas, valid, a, 0.1, mode)
+    assert ra_kernel.robust_aggregate.last_m == m
+    torch.testing.assert_close(
+        out, ref.robust_aggregate_ref(wt, deltas, valid, a, 0.1, mode),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+def test_robust_aggregate_at_capacity(cuda, mode):
+    """m = MAX_VALID valid rows (one column a block) at a narrow d."""
+    K, d = ra_kernel.MAX_VALID, 37
+    wt, deltas, valid, a = _robust_inputs(cuda, K, d, torch.float32, 1.0)
+    out = ops.robust_aggregate(wt, deltas, valid, a, 0.1, mode)
+    assert ra_kernel.robust_aggregate.last_m == K
+    torch.testing.assert_close(
+        out, ref.robust_aggregate_ref(wt, deltas, valid, a, 0.1, mode),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+def test_robust_aggregate_select_hard_cases(cuda, mode):
+    """Ties straddling both window edges (7 values a column), heavy tails
+    (2 % of the rows scaled ×100, as the scale fault does), the same in
+    bf16; and two calls on the same inputs give the same bits."""
+    K, d = 3000, 1003
+    g = _gen(cuda, 4)
+    wt = torch.randn(d, device=cuda, generator=g)
+    a = torch.rand(d, device=cuda, generator=g) + 0.5
+    valid = torch.rand(K, device=cuda, generator=g) < 0.7
+    ties = torch.randint(-3, 4, (K, d), device=cuda, generator=g) * 0.01
+    heavy = torch.randn((K, d), device=cuda, generator=g) * 0.01
+    heavy[torch.randperm(K, device=cuda, generator=g)[:K // 50]] *= 100
+    for x, trim in ((ties, 0.1), (ties, 0.25), (heavy, 0.1),
+                    (heavy.to(torch.bfloat16), 0.1)):
+        out = ops.robust_aggregate(wt, x, valid, a, trim, mode)
+        torch.testing.assert_close(
+            out, ref.robust_aggregate_ref(wt, x, valid, a, trim, mode),
+            rtol=1e-5, atol=1e-6)
+        assert torch.equal(out, ops.robust_aggregate(wt, x, valid, a, trim,
+                                                     mode))
+
+
 def test_robust_aggregate_rejects_what_it_does_not_take(cuda):
     v = torch.zeros(16, device=cuda)
     m = torch.zeros((4, 16), device=cuda)

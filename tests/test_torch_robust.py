@@ -97,6 +97,93 @@ def test_plain_version_edge_cases(case, mode):
         np.testing.assert_array_equal(got, wt)
 
 
+def test_order_keys_sort_as_values():
+    """The kernel's key map: unsigned key order is value order (−0 before
+    +0), every NaN after +inf, and the keys map back to the values."""
+    x = torch.tensor([float("-inf"), -3.5, -1e-38, -0.0, 0.0, 1e-45, 2.0,
+                      float("inf"), float("nan")])
+    k = ref.order_keys(x)
+    assert bool((k[1:] > k[:-1]).all())
+    assert int(k[-1]) == 0xFFFFFFFF
+    assert torch.equal(ref.key_values(k)[:-1], x[:-1])
+    assert torch.isnan(ref.key_values(k)[-1])
+    y = torch.tensor(np.random.default_rng(1).standard_normal(999)
+                     .astype(np.float32))
+    assert torch.equal(ref.key_values(ref.order_keys(y)), y)
+    assert torch.equal(torch.argsort(ref.order_keys(y), stable=True),
+                       torch.argsort(y, stable=True))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_radix_edges_are_the_sorted_ranks(ties):
+    """Digit by digit (8/8/8/8 bits), the select lands on the keys that a
+    sort puts at the ranks asked for, tie runs included."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((301, 64)).astype(np.float32)
+    if ties:
+        x = np.round(x * 2) / 2
+    keys = ref.order_keys(torch.tensor(x))
+    ranks = torch.tensor(rng.integers(0, 301, size=(2, 64)))
+    edges = ref.radix_edges(keys, ranks)
+    assert ref.RADIX_DIGITS == (8, 8, 8, 8)
+    assert torch.equal(edges, torch.sort(keys, dim=0).values.gather(0, ranks))
+
+
+_SELECT_CASES = ["ties-straddle", "all-equal", "zeros95", "heavy-tail",
+                 "nonfinite", "m0", "m1", "m2", "m-odd", "m-even",
+                 "trim0.42-m150", "bf16"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", _SELECT_CASES)
+def test_select_arithmetic_matches_reference_and_pallas(case, mode):
+    """The kernel's arithmetic on the CPU (``ref.robust_select_ref``: the
+    edges by radix select, the window summed from them with exact ties)
+    against the sort-based plain version, the reference's oracle and its
+    interpret-mode kernel, at atol 1e-6 / rtol 1e-5."""
+    K, d, trim, kw = 40, 129, 0.1, {}
+    rng = np.random.default_rng(13)
+    if case == "zeros95":
+        kw = dict(ties=True)
+    elif case == "bf16":
+        import ml_dtypes
+        kw = dict(dtype=ml_dtypes.bfloat16)
+    elif case == "trim0.42-m150":
+        K, trim = 150, 0.42
+    wt, deltas, valid, a = _inputs(K, d, 0.6, 17, **kw)
+    if case == "ties-straddle":              # 7 levels: every edge in a run
+        deltas = (rng.integers(-3, 4, (K, d)) * 0.01).astype(np.float32)
+    elif case == "all-equal":
+        deltas = np.broadcast_to(rng.standard_normal(d), (K, d)).astype(
+            np.float32)
+    elif case == "heavy-tail":                # 2 % of rows scaled ×100
+        deltas = deltas * 0.01
+        deltas[rng.choice(K, size=max(1, K // 50), replace=False)] *= 100
+    elif case == "nonfinite":
+        deltas[3, :40] = np.inf
+        deltas[4, 20:60] = -np.inf
+        deltas[5, 50:90] = np.nan
+        deltas[6:9, :5] = np.nan
+    elif case in ("m0", "m1", "m2"):
+        valid[:] = False
+        valid[[3, 30][:int(case[1])]] = True
+    elif case in ("m-odd", "m-even"):
+        valid[:] = False
+        valid[:37 if case == "m-odd" else 38] = True
+    elif case == "trim0.42-m150":
+        valid[:] = True
+    tdel = (torch.tensor(deltas.astype(np.float32)).to(torch.bfloat16)
+            if case == "bf16" else torch.tensor(deltas))
+    got = ref.robust_select_ref(torch.tensor(wt), tdel, torch.tensor(valid),
+                                torch.tensor(a), trim, mode).numpy()
+    plain, expects = _both(wt, deltas, valid, a, trim, mode,
+                           pallas=case != "nonfinite")
+    for expect in (plain, *expects):
+        np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-6)
+    if case == "m0":
+        np.testing.assert_array_equal(got, wt)
+
+
 def test_trimmed_window_floor_is_f32():
     """lo = ⌊f32(trim)·f32(m)⌋: 0.42·150 is 62.999996 in f32, so lo = 62
     (the exact product would give 63) — the one such case for trims
