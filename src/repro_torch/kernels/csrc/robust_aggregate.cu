@@ -16,15 +16,18 @@
 //   2. robust_select_kernel: each block owns C consecutive columns.  It
 //      reads their m valid values from HBM once into shared memory as
 //      order-preserving 32-bit keys and finds, for every column, the key
-//      at rank lo and the key at rank hi − 1 by a radix select over 4
-//      digits of 8 bits from the top.  A pass counts the digit of every
+//      at rank lo and the key at rank hi − 1 by a radix select over up to
+//      4 digits of 8 bits from the top.  A pass counts the digit of every
 //      key that matches an edge's prefix so far (both edges share the
 //      passes: while their prefixes agree one histogram serves both, and
 //      once they differ a key matches at most one); one warp a column then
 //      scans the 256 counts for the bin holding each edge's remaining
 //      rank.  The first pass counts during the load, from registers; the
-//      other three sweep the keys in shared memory, 4 a thread at a time
-//      (16-B loads).  A last sweep sums the window exactly:
+//      others sweep the keys in shared memory, 4 a thread at a time (16-B
+//      loads).  Once every column's two edges are each alone in their
+//      bins, the passes stop (on N(0, σ²) deltas mostly after 3 digits:
+//      the keys left to tell apart are then the edges themselves).  A last
+//      sweep sums the window exactly:
 //
 //        e_lo = e_hi:  (hi − lo)·v(e)
 //        otherwise:    Σ v(k) over e_lo < k < e_hi
@@ -58,10 +61,11 @@
 // Bound: the m valid rows are read once, m·d·4 + K + 3·d·4 bytes: 0.0937 ms
 // at m = 3,922 and 0.2389 ms at m = K = 10,000 (d = 20,002, 3.35 TB/s).
 // What holds the kernel above it (PERF.md, NVIDIA H100 80GB HBM3, 700 W):
-// the load reaches ≈ 1.0 TB/s (a block reads a 32-B segment of each of
-// m rows), and the three sweeps and the sum cost ≈ 4 µs a block each
-// (16 warps, a scan and three barriers a pass), with the load of one block
-// overlapping another's passes only where two fit an SM.
+// the load reaches ≈ 1 TB/s, as a block reads only a 16–32 B segment of
+// each of m rows: each request an SM keeps in flight carries that little
+// (the loads ask L2 for the 256 B around them, so neighbouring blocks find
+// the rest of the line there), and the passes, a sweep, a scan and three
+// barriers each, come next.
 //
 // Columns a block (C) and blocks an SM.  A block of C columns holds
 // C·m keys (4 B each, rows padded to a multiple of 32 plus 32/C so a
@@ -108,8 +112,20 @@ constexpr int STATIC_SMEM = 1024;          // the kernel's own (704 B), rounded
 constexpr uint32_t NAN_KEY = 0xFFFFFFFFu;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// A read-only load that asks L2 to fetch the 256 B around it: the blocks
+// of neighbouring columns read the rest of those lines at about the same
+// time, so HBM sees whole lines instead of one sector a block
+__device__ __forceinline__ float load_row(const float* p) {
+  float v;
+  asm("ld.global.nc.L2::256B.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float load_row(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm("ld.global.nc.L2::256B.b16 %0, [%1];" : "=h"(v) : "l"(p));
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
 
 __device__ __forceinline__ uint32_t to_key(float x) {
   if (isnan(x)) return NAN_KEY;
@@ -215,10 +231,11 @@ __device__ __forceinline__ void reduce_copies(uint32_t* hist, uint32_t* tot,
 // One warp a column: the bin that holds each edge's remaining rank, from
 // the column's totals (lane l sums bins 8l … 8l + 7, one warp scan, then
 // the lane whose run holds the rank walks its 8 bins).  The edge's prefix
-// gains the bin as its next digit and its rank drops by the keys before.
-__device__ __forceinline__ void find_bins(const uint32_t* col_tot,
+// gains the bin as its next digit, its rank drops by the keys before, and
+// eq gets the bin's count.  True if each edge is alone in its bin.
+__device__ __forceinline__ bool find_bins(const uint32_t* col_tot,
                                           uint32_t* prefix, int* rank,
-                                          int* eq_lo, int lane) {
+                                          int* eq, int lane) {
   static_assert(BINS == 8 * 32, "eight bins a lane");
   const uint32_t pl = prefix[0], ph = prefix[1];
   const int r0 = rank[0], r1 = rank[1];
@@ -245,16 +262,19 @@ __device__ __forceinline__ void find_bins(const uint32_t* col_tot,
     if (lb <= r0 && r0 < la) {
       prefix[0] = (pl << DIGIT_BITS) | b;
       rank[0] = r0 - lb;
-      *eq_lo = la - lb;
+      eq[0] = la - lb;
     }
     const int hb = split ? static_cast<int>(at >> 16) : lb;
     const int ha = split ? static_cast<int>(next >> 16) : la;
     if (hb <= r1 && r1 < ha) {
       prefix[1] = (ph << DIGIT_BITS) | b;
       rank[1] = r1 - hb;
+      eq[1] = ha - hb;
     }
     at = next;
   }
+  __syncwarp();
+  return eq[0] == 1 && eq[1] == 1;
 }
 
 // Thread t owns column c = t mod C; its lane q = t mod 32 names its
@@ -262,6 +282,8 @@ __device__ __forceinline__ void find_bins(const uint32_t* col_tot,
 // row quads 4(t/C + j·(THREADS/C)) … + 3.  The window's edges per
 // column: prefix[c][e] (the digits found so far; after the last pass the
 // edge's key), rank[c][e] (its rank among the keys that share the prefix).
+// Once every column's two edges are each alone in their bins, the passes
+// stop: the sum's sweep picks each edge out by its prefix.
 template <typename T, int COLS>
 __global__ void __launch_bounds__(THREADS, 2)
 robust_select_kernel(const float* __restrict__ w_t, const T* __restrict__ deltas,
@@ -275,7 +297,8 @@ robust_select_kernel(const float* __restrict__ w_t, const T* __restrict__ deltas
   uint32_t* keys = tot + tot_words(COLS);  // [COLS][stride], 16-B aligned
   __shared__ uint32_t prefix[MAX_COLS][2];
   __shared__ int rank[MAX_COLS][2];
-  __shared__ int eq_lo[MAX_COLS], nan_count[MAX_COLS];
+  __shared__ int eq[MAX_COLS][2], nan_count[MAX_COLS];
+  __shared__ uint32_t edge[MAX_COLS][2];
   __shared__ float part[WARPS][MAX_COLS];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -304,7 +327,7 @@ robust_select_kernel(const float* __restrict__ w_t, const T* __restrict__ deltas
       for (int u = 0; u < 8; ++u) {
         const int i = i0 + u * G;
         v[u] = (i < m && col < d)
-                   ? to_f32(src[static_cast<long long>(idx[i]) * d]) : 0.0f;
+                   ? load_row(src + static_cast<long long>(idx[i]) * d) : 0.0f;
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
@@ -326,57 +349,63 @@ robust_select_kernel(const float* __restrict__ w_t, const T* __restrict__ deltas
     rank[tid][0] = hf > lo ? lo : 0;
     rank[tid][1] = hf > lo ? hf - 1 : 0;
   }
-  reduce_copies<COLS>(hist, tot, warp, lane);
-  __syncthreads();
-  if (warp < COLS)
-    find_bins(tot + warp * TOT_STRIDE, prefix[warp], rank[warp], &eq_lo[warp],
-              lane);
-  __syncthreads();
 
-#pragma unroll
-  for (int p = 1; p < PASSES; ++p) {
-    {  // count the digits of the keys matching either edge's prefix
-      const int shift = 32 - DIGIT_BITS * p, low = shift - DIGIT_BITS;
-      const uint32_t pl = prefix[c][0], ph = prefix[c][1];
-#pragma unroll 2
-      for (int i = 4 * g; i < m; i += 4 * G) {
-        const uint4 q = *reinterpret_cast<const uint4*>(ck + i);
-        const uint32_t k4[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const uint32_t k = k4[u], high = k >> shift;
-          const uint32_t inc = i + u >= m ? 0u
-                               : high == pl ? 1u
-                               : high == ph ? 0x10000u : 0u;
-          if (inc) atomicAdd(&hist[((k >> low) & (BINS - 1)) * 32 + lane], inc);
-        }
-      }
-    }
-    __syncthreads();
+  // the digits: the first was counted by the load; each later one counts
+  // the digit of the keys matching either edge's prefix
+  int digits = 1;
+  for (;;) {
     reduce_copies<COLS>(hist, tot, warp, lane);
     __syncthreads();
+    bool alone = true;
     if (warp < COLS)
-      find_bins(tot + warp * TOT_STRIDE, prefix[warp], rank[warp],
-                &eq_lo[warp], lane);
+      alone = find_bins(tot + warp * TOT_STRIDE, prefix[warp], rank[warp],
+                        eq[warp], lane);
+    if (__syncthreads_and(alone) || digits == PASSES) break;
+    const int shift = 32 - DIGIT_BITS * digits, low = shift - DIGIT_BITS;
+    const uint32_t pl = prefix[c][0], ph = prefix[c][1];
+#pragma unroll 2
+    for (int i = 4 * g; i < m; i += 4 * G) {
+      const uint4 q = *reinterpret_cast<const uint4*>(ck + i);
+      const uint32_t k4[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t k = k4[u], high = k >> shift;
+        const uint32_t inc = i + u >= m ? 0u
+                             : high == pl ? 1u
+                             : high == ph ? 0x10000u : 0u;
+        if (inc) atomicAdd(&hist[((k >> low) & (BINS - 1)) * 32 + lane], inc);
+      }
+    }
+    ++digits;
     __syncthreads();
   }
 
-  // the keys strictly between the edges, then a fixed tree over the column
-  const uint32_t el = prefix[c][0], eh = prefix[c][1];
+  // the keys strictly between the edges' prefixes (after all 4 digits: the
+  // edges), then a fixed tree over the column; before the last digit each
+  // edge is the one key with its prefix
+  const int shift = 32 - DIGIT_BITS * digits;
+  const uint32_t pl = prefix[c][0], ph = prefix[c][1];
   float s = 0.0f;
 #pragma unroll 2
   for (int i = 4 * g; i < m; i += 4 * G) {
     const uint4 q = *reinterpret_cast<const uint4*>(ck + i);
     const uint32_t k4[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (i + u < m && k4[u] > el && k4[u] < eh) s += from_key(k4[u]);
+    for (int u = 0; u < 4; ++u) {
+      if (i + u >= m) continue;
+      const uint32_t high = k4[u] >> shift;
+      if (high > pl && high < ph) s += from_key(k4[u]);
+      if (digits < PASSES && high == pl) edge[c][0] = k4[u];
+      if (digits < PASSES && high == ph) edge[c][1] = k4[u];
+    }
   }
 #pragma unroll
   for (int o = 16; o >= COLS; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
   if (lane < COLS) part[warp][lane] = s;
   __syncthreads();
   if (tid < COLS && col < d) {
+    const uint32_t el = digits < PASSES ? edge[tid][0] : pl;
+    const uint32_t eh = digits < PASSES ? edge[tid][1] : ph;
     float between = 0.0f;
     for (int w = 0; w < WARPS; ++w) between += part[w][tid];
     const int n_nan = nan_count[tid];
@@ -386,7 +415,7 @@ robust_select_kernel(const float* __restrict__ w_t, const T* __restrict__ deltas
       if (el == eh) {
         sum = __fmul_rn(static_cast<float>(hf - lo), from_key(el));
       } else {
-        const int le_lo = lo - rank[tid][0] + eq_lo[tid];  // #{k ≤ e_lo}
+        const int le_lo = lo - rank[tid][0] + eq[tid][0];  // #{k ≤ e_lo}
         const int lt_hi = hf - 1 - rank[tid][1];           // #{k < e_hi}
         sum = __fadd_rn(
             __fadd_rn(between, __fmul_rn(static_cast<float>(le_lo - lo),
