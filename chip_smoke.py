@@ -57,11 +57,11 @@ Phases, in order (any failure raises and exits non-zero):
    events at the main paths' shapes, beside the bound (the least time the
    card could take) — ``robust_aggregate``'s trimmed mean and median at
    the faulted cells' m and at m = K, ``cocoa_sdca_pass`` at every bucket
-   of a round, the host-bound wrappers also by the profiler's device time — ``wkv6`` in
-   both entries and the layout copies it no longer needs; break one
-   full-width round of each plain solver into its parts; trace one plain
-   round of each solver for the device's idle share, and one full-width
-   prefill for its busy share and top operations;
+   of a round, the host-bound wrappers also by the profiler's device time
+   — ``wkv6`` in both entries and the layout copies it no longer needs;
+   break one full-width round of each plain solver into its parts; trace
+   one plain round of each solver for the device's idle share, and one
+   full-width prefill for its busy share and top operations;
 8. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -504,14 +504,14 @@ def main() -> int:
             f"SMs for the {REQUESTS * 40} pairs of the serving prefill")
     occupancy = _build.launcher("robust_aggregate", "robust_select_occupancy")
     for m_occ in (3922, 10_000, ra_kernel.MAX_VALID):
-        cols, blocks, regs, smem = (ctypes.c_int(0) for _ in range(4))
-        _build.check(occupancy(0, m_occ, ctypes.byref(cols),
-                               ctypes.byref(blocks), ctypes.byref(regs),
-                               ctypes.byref(smem)), "robust_select occupancy")
-        log(f"[build] robust_select float32 at m = {m_occ}: {cols.value} "
-            f"columns a block, {regs.value} registers a thread, {smem.value} "
-            f"B of shared memory a block, {blocks.value} blocks of 512 an SM "
-            "(the occupancy calculator)")
+        res = [ctypes.c_int(0) for _ in range(4)]
+        _build.check(occupancy(0, m_occ, *map(ctypes.byref, res)),
+                     "robust_select occupancy")
+        cols, blocks, regs, smem = (r.value for r in res)
+        log(f"[build] robust_select float32 at m = {m_occ}: {cols} columns "
+            f"a block, {regs} registers a thread, {smem} B of shared memory "
+            f"a block, {blocks} blocks of 512 an SM (the occupancy "
+            "calculator)")
 
     # -- 3. kernels against their plain versions --------------------------- #
     phase("checks")

@@ -84,10 +84,10 @@
 //   m = 32,768:  C = 1 → 166 KB, one an SM (the capacity; ≈ 49,600 rows
 //                would still fit one column).
 //
-// Measured (PERF.md): C = 4 with two blocks an SM is 5 % faster than
-// C = 8 with one at m = 3,922; C = 1 with two is 1.8× slower than C = 4
-// with one at m = K.  So a block takes two an SM while that leaves C ≥ 4,
-// else the most columns that fit alone.
+// Measured (PERF.md): at m = 3,922, C = 4 with two blocks an SM takes
+// 0.545 ms where C = 8 alone takes 0.600.  Two an SM at m = K would leave
+// one column a block, 4 B of each 32-B sector.  So a block takes two an
+// SM while that leaves C ≥ 4, else the most columns that fit alone.
 #include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -139,7 +139,7 @@ __device__ __forceinline__ float from_key(uint32_t k) {
 
 // a column's keys: m rows padded to a multiple of 32, plus 32/C words so
 // that column c starts at bank 32/C·c
-__host__ __device__ constexpr int key_stride(int cols, int m) {
+constexpr int key_stride(int cols, int m) {
   return (m + 31) / 32 * 32 + 32 / cols;
 }
 
