@@ -7,7 +7,7 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. record the machine: torch and CUDA versions, ``nvcc --version``, whether
    ``import triton`` works, the card's name and power limit;
-2. build the seven kernel libraries from ``src/repro_torch/kernels/csrc``
+2. build the eight kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print the build seconds and
    each library's register and spill report, and ``wkv6``'s and the
    robust select's registers, shared memory and blocks an SM;
@@ -62,7 +62,22 @@ Phases, in order (any failure raises and exits non-zero):
    break one full-width round of each plain solver into its parts; trace
    one plain round of each solver for the device's idle share, and one
    full-width prefill for its busy share and top operations;
-8. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
+8. train rwkv6-3b, the serving weights and the earlier phases' tensors
+   freed first: ``wkv6_bwd`` against autograd through the plain forward
+   (the training path's (2, 128, 40, 64) from zeros and from a given
+   state with the final state's cotangent, the serving shape, the
+   (B·Hn, S, D) entry, a strided slice; strong decays against the plain
+   backward; two calls bit-equal); the reduced config's FSVRG and FedAvg
+   rounds on the card against the CPU; at full width in bf16
+   (``launch/train.py``'s defaults: 4 clients × 1 step × 2 × 128 tokens)
+   2 FSVRG rounds, a FedAvg round and 3 AdamW steps through
+   ``launch.steps``, counts set to 0 just before each and read just after
+   (2 ``wkv6`` launches and 1 ``wkv6_bwd`` a layer and pass: each layer
+   is recomputed in the backward), with seconds, peak memory, finite
+   losses and |∇f|, and one more FSVRG round traced for the device's idle
+   share and top kernels; ``wkv6_bwd``'s time at the training and the
+   serving shape beside its bound and autograd through the plain forward;
+9. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -84,7 +99,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 #: the kernels line: a row for each of the reference's seven TPU kernels,
 #: named for the kernel that runs it on the main path (the SDCA solve's:
-#: the pass entry, one launch a bucket; the coordinate entry is timed apart)
+#: the pass entry, one launch a bucket; the coordinate entry is timed
+#: apart), and one for wkv6's backward
 TPU_KERNELS = {
     "fused_aggregate": "src/repro/kernels/scaled_aggregate.py:66",
     "fsvrg_update": "src/repro/kernels/fsvrg_update.py:36",
@@ -93,6 +109,9 @@ TPU_KERNELS = {
     "cocoa_sdca_pass": "src/repro/kernels/cocoa_sdca.py:55",
     "robust_aggregate": "src/repro/kernels/robust_aggregate.py:67",
     "wkv6": "src/repro/kernels/wkv6.py:71",
+    # the backward of the same TPU kernel (which has none: the reference
+    # differentiates its jnp _wkv_chunked, src/repro/models/rwkv.py:73)
+    "wkv6_bwd": "src/repro/kernels/wkv6.py:71",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -103,6 +122,7 @@ SOURCES = {
     "cocoa_sdca_pass": CSRC + "cocoa_sdca.cu",
     "robust_aggregate": CSRC + "robust_aggregate.cu",
     "wkv6": CSRC + "wkv6.cu",
+    "wkv6_bwd": CSRC + "wkv6_bwd.cu",
 }
 #: solver -> the kernel its client pass launches
 STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
@@ -129,6 +149,16 @@ RAGGED_LEN = 2047
 CONSISTENCY_LEN = 256
 #: decode steps traced for the device's idle share
 DECODE_PROFILED = 8
+#: the training cell: rwkv6-3b at full width in bf16 with launch/train.py's
+#: defaults (TRAIN_CLIENTS clients, 1 local step, 2 sequences of TRAIN_SEQ
+#: tokens a client, stepsize 0.5, AdamW lr 3e-4): FSVRG_ROUNDS FSVRG
+#: rounds, a FedAvg round, then ADAMW_STEPS AdamW steps
+TRAIN_CLIENTS, TRAIN_LOCAL_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 1, 2, 128
+TRAIN_STEPSIZE, TRAIN_LR = 0.5, 3e-4
+FSVRG_ROUNDS, ADAMW_STEPS = 2, 3
+#: (B, S, Hn, D) of wkv6_bwd on the training path, and at the serving shape
+TRAIN_WKV = (TRAIN_BATCH, TRAIN_SEQ, 40, 64)
+SERVE_WKV = (REQUESTS, PROMPT_LEN, 40, 64)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -434,6 +464,288 @@ def serve_phase(dev, sync) -> dict:
         require(max(errs) <= 1e-4, "card and CPU serving disagree")
     return dict(model=model, params=params, prompt=prompt,
                 launches=launches, runs=runs)
+
+
+def wkv6_bwd_ops(B, S, Hn, D, L=32) -> int:
+    """The f32 work wkv6_bwd's function needs: per chunk the five
+    strict-lower (L, L) products over D (A, dA, Aᵀ dout, dA k_t, dAᵀ r_t),
+    the five (L, D) × (D, D) ones (k_t G, dout S0ᵀ, Y = v dSᵀ, the new dS
+    and the forward sweep's k_tᵀ v), dc_L, and ≈ 30 elementwise
+    operations an element."""
+    macs = 5 * (L * (L - 1) // 2) * D + 5 * L * D * D + D * D + L * D
+    return (2 * macs + 30 * L * D) * B * Hn * (S // L)
+
+
+def wkv6_plain_grads(x, s0, d_out, d_fin, chunk=32):
+    """The cotangents of r, k, v, w, u (and the start state) by autograd
+    through ref.wkv6_ref."""
+    import torch
+    from repro_torch.kernels import ref
+    xs = [t.detach().clone().requires_grad_() for t in x]
+    st = None if s0 is None else s0.clone().requires_grad_()
+    out, fin = ref.wkv6_ref(*xs, chunk, state=st)
+    outs, cots = [out], [d_out]
+    if d_fin is not None:
+        outs.append(fin)
+        cots.append(d_fin)
+    return torch.autograd.grad(outs, xs + ([] if st is None else [st]), cots)
+
+
+def check_wkv6_bwd(dev, gen, compare) -> float:
+    """wkv6_bwd against autograd through its plain forward on the card:
+    the training path's (2, 128, 40, 64) from zeros, and from a given
+    state with the final state's cotangent; the serving shape (8, 2,048,
+    40, 64); the (B·Hn, S, D) entry; a strided slice; strong decays (the
+    1e-30 clamp fires, where autograd's dw is NaN: against the plain
+    backward ref.wkv6_bwd_ref).  Two calls must be bit-equal.  Returns
+    the max abs error at the training shape.
+
+    Tolerance 1e-5 of each cotangent's max + rtol 1e-5: f32 sums of the
+    same terms in other orders (the reverse chunk walk in FMAs against
+    autograd's)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    B, S, Hn, D = TRAIN_WKV
+    cases = [("training path, zeros", TRAIN_WKV, Hn, False, False, False),
+             ("training, given state and d_final", TRAIN_WKV, Hn, True, True,
+              False),
+             ("serving shape, zeros", SERVE_WKV, Hn, False, False, False),
+             ("(B·Hn, S, D) entry, given state", (B * Hn, S, D), None, True,
+              True, False),
+             ("strided first 96 of 100 tokens", (B, 100, Hn, D), Hn, False,
+              False, False),
+             ("strong decays (clamp fires)", TRAIN_WKV, Hn, True, True,
+              True)]
+    for label, shape, heads, given, dfin, strong in cases:
+        x = list(wkv6_inputs(dev, gen, shape[0], shape[1], shape[-1],
+                             heads=heads))
+        if strong:
+            x[3][..., :4] = 0.05 + 0.15 * torch.rand(
+                x[3][..., :4].shape, device=dev, generator=gen)
+        if shape[1] == 100:
+            x[:4] = [t[:, :96] for t in x[:4]]
+        s_shape = (x[0].shape[0],) + (() if heads is None else (heads,)) \
+            + (D, D)
+        s0 = 0.5 * torch.randn(s_shape, device=dev, generator=gen) \
+            if given else None
+        d_out = torch.randn(x[0].shape, device=dev, generator=gen)
+        d_fin = torch.randn(s_shape, device=dev, generator=gen) \
+            if dfin else None
+        got = ops.wkv6_bwd(*x, d_out, state=s0, d_state=d_fin)
+        again = ops.wkv6_bwd(*x, d_out, state=s0, d_state=d_fin)
+        torch.cuda.synchronize()
+        require(all((a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(got, again)),
+                f"wkv6_bwd {label}: two calls differ")
+        plain = (ref.wkv6_bwd_ref(*x, d_out, state=s0, d_state=d_fin)
+                 if strong else wkv6_plain_grads(x, s0, d_out, d_fin))
+        names = ("dr", "dk", "dv", "dw", "du", "d_state")
+        for name, a, p in zip(names, got, plain):
+            err = compare("wkv6_bwd", f"{tuple(x[0].shape)} {label} {name}",
+                          a, p, 1e-5, 1e-5 * float(p.abs().max()))
+            if label == "training path, zeros":
+                worst = max(worst, err)
+        require(torch.isfinite(got[3]).all().item(),
+                f"wkv6_bwd {label}: non-finite dw")
+        del x, s0, d_out, d_fin, got, again, plain
+    log("[check] wkv6_bwd: two calls bit-equal in every case")
+    return worst
+
+
+def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
+    """Train rwkv6-3b: wkv6_bwd's checks; the reduced config's FSVRG and
+    FedAvg rounds on the card against the CPU in f32; then at full width in
+    bf16 FSVRG_ROUNDS FSVRG rounds, a FedAvg round and ADAMW_STEPS AdamW
+    steps through launch.steps, each with its seconds, peak memory, finite
+    loss and full-gradient norm and its wkv6 / wkv6_bwd launches checked
+    (the loss rematerializes each layer: 2 forward launches and 1
+    backward a layer and pass), and one more FSVRG round traced for the
+    device's idle share; then wkv6_bwd's timing.  Returns the kernels
+    line's wkv6_bwd row."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import neural
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    max_err = check_wkv6_bwd(dev, gen, compare)
+
+    # the reduced config in f32, the same weights and batches on the card
+    # and the CPU.  Tolerance 1e-3 of max |w| (and of |∇f|): f32 sums in
+    # other orders (cuBLAS, the kernels) through a gradient that is badly
+    # conditioned at a sequence's first tokens (the group norm of a WKV
+    # output that is 0, then a multiple of v_0): on the CPU a 1e-7
+    # relative perturbation of these weights moves the round by 3.5e-4 of
+    # max |w| and |∇f| by 1.0e-4 (tests/test_torch_train.py)
+    cfg = get_config(ARCH)
+    small = cfg.reduced()
+    m_cpu = build_model(small, torch.float32, "cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(SEED))
+    m_dev = build_model(small, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    batch = train.synthetic_batch(np.random.default_rng(SEED), small, 2, 2,
+                                  2, 64, "cpu")
+    for alg in ("fsvrg", "fedavg"):
+        fed = neural.FedNeuralConfig(stepsize=0.3, local_steps=2,
+                                     algorithm=alg)
+        new_c, met_c = neural.make_fsvrg_round(m_cpu, fed)(p_cpu, batch)
+        new_d, met_d = neural.make_fsvrg_round(m_dev, fed)(
+            p_dev, {k: v.to(dev) for k, v in batch.items()})
+        scale = max(float(p.detach().abs().max())
+                    for p in new_c.parameters())
+        err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                  for a, b in zip(new_d.parameters(), new_c.parameters()))
+        gn_c, gn_d = (float(m["full_grad_norm"]) for m in (met_c, met_d))
+        log(f"[train] {small.name} {alg} round (C = 2, T = 2, 2 × 64 "
+            f"tokens) card vs CPU, f32: iterate max_abs_err {err:.3e} of "
+            f"max |w| {scale:.3e} ({err / scale:.2e}); |∇f| {gn_d:.6f} vs "
+            f"{gn_c:.6f} ({abs(gn_d - gn_c) / gn_c:.2e}); tolerance 1e-3")
+        require(err <= 1e-3 * scale and abs(gn_d - gn_c) <= 1e-3 * gn_c,
+                f"{alg}: the card's and the CPU's rounds disagree")
+    del m_cpu, p_cpu, m_dev, p_dev, new_c, new_d
+
+    # full width, bf16
+    L = cfg.num_layers
+    Hn = cfg.d_model // cfg.rwkv_head_dim
+    model = build_model(cfg, torch.bfloat16)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    sync()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"[train] {cfg.name} at full width in bf16: {L} layers, d "
+        f"{cfg.d_model}, {Hn} heads of {cfg.rwkv_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {TRAIN_CLIENTS} clients × "
+        f"{TRAIN_LOCAL_STEPS} step × {TRAIN_BATCH} × {TRAIN_SEQ} tokens; "
+        f"{held:.2f} GB allocated with the weights")
+    rng = np.random.default_rng(SEED)
+    C, T, Bc, SQ = TRAIN_CLIENTS, TRAIN_LOCAL_STEPS, TRAIN_BATCH, TRAIN_SEQ
+    round_launches = {}
+
+    def expect(passes):
+        return {"wkv6": 2 * L * passes, "wkv6_bwd": L * passes}
+
+    def run(label, fn, passes):
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = expect(passes)
+        require(all(launches[k] == want.get(k, 0) for k in launches),
+                f"{label}: launches {launches}, expected {want}")
+        return out, secs, peak, launches
+
+    for alg, rounds in (("fsvrg", FSVRG_ROUNDS), ("fedavg", 1)):
+        step = steps.make_fsvrg_step(model, neural.FedNeuralConfig(
+            stepsize=TRAIN_STEPSIZE, local_steps=T, algorithm=alg))
+        passes = C * T * (3 if alg == "fsvrg" else 2)
+        for r in range(rounds):
+            batch = train.synthetic_batch(rng, cfg, C, T, Bc, SQ, dev)
+            (params, met), secs, peak, launches = run(
+                f"{alg} round {r + 1}", lambda: step(params, batch), passes)
+            round_launches.setdefault(alg, launches)
+            if alg == "fsvrg":
+                fsvrg_s = secs
+            with torch.no_grad():
+                loss = float(model.loss(params, {k: x[0, 0] for k, x
+                                                 in batch.items()})[0])
+            gn = float(met["full_grad_norm"])
+            log(f"[train] {alg} round {r + 1}: {secs:.3f} s, peak "
+                f"{peak:.2f} GB allocated; loss after {loss:.4f}, |∇f| "
+                f"{gn:.4f}; launches wkv6 {launches['wkv6']}, wkv6_bwd "
+                f"{launches['wkv6_bwd']} ({passes} forward and backward "
+                "passes), every other kernel 0")
+            require(np.isfinite(loss) and np.isfinite(gn),
+                    f"{alg} round {r + 1}: non-finite loss or |∇f|")
+            del batch, met
+
+    # one more FSVRG round traced on the device alone (the host's operator
+    # calls are not traced), over the last unprofiled FSVRG round's wall
+    # time
+    step = steps.make_fsvrg_step(model, neural.FedNeuralConfig(
+        stepsize=TRAIN_STEPSIZE, local_steps=T))
+    batch = train.synthetic_batch(rng, cfg, C, T, Bc, SQ, dev)
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, _ = step(params, batch)
+        sync()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    if events:
+        log(f"[profile] {ARCH} fsvrg round at full width: device busy "
+            f"{busy_s:.3f} s of the unprofiled {fsvrg_s:.3f} s round -> "
+            f"device idle share {1 - busy_s / fsvrg_s:.1%}; "
+            f"{sum(e.count for e in events)} device kernels")
+    else:
+        log(f"[profile] {ARCH} fsvrg round: device idle share: not measured "
+            "(the profiler saw no device time)")
+    for e in events[:10]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:7d}× {e.key[:90]}")
+    del batch, prof, events
+    opt = adamw(TRAIN_LR)
+    opt_state = opt.init(dict(params.named_parameters()))
+    adamw_step = steps.make_adamw_step(model, opt)
+    opt_step = 0
+    for i in range(ADAMW_STEPS):
+        b = train.synthetic_batch(rng, cfg, 1, 1, C * Bc, SQ, dev)
+        flat = {k: x[0, 0] for k, x in b.items()}
+        (params, opt_state, opt_step, loss, _), secs, peak, launches = run(
+            f"adamw step {i + 1}",
+            lambda: adamw_step(params, opt_state, opt_step, flat), 1)
+        log(f"[train] adamw step {i + 1}: {secs:.3f} s, peak {peak:.2f} GB "
+            f"allocated; loss {float(loss):.4f}; launches wkv6 "
+            f"{launches['wkv6']}, wkv6_bwd {launches['wkv6_bwd']}")
+        require(np.isfinite(float(loss)), f"adamw step {i + 1}: non-finite "
+                "loss")
+    del model, params, opt_state, b, flat
+    torch.cuda.empty_cache()
+
+    # wkv6_bwd's time at the training shape (its row) and at the serving
+    # shape, the plain backward (autograd through wkv6_ref, the graph
+    # built once) beside it.  Bound: r, k, v, w, dout read and dr, dk, dv,
+    # dw written once, u read and du written: bytes over the HBM rate, or
+    # the f32 work of wkv6_bwd_ops over 67 TFLOP/s, the larger
+    times = {}
+    for shape in (TRAIN_WKV, SERVE_WKV):
+        B_, S_, Hn_, D_ = shape
+        x = wkv6_inputs(dev, gen, B_, S_, D_, heads=Hn_)
+        d_out = torch.randn(shape, device=dev, generator=gen)
+        xs = [t.clone().requires_grad_() for t in x]
+        out, _ = ref.wkv6_ref(*xs)
+        k_ms = cuda_ms(lambda: ops.wkv6_bwd(*x, d_out), iters=10)
+        p_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, d_out,
+                                                   retain_graph=True),
+                       iters=3, warmup=1)
+        nbytes = 9 * B_ * S_ * Hn_ * D_ * 4 + 2 * Hn_ * D_ * 4
+        b_ms, b_by = bound(nbytes, wkv6_bwd_ops(B_, S_, Hn_, D_))
+        times[shape] = (k_ms, p_ms, b_ms, b_by)
+        log(f"[time] wkv6_bwd {shape}: kernel {k_ms:.4f} ms, plain "
+            f"(autograd through wkv6_ref) {p_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}); {b_ms / k_ms:.1%} of the bound")
+        del x, d_out, xs, out
+    k_ms, p_ms, b_ms, b_by = times[TRAIN_WKV]
+    log("[time] wkv6_bwd library: null — no single PyTorch call computes "
+        "the WKV-6 VJP")
+    return dict(name="wkv6_bwd", route="cuda", source=SOURCES["wkv6_bwd"],
+                replaces=TPU_KERNELS["wkv6_bwd"],
+                launches=round_launches["fsvrg"]["wkv6_bwd"],
+                max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def main() -> int:
@@ -1485,8 +1797,6 @@ def main() -> int:
     del x6, s6, ragged6, x3
     for r in rows:
         report(r)
-    require(sorted(r["name"] for r in rows) == sorted(SOURCES),
-            "the kernels line misses a kernel")
     log("[time] wkv6 library: null — no single PyTorch call computes the "
         "WKV-6 recurrence")
     torch.cuda.empty_cache()
@@ -1568,9 +1878,19 @@ def main() -> int:
         f"{wall_s:.4f} s -> device idle share "
         + (f"{1 - busy_s / wall_s:.1%}" if busy_s > 0 else "not measured")
         + f"; {n_kernels / DECODE_PROFILED:.0f} device kernels a step")
+
+    # -- 8. training rwkv6-3b at full width, the serving weights and the
+    #       logreg phases' tensors freed first
+    del served, model, params, res, runs, fault_runs, prob, ds
+    torch.cuda.empty_cache()
+    phase("training")
+    rows.append(train_phase(dev, sync, compare, cuda_ms, bound))
+    report(rows[-1])
+    require(sorted(r["name"] for r in rows) == sorted(SOURCES),
+            "the kernels line misses a kernel")
     phase("done")
 
-    # -- 8. the result -------------------------------------------------------- #
+    # -- 9. the result -------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,16 @@ and ``DeltaFaults`` (plain dataclasses) to :func:`trace_from_config` and
 pytree and decode cache as nested dicts of numpy arrays go to
 :func:`params_from_tree` and :func:`cache_from_tree`.  Anything with the
 same attribute names or keys works: nothing here imports the reference.
+
+Port → numpy, for the comparisons of training: :func:`tree_from_params`
+turns parameters, or gradients keyed as ``named_parameters()`` keys them,
+back into the reference's stacked pytree, and :func:`batch_from_arrays`
+turns a token batch of numpy arrays into the port's tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -128,3 +133,51 @@ def cache_from_tree(tree: Mapping, device: DeviceLike = None) -> Dict:
                for k, v in tree[f"pos{i % P}"].items()}
               for i in range(nrep * P)]
     return {"len": int(np.asarray(tree["len"])), "layers": layers}
+
+
+def tree_from_params(params: Union[LMParams, Mapping[str, torch.Tensor]]
+                     ) -> Dict:
+    """The inverse of :func:`params_from_tree` for the ported families
+    (a pattern of one layer): ``embed``, ``out_norm``, ``unembed`` and
+    ``layers/pos0/...`` with a leading (num_layers,) axis, as numpy
+    arrays.  ``params``: an :class:`LMParams`, or any mapping keyed as its
+    ``named_parameters()`` (gradients, an optimizer's new tensors).  bf16
+    leaves come back as f32 arrays (numpy has no bf16; the widening is
+    exact)."""
+    named = (dict(params.named_parameters())
+             if isinstance(params, torch.nn.Module) else dict(params))
+
+    def array(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree: Dict = {k: array(v) for k, v in named.items() if "." not in k}
+    per_layer: Dict[int, Dict] = {}
+    for key, v in named.items():
+        if "." in key:
+            _, i, *path = key.split(".")
+            per_layer.setdefault(int(i), {})[tuple(path)] = array(v)
+    pos: Dict = {}
+    for path in per_layer[0]:
+        node = pos
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.stack([per_layer[i][path]
+                                   for i in range(len(per_layer))])
+    tree["layers"] = {"pos0": pos}
+    return tree
+
+
+def batch_from_arrays(batch: Mapping, device: DeviceLike = None
+                      ) -> Dict[str, torch.Tensor]:
+    """A token batch (``tokens``, ``labels``, ``mask`` and the like, of any
+    leading shape, e.g. a round's (C, T, B_c, S)) as tensors on
+    ``device``: integer arrays as int64, the rest as f32."""
+    dev = resolve_device(device)
+    out = {}
+    for k, a in batch.items():
+        a = np.asarray(a)
+        dtype = (torch.int64 if np.issubdtype(a.dtype, np.integer)
+                 else torch.float32)
+        out[k] = tensor_from_array(a, dtype, dev)
+    return out

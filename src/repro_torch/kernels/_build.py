@@ -35,6 +35,7 @@ SOURCES = {
     "cocoa_sdca": "cocoa_sdca.cu",
     "robust_aggregate": "robust_aggregate.cu",
     "wkv6": "wkv6.cu",
+    "wkv6_bwd": "wkv6_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -63,6 +64,9 @@ SIGNATURES = {
                          [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _P, _P]),
     "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _L, _P, _I, _P, _P, _I, _I,
                              _I, _I, _I, _L, _L, _L, _P]),
+    "wkv6_bwd": ("wkv6_bwd_launch", [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _L, _L, _L, _P]),
 }
 EXTRA_SIGNATURES = {
     "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],

@@ -33,6 +33,7 @@ KERNELS = {
     "cocoa_sdca_pass": _cs.cocoa_sdca_pass,
     "robust_aggregate": _ra.robust_aggregate,
     "wkv6": _wk.wkv6,
+    "wkv6_bwd": _wk.wkv6_bwd,
 }
 
 
@@ -149,7 +150,25 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ``state`` (B, Hn, D, D) (read in place on the card: D contiguous, any
     other strides), from ``state`` f32 or zeros: out in r's layout and
     dtype and the final state in f32.  S must be a multiple of ``chunk``
-    (``ValueError``)."""
+    (``ValueError``).  Differentiable: on the card through the wkv6_bwd
+    kernel (:class:`~repro_torch.kernels.wkv6.WKV6`), on the CPU by
+    autograd through the plain version."""
     if _on_cpu(r):
         return ref.wkv6_ref(r, k, v, w, u, chunk, state=state)
-    return _wk.wkv6(r, k, v, w, u, chunk, state=state)
+    return _wk.WKV6.apply(r, k, v, w, u, state, chunk)
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, d_out: torch.Tensor,
+             chunk: int = ref.WKV_CHUNK, *,
+             state: Optional[torch.Tensor] = None,
+             d_state: Optional[torch.Tensor] = None):
+    """The VJP of :func:`wkv6` at f32 inputs: (dr, dk, dv, dw) in r's
+    layout, du in u's shape and the start state's cotangent (None without
+    a start state), from the cotangents of out and of the final state
+    (None for zero)."""
+    if _on_cpu(r):
+        return ref.wkv6_bwd_ref(r, k, v, w, u, d_out, chunk, state=state,
+                                d_state=d_state)
+    return _wk.wkv6_bwd(r, k, v, w, u, d_out, chunk, state=state,
+                        d_state=d_state)

@@ -395,3 +395,108 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(intra + bonus + inter)
         s = c[:, -1, :, None] * (s + k_t.transpose(1, 2) @ vb)
     return torch.cat(outs, dim=1).to(dtype), s
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, d_out: torch.Tensor,
+                 chunk: int = WKV_CHUNK, *,
+                 state: Optional[torch.Tensor] = None,
+                 d_state: Optional[torch.Tensor] = None):
+    """The VJP of :func:`wkv6_ref`, in f32: the plain version of the
+    wkv6_bwd kernel, written out chunk by chunk in reverse.
+
+    Takes :func:`wkv6_ref`'s inputs in either layout, ``d_out`` (the
+    cotangent of out, r's shape) and ``d_state`` (of the final state, or
+    None for zero).  Returns (dr, dk, dv, dw) in r's layout, du in u's
+    shape and the cotangent of the start state (None when ``state`` is
+    None), all f32.  Per chunk, from its start state S0 (recomputed by a
+    forward sweep) and the state's cotangent dS at its end, with A the
+    masked scores, β_t = r_t·(u ⊙ k_t), dβ_t = dout_t·v_t, dA the masked
+    dout vᵀ, G = diag(c_L) dS and Y = v dSᵀ:
+
+        dv   = Aᵀ dout + β ⊙ dout + k_t G
+        dr_t = dA k_t + dout S0ᵀ            (the cotangent of r_t)
+        dk_t = dAᵀ r_t + Y ⊙ c_L            (of k_t)
+        dc_L = rowsum(dS ⊙ S0) + colsum(k_t ⊙ Y)
+        dS  ← G + r_tᵀ dout                 (for the chunk before)
+
+    then dr = dr_t ⊙ c_prev + dβ u ⊙ k, dk = dk_t / max(c, 1e-30)
+    + dβ u ⊙ r and du = Σ dβ r ⊙ k.  The decay's cotangent reaches c
+    through r_t (dr_t ⊙ r, into c_prev), through k_t (−dk_t ⊙ k_t / max(c,
+    1e-30), only where c > 1e-30: below it the clamp gives c no gradient,
+    and at exactly 1e-30 half, as ``torch.maximum`` splits a tie) and
+    through c_L; then dw_i = c_prev_i · q_i with the suffix sum
+    q_i = dc_i + w_{i+1} q_{i+1}, so no w_i is divided by (it may be 0)."""
+    if r.dim() == 4:
+        B, S, Hn, D = r.shape
+
+        def heads(t):
+            return t.transpose(1, 2).reshape(B * Hn, S, D)
+
+        def back(t):
+            return t.reshape(B, Hn, S, D).transpose(1, 2).contiguous()
+
+        def pairs(s):
+            return None if s is None else s.reshape(B * Hn, D, D)
+
+        *grads, du, ds = wkv6_bwd_ref(
+            *map(heads, (r, k, v, w)), u.repeat(B, 1), heads(d_out), chunk,
+            state=pairs(state), d_state=pairs(d_state))
+        return (*map(back, grads), du.reshape(B, Hn, D).sum(0),
+                None if ds is None else ds.reshape(B, Hn, D, D))
+    BH, S, D = r.shape
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"S={S} must be a multiple of chunk={chunk}")
+    r, k, v, w, u, g = (_f32(t) for t in (r, k, v, w, u, d_out))
+    L = chunk
+    mask = torch.tril(torch.ones((L, L), dtype=_F32, device=r.device),
+                      diagonal=-1)
+    floor = torch.tensor(1e-30, dtype=_F32, device=r.device)
+    s = (torch.zeros((BH, D, D), dtype=_F32, device=r.device)
+         if state is None else _f32(state))
+    starts = []
+    for c0 in range(0, S, L):
+        starts.append(s)
+        kb, vb, wb = (t[:, c0:c0 + L] for t in (k, v, w))
+        c = torch.cumprod(wb, dim=1)
+        s = c[:, -1, :, None] * (s + (kb / torch.maximum(c, floor))
+                                 .transpose(1, 2) @ vb)
+    ds = (torch.zeros((BH, D, D), dtype=_F32, device=r.device)
+          if d_state is None else _f32(d_state))
+    du = torch.zeros((BH, D), dtype=_F32, device=r.device)
+    dr, dk, dv, dw = (torch.empty((BH, S, D), dtype=_F32, device=r.device)
+                      for _ in range(4))
+    for n in reversed(range(S // L)):
+        sl = slice(n * L, (n + 1) * L)
+        rb, kb, vb, wb, gb = (t[:, sl] for t in (r, k, v, w, g))
+        s0 = starts[n]
+        c = torch.cumprod(wb, dim=1)
+        c_prev = torch.cat([torch.ones_like(c[:, :1]), c[:, :-1]], dim=1)
+        cm = torch.maximum(c, floor)
+        r_t, k_t = rb * c_prev, kb / cm
+        a = (r_t @ k_t.transpose(1, 2)) * mask
+        da = (gb @ vb.transpose(1, 2)) * mask
+        beta = (rb * u[:, None, :] * kb).sum(-1, keepdim=True)
+        dbeta = (gb * vb).sum(-1, keepdim=True)
+        c_l = c[:, -1]
+        big_g = c_l[:, :, None] * ds
+        dv[:, sl] = a.transpose(1, 2) @ gb + beta * gb + k_t @ big_g
+        dr_t = da @ k_t + gb @ s0.transpose(1, 2)
+        y = vb @ ds.transpose(1, 2)
+        dk_t = da.transpose(1, 2) @ r_t + c_l[:, None, :] * y
+        dc_l = (ds * s0).sum(-1) + (k_t * y).sum(1)
+        ds = big_g + r_t.transpose(1, 2) @ gb
+        dr[:, sl] = dr_t * c_prev + dbeta * u[:, None, :] * kb
+        dk[:, sl] = dk_t / cm + dbeta * u[:, None, :] * rb
+        du = du + (dbeta * rb * kb).sum(1)
+        weight = torch.where(c > floor, 1.0,
+                             torch.where(c == floor, 0.5, 0.0))
+        dc = -(dk_t * k_t) / cm * weight
+        dc[:, :-1] += dr_t[:, 1:] * rb[:, 1:]
+        dc[:, -1] += dc_l
+        q = dc[:, -1]
+        dw[:, n * L + L - 1] = c_prev[:, -1] * q
+        for t in reversed(range(L - 1)):
+            q = dc[:, t] + wb[:, t + 1] * q
+            dw[:, n * L + t] = c_prev[:, t] * q
+    return dr, dk, dv, dw, du, None if state is None else ds

@@ -5,14 +5,17 @@ A :class:`Model` is a bundle of functions over an explicit parameter
 module, as in the reference:
 
     init(gen)                          -> params (an :class:`LMParams`)
+    loss(params, batch)                -> (scalar, metrics)      # train
     prefill(params, batch)             -> (last_logits, cache)   # inference
     init_cache(batch, max_seq)         -> cache
     decode_step(params, tokens, cache) -> (logits, cache)        # one token
 
 Only the decoder-only families the port has layers for are built (RWKV-6);
-``loss`` waits for the training slice, and the vision and audio
-front-ends and the encoder-decoder for ROADMAP A11.  Batches:
-``{tokens, labels, mask}``, tokens int64 (B, S).
+the vision and audio front-ends and the encoder-decoder wait for ROADMAP
+A11.  Batches: ``{tokens, labels, mask}``, tokens and labels int64 (B, S),
+mask float (B, S).  ``prefill`` and ``decode_step`` run under
+``torch.no_grad``; ``loss`` builds the autograd graph (each layer
+rematerialized, as the reference's ``loss`` does).
 """
 from __future__ import annotations
 
@@ -41,17 +44,36 @@ class Model:
 
 
 class LMParams(nn.Module):
-    """Embedding, output norm, unembedding (unless tied) and the layers."""
+    """Embedding, output norm, unembedding (unless tied) and the layers;
+    every parameter trainable, named as ``named_parameters()`` gives them
+    (``embed``, ``out_norm``, ``unembed``, ``layers.{i}.norm1``,
+    ``layers.{i}.rwkv_tm.wr``, ...)."""
 
     def __init__(self, embeddings: Mapping[str, torch.Tensor],
                  layers: nn.ModuleList):
         super().__init__()
-        self.embed = nn.Parameter(embeddings["embed"], requires_grad=False)
-        self.out_norm = nn.Parameter(embeddings["out_norm"],
-                                     requires_grad=False)
-        self.unembed = (nn.Parameter(embeddings["unembed"], requires_grad=False)
+        self.embed = nn.Parameter(embeddings["embed"])
+        self.out_norm = nn.Parameter(embeddings["out_norm"])
+        self.unembed = (nn.Parameter(embeddings["unembed"])
                         if "unembed" in embeddings else None)
         self.layers = layers
+
+    @classmethod
+    def from_named(cls, named: Mapping[str, torch.Tensor]) -> "LMParams":
+        """The parameters over the tensors of ``named`` (no copy), keyed as
+        ``named_parameters()`` keys them."""
+        emb = {k: v for k, v in named.items() if "." not in k}
+        layers: Dict[int, Dict] = {}
+        for key, v in named.items():
+            if "." not in key:
+                continue
+            _, i, *path = key.split(".")
+            node = layers.setdefault(int(i), {})
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = v
+        return cls(emb, nn.ModuleList(T.Layer(layers[i])
+                                      for i in range(len(layers))))
 
 
 def _init_embeddings(gen: torch.Generator, cfg: ArchConfig,
@@ -86,10 +108,14 @@ def _build_decoder_only(cfg: ArchConfig, dtype: torch.dtype,
         emb = _init_embeddings(gen, cfg, dtype)
         return LMParams(emb, T.init_stack(gen, cfg, dtype))
 
-    def loss(params, batch):
-        raise NotImplementedError(
-            "the training loss comes with the training slice of the neural "
-            "stack (ROADMAP, next slices: 1)")
+    def loss(params: LMParams, batch: Mapping[str, torch.Tensor]):
+        x = params.embed[batch["tokens"]]
+        h, _ = T.stack_forward(params.layers, cfg, x, remat=True)
+        h = L.rms_norm(h, params.out_norm, cfg.norm_eps)
+        ce = L.lm_head_loss(h, _unembed(params, cfg), batch["labels"],
+                            batch["mask"])
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(params: LMParams, batch: Mapping[str, torch.Tensor]):

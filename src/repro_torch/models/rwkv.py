@@ -18,6 +18,11 @@ Which WKV path a call takes (:func:`rwkv_time_mix`):
   throughout);
 * S == 1 (decode): :func:`_wkv_sequential`, the reference's own branch.
 
+Training differentiates the same path: ``ops.wkv6`` is an autograd
+function on the card (the wkv6_bwd kernel computes its VJP) and the plain
+version on the CPU, and autograd takes the ragged tail's sequential WKV
+back into the kernel's final state.
+
 Parameters are dicts (or ``nn.ParameterDict``s) of tensors with the
 reference's names and shapes; the simplifications of the reference (one
 token-shift interpolation set, a decay LoRA of rank 64) are kept.

@@ -6,8 +6,11 @@ The reference stacks each pattern position's parameters on a leading
 each layer is an :class:`Layer` module in an ``nn.ModuleList`` and a Python
 loop walks them in order.  :func:`require_ported` checks the layer kinds
 once, when the model is built: the attention, Mamba and MoE kinds raise
-``NotImplementedError`` (ROADMAP A11).  Serving only: no remat, no
-auxiliary loss, no sharding hints (the reference's ``gather_fsdp`` /
+``NotImplementedError`` (ROADMAP A11).  Every parameter is trainable
+(serving runs under ``torch.no_grad``); :func:`stack_forward`'s ``remat``
+recomputes each layer in the backward, as the reference's
+``jax.checkpoint`` of a pattern block does.  No auxiliary loss (the RWKV
+family has none) and no sharding hints (the reference's ``gather_fsdp`` /
 ``constrain_activations`` are no-ops on one device).
 
 A decode cache is ``{"len": int, "layers": [per-layer dict]}``; an RWKV
@@ -21,6 +24,8 @@ from typing import Dict, List, Mapping, Tuple
 
 import torch
 from torch import nn
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -72,23 +77,17 @@ def require_ported(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------- #
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Layer(nn.Module):
     """One RWKV layer's parameters under the reference's names: ``norm1``,
-    ``norm2``, ``rwkv_tm`` and ``rwkv_cm`` (dicts of tensors).  Serving
-    only, so no parameter requires a gradient."""
+    ``norm2``, ``rwkv_tm`` and ``rwkv_cm`` (dicts of tensors), each an
+    ``nn.Parameter`` over the given tensor (no copy)."""
 
     def __init__(self, params: Mapping[str, object]):
         super().__init__()
-        self.norm1 = _frozen(params["norm1"])
-        self.norm2 = _frozen(params["norm2"])
-        self.rwkv_tm = nn.ParameterDict(
-            {k: _frozen(v) for k, v in params["rwkv_tm"].items()})
-        self.rwkv_cm = nn.ParameterDict(
-            {k: _frozen(v) for k, v in params["rwkv_cm"].items()})
+        self.norm1 = nn.Parameter(params["norm1"])
+        self.norm2 = nn.Parameter(params["norm2"])
+        self.rwkv_tm = nn.ParameterDict(dict(params["rwkv_tm"]))
+        self.rwkv_cm = nn.ParameterDict(dict(params["rwkv_cm"]))
 
 
 def _init_layer(gen: torch.Generator, cfg: ArchConfig,
@@ -121,11 +120,19 @@ def _apply_layer_fwd(p: Layer, x: torch.Tensor, cfg: ArchConfig):
     return x + o, {"wkv": st, "shift_tm": sl, "shift_cm": sl_cm}
 
 
-def stack_forward(layers: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor):
-    """x: (B, S, d) -> (hidden, per-layer cache entries)."""
+def stack_forward(layers: nn.ModuleList, cfg: ArchConfig, x: torch.Tensor,
+                  *, remat: bool = False):
+    """x: (B, S, d) -> (hidden, per-layer cache entries).  With ``remat``
+    each layer runs under a non-reentrant ``torch.utils.checkpoint``: only
+    its input is kept for the backward, which runs the layer's forward
+    again (one more ``wkv6`` launch a layer on the card)."""
     entries: List[Dict] = []
     for p in layers:
-        x, entry = _apply_layer_fwd(p, x, cfg)
+        if remat:
+            x, entry = checkpoint(_apply_layer_fwd, p, x, cfg,
+                                  use_reentrant=False)
+        else:
+            x, entry = _apply_layer_fwd(p, x, cfg)
         entries.append(entry)
     return x, entries
 

@@ -12,9 +12,10 @@ Newton solve takes logf and divisions that may round an ulp apart from
 PyTorch's, over 12 steps; the robust aggregation sums its rank window in
 another order (atol 1e-6 + rtol 1e-5); wkv6 adds the same f32 terms as
 its plain version in FMAs and its own order (1e-6 of max |plain| + rtol
-1e-5; a bf16 out one bf16 ulp, rtol 1e-2).  The threefry draws and
-everything made of them (fleet masks, fault kinds) are bit-equal to the
-CPU's.
+1e-5; a bf16 out one bf16 ulp, rtol 1e-2); wkv6_bwd likewise against
+autograd through the plain forward (1e-5 of max |plain| + rtol 1e-5).  The
+threefry draws and everything made of them (fleet masks, fault kinds) are
+bit-equal to the CPU's.
 """
 import copy
 
@@ -744,3 +745,149 @@ def test_small_serve_on_the_card_matches_the_cpu(cuda, S):
         for k in a:
             torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-4,
                                        atol=1e-4 * float(b[k].abs().max()))
+
+
+def _wkv6_cotangents(dev, shape, heads, seed):
+    """d_out of ``shape`` and a final-state cotangent of the state's shape."""
+    g = _gen(dev, seed + 100)
+    D = shape[-1]
+    s_shape = shape[:1] + (() if heads is None else (heads,)) + (D, D)
+    return (torch.randn(shape, device=dev, generator=g),
+            torch.randn(s_shape, device=dev, generator=g),
+            0.5 * torch.randn(s_shape, device=dev, generator=g))
+
+
+def _wkv6_autograd(x, s0, d_out, d_fin):
+    xs = [t.detach().clone().requires_grad_() for t in x]
+    st = None if s0 is None else s0.clone().requires_grad_()
+    out, fin = ref.wkv6_ref(*xs, state=st)
+    outs, cots = [out], [d_out]
+    if d_fin is not None:
+        outs.append(fin)
+        cots.append(d_fin)
+    return torch.autograd.grad(outs, xs + ([] if st is None else [st]), cots)
+
+
+@pytest.mark.parametrize("given", [True, False], ids=["given", "zeros"])
+@pytest.mark.parametrize("shape,heads", [
+    ((3, 64, 16), None), ((80, 128, 64), None), ((2, 96, 8), None),
+    ((2, 64, 4, 64), 4), ((2, 128, 40, 64), 40), ((1, 32, 3, 33), 3)],
+    ids=["bh-16", "bh-train", "bh-8", "model-4", "model-train", "model-33"])
+def test_wkv6_bwd_matches_autograd_through_plain(cuda, shape, heads, given):
+    """wkv6_bwd in both layouts, from zeros or a given start state with a
+    cotangent of the final state, against autograd through the plain
+    forward: 1e-5 of each cotangent's max + rtol 1e-5 (f32 sums of the same
+    terms in other orders); one launch a call; two calls bit-equal."""
+    if heads is None:
+        x = _wkv6_inputs(cuda, shape[0], shape[1], shape[2], seed=shape[1])
+    else:
+        x4, u, _ = _wkv6_model_inputs(cuda, *shape[:2], heads, shape[3],
+                                      seed=shape[1])
+        x = x4 + [u]
+    d_out, d_fin, s0 = _wkv6_cotangents(cuda, shape, heads, shape[1])
+    if not given:
+        d_fin = s0 = None
+    before = ops.launch_counts()["wkv6_bwd"]
+    got = ops.wkv6_bwd(*x, d_out, state=s0, d_state=d_fin)
+    again = ops.wkv6_bwd(*x, d_out, state=s0, d_state=d_fin)
+    assert ops.launch_counts()["wkv6_bwd"] == before + 2
+    torch.cuda.synchronize()
+    assert (got[5] is None) == (not given)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    plain = _wkv6_autograd(x, s0, d_out, d_fin)
+    for a, p in zip(got, plain):
+        assert a.shape == p.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()))
+
+
+def test_wkv6_bwd_where_the_clamp_fires(cuda):
+    """Four channels decay at 0.05–0.2 a step, so cumprod(w) < 1e-30 inside
+    a chunk: the kernel's cotangents are finite and agree with the plain
+    backward ref.wkv6_bwd_ref (autograd's dw is NaN there: it forms
+    k / max(c, 1e-30)² before the clamp's zero), bit-equal from call to
+    call."""
+    x4, u, s0 = _wkv6_model_inputs(cuda, 2, 128, 4, 64, seed=3)
+    x4[3][..., :4] = 0.05 + 0.15 * torch.rand(x4[3][..., :4].shape,
+                                              device=cuda,
+                                              generator=_gen(cuda, 4))
+    c = torch.cumprod(x4[3].reshape(2, 4, 32, 4, 64), dim=2)
+    assert bool((c < 1e-30).any())
+    d_out, d_fin, _ = _wkv6_cotangents(cuda, (2, 128, 4, 64), 4, 3)
+    got = ops.wkv6_bwd(*x4, u, d_out, state=s0, d_state=d_fin)
+    again = ops.wkv6_bwd(*x4, u, d_out, state=s0, d_state=d_fin)
+    torch.cuda.synchronize()
+    plain = ref.wkv6_bwd_ref(*x4, u, d_out, state=s0, d_state=d_fin)
+    for a, b, p in zip(got, again, plain):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()))
+    assert not bool(torch.isfinite(_wkv6_autograd(x4 + [u], s0, d_out,
+                                                  d_fin)[3]).all())
+
+
+def test_wkv6_bwd_on_a_strided_slice_and_through_autograd(cuda):
+    """The first 96 of 100 tokens (the strides of a ragged prompt's whole
+    chunks) read in place, and ops.wkv6 differentiated by autograd on the
+    card: one forward and one backward launch, the cotangents of the
+    slice's base where autograd puts them."""
+    x4, u, _ = _wkv6_model_inputs(cuda, 2, 100, 3, 16, seed=9)
+    xs = [t.clone().requires_grad_() for t in x4 + [u]]
+    g = torch.randn((2, 96, 3, 16), device=cuda, generator=_gen(cuda, 9))
+    ops.reset_launch_counts()
+    out, _ = ops.wkv6(*(t[:, :96] for t in xs[:4]), xs[4])
+    grads = torch.autograd.grad(out, xs, g)
+    counts = ops.launch_counts()
+    assert counts["wkv6"] == 1 and counts["wkv6_bwd"] == 1
+    plain = _wkv6_autograd([t[:, :96] for t in x4] + [u], None, g, None)
+    for a, p in zip(grads[:4], plain[:4]):
+        assert a.shape == (2, 100, 3, 16) and bool((a[:, 96:] == 0).all())
+        torch.testing.assert_close(a[:, :96], p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()))
+    torch.testing.assert_close(grads[4], plain[4], rtol=1e-5,
+                               atol=1e-5 * float(plain[4].abs().max()))
+    from repro_torch.kernels import wkv6 as wkv6_kernel
+    with pytest.raises(ValueError):          # the backward takes f32 only
+        wkv6_kernel.wkv6_bwd(*(t.detach().bfloat16() for t in x4), u,
+                             g.bfloat16())
+
+
+@pytest.mark.parametrize("algorithm", ["fsvrg", "fedavg"])
+def test_small_training_round_on_the_card_matches_the_cpu(cuda, algorithm):
+    """One round of the reduced rwkv6-3b in f32 (C = 2, T = 2, 2 × 64
+    tokens a client) with the same weights and batches on the card and the
+    CPU: every leaf within 1e-3 of max |w| and |∇f| within 1e-3 (f32 sums
+    in other orders, through a gradient that is badly conditioned at a
+    sequence's first tokens: on the CPU a 1e-7 relative perturbation of
+    these weights moves the round by 3.5e-4 of max |w| and |∇f| by 1.0e-4,
+    tests/test_torch_train.py; the card's round differs from the CPU's by
+    2.5e-4 and 6.5e-5); on the card 2 wkv6 launches (the forward and its
+    recompute) and 1 wkv6_bwd a layer and pass."""
+    import numpy as np
+
+    from repro_torch.core import neural
+    from repro_torch.launch import train
+    cfg = get_config("rwkv6-3b").reduced()
+    m_cpu = build_model(cfg, torch.float32, device="cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    m_dev = build_model(cfg, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(cuda)
+    batch = train.synthetic_batch(np.random.default_rng(0), cfg, 2, 2, 2, 64,
+                                  "cpu")
+    fed = neural.FedNeuralConfig(stepsize=0.3, local_steps=2,
+                                 algorithm=algorithm)
+    new_c, met_c = neural.make_fsvrg_round(m_cpu, fed)(p_cpu, batch)
+    ops.reset_launch_counts()
+    new_d, met_d = neural.make_fsvrg_round(m_dev, fed)(
+        p_dev, {k: v.to(cuda) for k, v in batch.items()})
+    passes = 2 * 2 * (3 if algorithm == "fsvrg" else 2)
+    counts = ops.launch_counts()
+    assert counts["wkv6"] == 2 * cfg.num_layers * passes
+    assert counts["wkv6_bwd"] == cfg.num_layers * passes
+    scale = max(float(p.detach().abs().max()) for p in new_c.parameters())
+    for a, b in zip(new_d.parameters(), new_c.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=1e-3 * scale)
+    gn = float(met_c["full_grad_norm"])
+    assert abs(float(met_d["full_grad_norm"]) - gn) <= 1e-3 * gn

@@ -12,7 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, get_logreg_config  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.examples import federated_lm  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.core import available, build_problem, make_solver  # noqa: E402
 from repro_torch.data import generate  # noqa: E402
@@ -57,7 +58,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch/models/rwkv.py", "repro_torch/models/model.py",
             "repro_torch/models/transformer.py",
             "repro_torch/launch/serve.py",
-            "repro_torch/configs/rwkv6_3b.py"} <= names
+            "repro_torch/configs/rwkv6_3b.py", "repro_torch/core/neural.py",
+            "repro_torch/optim/optimizers.py", "repro_torch/launch/steps.py",
+            "repro_torch/launch/train.py",
+            "repro_torch/examples/federated_lm.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -102,6 +106,15 @@ def test_serving_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
                     "--max-new", "2"])
     serve.main(["--requests", "1", "--prompt-len", "32", "--max-new", "2",
                 "--device", "cpu"])
+
+
+def test_training_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
+    """The train CLI and the federated LM example: CUDA unless asked for
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (train.main, federated_lm.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--rounds", "1"])
 
 
 def test_unported_architectures_name_the_roadmap():

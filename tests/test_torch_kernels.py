@@ -322,10 +322,15 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     w, u = torch.sigmoid(v), x[0][:, :1]
     assert all(torch.equal(a, b) for a, b in zip(
         ops.wkv6(r, k, v, w, u, 11), ref.wkv6_ref(r, k, v, w, u, 11)))
+    g = x[1][:, :, None]
+    got = ops.wkv6_bwd(r, k, v, w, u, g, 11)
+    assert got[-1] is None and all(torch.equal(a, b) for a, b in zip(
+        got[:-1], ref.wkv6_bwd_ref(r, k, v, w, u, g, 11)[:-1]))
     assert ops.launch_counts() == before
     assert set(before) == {"fused_aggregate", "fsvrg_update", "fedavg_update",
                            "dane_update", "cocoa_sdca_update",
-                           "cocoa_sdca_pass", "robust_aggregate", "wkv6"}
+                           "cocoa_sdca_pass", "robust_aggregate", "wkv6",
+                           "wkv6_bwd"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -354,6 +359,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_wkv6.wkv6(v[None, None], v[None, None], v[None, None],
                        v[None, None], v[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wkv6.wkv6_bwd(v[None, None], v[None, None], v[None, None],
+                           v[None, None], v[None], v[None, None])
 
 
 def test_aggregate_splits_fill_the_card_at_paper_shape():
