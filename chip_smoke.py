@@ -9,8 +9,9 @@ Phases, in order (any failure raises and exits non-zero):
    ``import triton`` works, the card's name and power limit;
 2. build the eight kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print the build seconds and
-   each library's register and spill report, and ``wkv6``'s and the
-   robust select's registers, shared memory and blocks an SM;
+   each library's register and spill report, and ``wkv6``'s, each
+   ``wkv6_bwd`` launch's and the robust select's registers, shared
+   memory, blocks an SM and spills;
 3. hold each kernel, and the three aggregation wrappers, against its plain
    PyTorch version on the card, at the main paths' shapes and at ragged
    small ones, with the stated tolerance (``fused_aggregate`` also at
@@ -66,8 +67,9 @@ Phases, in order (any failure raises and exits non-zero):
    freed first: ``wkv6_bwd`` against autograd through the plain forward
    (the training path's (2, 128, 40, 64) from zeros and from a given
    state with the final state's cotangent, the serving shape, the
-   (B·Hn, S, D) entry, a strided slice; strong decays against the plain
-   backward; two calls bit-equal); the reduced config's FSVRG and FedAvg
+   (B·Hn, S, D) entry, a strided slice, one chunk, chunk 16; strong
+   decays against the plain backward; two calls bit-equal); the reduced
+   config's FSVRG and FedAvg
    rounds on the card against the CPU; at full width in bf16
    (``launch/train.py``'s defaults: 4 clients × 1 step × 2 × 128 tokens)
    2 FSVRG rounds, a FedAvg round and 3 AdamW steps through
@@ -76,7 +78,9 @@ Phases, in order (any failure raises and exits non-zero):
    is recomputed in the backward), with seconds, peak memory, finite
    losses and |∇f|, and one more FSVRG round traced for the device's idle
    share and top kernels; ``wkv6_bwd``'s time at the training and the
-   serving shape beside its bound and autograd through the plain forward;
+   serving shape beside its bound and autograd through the plain forward,
+   and each of its three launches (terms, scan, chunk backward) timed
+   apart; ``wkv6``'s forward at the training shape;
 9. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -466,6 +470,19 @@ def serve_phase(dev, sync) -> dict:
                 launches=launches, runs=runs)
 
 
+def wkv6_cost(B, S, Hn, D, L=32):
+    """wkv6's bytes and f32 operations: r, k, v, w read and out written
+    once, u read, the state written; the f32 work a chunk that the
+    function needs — the strict lower L(L−1)/2 scores and their product
+    with v, r_t·S, the state update k_tᵀv and its scale, the bonus, the
+    cumulative decay."""
+    BH = B * Hn
+    chunk_ops = (2 * (L * (L - 1) // 2) * D * 2 + 2 * L * D * D
+                 + 2 * D * D * L + 2 * D * D + 4 * L * D + 3 * L * D)
+    return (5 * BH * S * D * 4 + Hn * D * 4 + BH * D * D * 4,
+            chunk_ops * BH * (S // L))
+
+
 def wkv6_bwd_ops(B, S, Hn, D, L=32) -> int:
     """The f32 work wkv6_bwd's function needs: per chunk the five
     strict-lower (L, L) products over D (A, dA, Aᵀ dout, dA k_t, dAᵀ r_t),
@@ -495,10 +512,10 @@ def check_wkv6_bwd(dev, gen, compare) -> float:
     """wkv6_bwd against autograd through its plain forward on the card:
     the training path's (2, 128, 40, 64) from zeros, and from a given
     state with the final state's cotangent; the serving shape (8, 2,048,
-    40, 64); the (B·Hn, S, D) entry; a strided slice; strong decays (the
-    1e-30 clamp fires, where autograd's dw is NaN: against the plain
-    backward ref.wkv6_bwd_ref).  Two calls must be bit-equal.  Returns
-    the max abs error at the training shape.
+    40, 64); the (B·Hn, S, D) entry; a strided slice; one chunk (S = L);
+    chunk 16; strong decays (the 1e-30 clamp fires, where autograd's dw
+    is NaN: against the plain backward ref.wkv6_bwd_ref).  Two calls must
+    be bit-equal.  Returns the max abs error at the training shape.
 
     Tolerance 1e-5 of each cotangent's max + rtol 1e-5: f32 sums of the
     same terms in other orders (the reverse chunk walk in FMAs against
@@ -507,17 +524,22 @@ def check_wkv6_bwd(dev, gen, compare) -> float:
     from repro_torch.kernels import ops, ref
     worst = 0.0
     B, S, Hn, D = TRAIN_WKV
-    cases = [("training path, zeros", TRAIN_WKV, Hn, False, False, False),
+    cases = [("training path, zeros", TRAIN_WKV, Hn, False, False, False,
+              32),
              ("training, given state and d_final", TRAIN_WKV, Hn, True, True,
-              False),
-             ("serving shape, zeros", SERVE_WKV, Hn, False, False, False),
+              False, 32),
+             ("serving shape, zeros", SERVE_WKV, Hn, False, False, False, 32),
              ("(B·Hn, S, D) entry, given state", (B * Hn, S, D), None, True,
-              True, False),
+              True, False, 32),
              ("strided first 96 of 100 tokens", (B, 100, Hn, D), Hn, False,
-              False, False),
+              False, False, 32),
              ("strong decays (clamp fires)", TRAIN_WKV, Hn, True, True,
-              True)]
-    for label, shape, heads, given, dfin, strong in cases:
+              True, 32),
+             ("one chunk, given state and d_final", (B, 32, Hn, D), Hn, True,
+              True, False, 32),
+             ("chunk 16, given state and d_final", TRAIN_WKV, Hn, True, True,
+              False, 16)]
+    for label, shape, heads, given, dfin, strong, chunk in cases:
         x = list(wkv6_inputs(dev, gen, shape[0], shape[1], shape[-1],
                              heads=heads))
         if strong:
@@ -532,14 +554,14 @@ def check_wkv6_bwd(dev, gen, compare) -> float:
         d_out = torch.randn(x[0].shape, device=dev, generator=gen)
         d_fin = torch.randn(s_shape, device=dev, generator=gen) \
             if dfin else None
-        got = ops.wkv6_bwd(*x, d_out, state=s0, d_state=d_fin)
-        again = ops.wkv6_bwd(*x, d_out, state=s0, d_state=d_fin)
+        got = ops.wkv6_bwd(*x, d_out, chunk, state=s0, d_state=d_fin)
+        again = ops.wkv6_bwd(*x, d_out, chunk, state=s0, d_state=d_fin)
         torch.cuda.synchronize()
         require(all((a is None and b is None) or torch.equal(a, b)
                     for a, b in zip(got, again)),
                 f"wkv6_bwd {label}: two calls differ")
-        plain = (ref.wkv6_bwd_ref(*x, d_out, state=s0, d_state=d_fin)
-                 if strong else wkv6_plain_grads(x, s0, d_out, d_fin))
+        plain = (ref.wkv6_bwd_ref(*x, d_out, chunk, state=s0, d_state=d_fin)
+                 if strong else wkv6_plain_grads(x, s0, d_out, d_fin, chunk))
         names = ("dr", "dk", "dv", "dw", "du", "d_state")
         for name, a, p in zip(names, got, plain):
             err = compare("wkv6_bwd", f"{tuple(x[0].shape)} {label} {name}",
@@ -720,6 +742,12 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
     # built once) beside it.  Bound: r, k, v, w, dout read and dr, dk, dv,
     # dw written once, u read and du written: bytes over the HBM rate, or
     # the f32 work of wkv6_bwd_ops over 67 TFLOP/s, the larger
+    # Each of its three launches is timed apart on one call's scratches
+    # (the scan each time on the terms' output of the run before: its
+    # time does not depend on the values).  wkv6's forward at the
+    # training shape beside it (its kernels-line row is at the serving
+    # shape).
+    from repro_torch.kernels import wkv6 as wkv6_kernel
     times = {}
     for shape in (TRAIN_WKV, SERVE_WKV):
         B_, S_, Hn_, D_ = shape
@@ -728,6 +756,18 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
         xs = [t.clone().requires_grad_() for t in x]
         out, _ = ref.wkv6_ref(*xs)
         k_ms = cuda_ms(lambda: ops.wkv6_bwd(*x, d_out), iters=10)
+        parts, _ = wkv6_kernel.bwd_launches(*x, d_out)
+        part_ms = [cuda_ms(fn, iters=10) for fn in parts]
+        log(f"[time] wkv6_bwd {shape} by launch: terms {part_ms[0]:.4f} ms, "
+            f"scan {part_ms[1]:.4f} ms, chunk backward {part_ms[2]:.4f} ms "
+            f"(sum {sum(part_ms):.4f})")
+        if shape == TRAIN_WKV:
+            f_ms = cuda_ms(lambda: ops.wkv6(*x), iters=10)
+            fb_ms, fb_by = bound(*wkv6_cost(*shape))
+            log(f"[time] wkv6 forward {shape} f32: kernel {f_ms:.4f} ms, "
+                f"bound {fb_ms:.6f} ms ({fb_by}); {fb_ms / f_ms:.1%} of the "
+                "bound")
+        del parts
         p_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, d_out,
                                                    retain_graph=True),
                        iters=3, warmup=1)
@@ -814,6 +854,15 @@ def main() -> int:
             f"{blocks.value} blocks of 256 an SM (the occupancy "
             f"calculator): {blocks.value * sms} resident on {sms} "
             f"SMs for the {REQUESTS * 40} pairs of the serving prefill")
+    occupancy = _build.launcher("wkv6_bwd", "wkv6_bwd_occupancy")
+    for which, part in enumerate(("terms", "scan", "chunk backward")):
+        res = [ctypes.c_int(0) for _ in range(4)]
+        _build.check(occupancy(which, *map(ctypes.byref, res)),
+                     "wkv6_bwd occupancy")
+        blocks, regs, smem, local = (r.value for r in res)
+        log(f"[build] wkv6_bwd {part}: {regs} registers a thread, {smem} B "
+            f"of shared memory a block, {blocks} blocks of 256 an SM (the "
+            f"occupancy calculator), {local} B of local memory a thread")
     occupancy = _build.launcher("robust_aggregate", "robust_select_occupancy")
     for m_occ in (3922, 10_000, ra_kernel.MAX_VALID):
         res = [ctypes.c_int(0) for _ in range(4)]
@@ -1756,20 +1805,13 @@ def main() -> int:
     del deltas
     # wkv6 at the serving prefill's shape, in the entry the model calls:
     # (B, S, Hn, D) = (8, 2,048, 40, 64) f32, chunk 32, with RWKV-like
-    # decays; launches from the serving run.  Bound: r, k, v, w read and
-    # out written once, u read, the state written; the f32 work a chunk
-    # that the function needs — the strict lower L(L−1)/2 scores and their
-    # product with v, r_t·S, the state update k_tᵀv and its scale, the
-    # bonus, the cumulative decay
+    # decays; launches from the serving run; bound from wkv6_cost
     B_, Hn_, S_, D_ = REQUESTS, 40, PROMPT_LEN, 64
     BH, L_ = B_ * Hn_, 32
     x6 = wkv6_inputs(dev, g, B_, S_, D_, heads=Hn_)
-    chunk_ops = (2 * (L_ * (L_ - 1) // 2) * D_ * 2 + 2 * L_ * D_ * D_
-                 + 2 * D_ * D_ * L_ + 2 * D_ * D_ + 4 * L_ * D_ + 3 * L_ * D_)
     rows.append(row(
         "wkv6", lambda: ops.wkv6(*x6), lambda: ref.wkv6_ref(*x6),
-        5 * BH * S_ * D_ * 4 + Hn_ * D_ * 4 + BH * D_ * D_ * 4,
-        chunk_ops * BH * (S_ // L_), launches=served["launches"]["wkv6"]))
+        *wkv6_cost(B_, S_, Hn_, D_), launches=served["launches"]["wkv6"]))
     s6 = torch.randn((B_, Hn_, D_, D_), device=dev, generator=g)
     ragged6 = [t[:, :RAGGED_LEN - RAGGED_LEN % L_] for t in x6[:4]]
 

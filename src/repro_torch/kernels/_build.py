@@ -65,8 +65,8 @@ SIGNATURES = {
     "wkv6": ("wkv6_launch", [_P, _P, _P, _P, _P, _L, _P, _I, _P, _P, _I, _I,
                              _I, _I, _I, _L, _L, _L, _P]),
     "wkv6_bwd": ("wkv6_bwd_launch", [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
-                                     _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _L, _L, _L, _P]),
+                                     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _L, _L, _L, _I, _I, _I, _I, _P]),
 }
 EXTRA_SIGNATURES = {
     "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],
@@ -79,6 +79,7 @@ EXTRA_SIGNATURES = {
                          "robust_select_occupancy": [_I, _I, _P, _P, _P,
                                                      _P]},
     "wkv6": {"wkv6_occupancy": [_I, _P, _P, _P]},
+    "wkv6_bwd": {"wkv6_bwd_occupancy": [_I, _P, _P, _P, _P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

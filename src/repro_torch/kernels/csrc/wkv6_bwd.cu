@@ -13,7 +13,6 @@
 //     dv    = Aᵀ dout + β ⊙ dout + k_t (diag(c_L) dS)
 //     dr_t  = dA k_t + dout S0ᵀ,     dk_t = dAᵀ r_t + Y ⊙ c_L
 //     dc_L  = rowsum(dS ⊙ S0) + colsum(k_t ⊙ Y)
-//     dS   ← diag(c_L) dS + r_tᵀ dout                (the chunk before's)
 //     dr    = dr_t ⊙ c_prev + dβ u ⊙ k,   dk = dk_t / max(c, 1e-30) + dβ u ⊙ r
 //     du   += Σ_t dβ_t r_t ⊙ k_t
 //
@@ -27,30 +26,45 @@
 // k/max(c, 1e-30)² first, which overflows, and its gradient of w is then
 // NaN there).
 //
+// S0 and dS of every chunk come from two linear recurrences over the
+// chunks of a pair, elementwise in each (i, j) of the (D, D) state once a
+// chunk's increment and c_L are known:
+//
+//     S0_{n+1} = diag(c_L,n) (S0_n + k_t,nᵀ v_n)       from state0 or 0
+//     dS_{n−1} = diag(c_L,n) dS_n + r_t,nᵀ dout_n      from d_final or 0
+//
+// so the backward is three launches:
+//
+//   1. terms (a block a (pair, chunk)): c_L and the two increments
+//      k_tᵀ v and r_tᵀ dout into (B·Hn, S/L, D) and two (B·Hn, S/L, D, D)
+//      f32 scratches;
+//   2. scan (a thread a (pair, i, j)): the increments turned in place into
+//      each chunk's S0 (forward, the forward kernel's arithmetic
+//      c_L · (S + Σ) with Σ taken in token order, so the same bits) and
+//      its end cotangent dS (in reverse, c_L · dS + Σ as one FMA), and
+//      d_state0 when a start state was given;
+//   3. chunk backward (a block a (pair, chunk)): dv, dr, dk and dw of the
+//      chunk from its S0 and dS, and one du row a (pair, chunk), which
+//      the wrapper sums in a fixed order.  No float atomics anywhere, so
+//      two calls give the same bits.
+//
+// Inside launches 1 and 3, every product is an f32 FMA loop over shared
+// memory, a thread an output element; the sequential parts (the decay a
+// channel, β a row, the suffix sums) run a thread each.  Tiles have a row
+// stride of 65 floats, so a warp reading a column hits 32 banks.
+//
 // r, k, v, w: (B, S, Hn, D) f32 with D contiguous and the forward's batch,
 // token and head strides; d_out, dr, dk, dv, dw: contiguous (B, S, Hn, D);
 // u: row b·u_bstride + h·D; state0, d_final, d_state0: (B, Hn, D, D) or
-// null; du: (B·Hn, D) partials, one row a pair (summed over the batch by
-// the wrapper: no float atomics, so the result is the same every call);
-// states: a (B·Hn, S/L, D, D) scratch.  The (BH, S, D) entry is Hn = 1
-// with u_bstride = D.
-//
-// Design, simple first: one block of 256 threads a pair.  A forward sweep
-// recomputes each chunk's start state into the scratch (the forward
-// kernel's arithmetic, so the same bits), then the chunks are walked in
-// reverse with dS in shared memory.  A chunk's tiles (r, k, v, w, dout, c,
-// r_t, k_t, dr_t, dk_t, Y: row stride 65 floats, so a warp reading a
-// column hits 32 banks), A and dA and the two (D, D) states live in
-// 134,272 B of shared memory, one block an SM.  Every product is an f32
-// FMA loop over shared memory, a thread an output element; the sequential
-// parts (the decay a channel, β a row, the suffix sums) run a thread each.
+// null.  The (BH, S, D) entry is Hn = 1 with u_bstride = D.
 //
 // Bound: at the training shape (2, 128, 40, 64) the bytes (r, k, v, w,
 // dout read, dr, dk, dv, dw written: 9 × 2.6 MB) and the ≈ 1.7 MFLOP of
-// f32 work a chunk are both a few µs of the card; one wave of 80 blocks
-// walks 4 chunks each, so the chunk's dependent phases and their barriers
-// set the time.  At (8, 2,048, 40, 64): 1.5 GB (0.45 ms) and 35 GFLOP
-// (0.52 ms at 67 TFLOP/s), three waves of 64 chunks.
+// f32 work a chunk are both a few µs of the card; 320 blocks of (pair,
+// chunk) are three waves at one block an SM.  At (8, 2,048, 40, 64):
+// 1.5 GB (0.45 ms) and 35 GFLOP (0.52 ms at 67 TFLOP/s), 20,480 blocks,
+// plus the scratches' 2 × 335.5 MB written, read and written by the scan,
+// and read again.
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,15 +72,15 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int SCAN_THREADS = 256;
 constexpr int LC = 32;            // longest chunk
 constexpr int DC = 64;            // largest head dimension
 constexpr int RS = DC + 1;        // row stride of the (L, D) tiles
 constexpr int PS = LC + 1;        // row stride of A and dA
 constexpr int SS = DC + 1;        // row stride of the (D, D) states
-constexpr int NDS = DC * DC / THREADS;   // dS entries a thread
 static_assert(DC + LC <= THREADS, "β and dβ run beside the decay");
 
-// shared memory, in floats
+// shared memory of the chunk backward, in floats
 enum Tile { R, K, V, W, G, C, RT, KT, DRT, DKT, Y, N_TILES };
 constexpr int OFF_A = N_TILES * LC * RS;        // A      (L, L)
 constexpr int OFF_DA = OFF_A + LC * PS;         // dA     (L, L)
@@ -79,18 +93,128 @@ constexpr int OFF_BETA = OFF_DCL + DC;          // β      (L)
 constexpr int OFF_DBETA = OFF_BETA + LC;        // dβ     (L)
 constexpr size_t SMEM_BYTES = (OFF_DBETA + LC) * sizeof(float);
 
+// shared memory of the terms: r/r_t, k/k_t, v, w and dout
+enum TermTile { T_R, T_K, T_V, T_W, T_G, N_TERM_TILES };
+constexpr size_t TERMS_SMEM_BYTES = N_TERM_TILES * LC * RS * sizeof(float);
+
+// 1. c_L and the increments k_tᵀ v and r_tᵀ dout of chunk n of a pair
+__global__ void __launch_bounds__(THREADS, 1)
+wkv6_bwd_terms_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ w,
+                      const float* __restrict__ d_out, float* __restrict__ kv,
+                      float* __restrict__ rg, float* __restrict__ decay,
+                      int Hn, int S, int D, int L, int64_t sb, int64_t ts,
+                      int64_t sh) {
+  extern __shared__ float smem[];
+  float* rr = smem + T_R * LC * RS;    // r, then r_t
+  float* kk = smem + T_K * LC * RS;    // k, then k_t
+  float* vv = smem + T_V * LC * RS;
+  float* ww = smem + T_W * LC * RS;
+  float* gg = smem + T_G * LC * RS;
+
+  const int tid = threadIdx.x;
+  const int n_chunks = S / L;
+  const int pair = blockIdx.x / n_chunks, n = blockIdx.x - pair * n_chunks;
+  const int b = pair / Hn, h = pair - b * Hn;
+  const int c0 = n * L;
+  const int64_t base = b * sb + h * sh + static_cast<int64_t>(c0) * ts;
+  const int LD = L * D, DD = D * D;
+  const int64_t slot = static_cast<int64_t>(pair) * n_chunks + n;
+
+  for (int i = tid; i < LD; i += THREADS) {
+    const int t = i / D, d = i - t * D;
+    const int64_t gi = base + t * ts + d;
+    rr[t * RS + d] = r[gi];
+    kk[t * RS + d] = k[gi];
+    vv[t * RS + d] = v[gi];
+    ww[t * RS + d] = w[gi];
+    gg[t * RS + d] = d_out[((static_cast<int64_t>(b) * S + c0 + t) * Hn + h) * D + d];
+  }
+  __syncthreads();
+  if (tid < D) {
+    const int d = tid;
+    float c = 1.f;
+    for (int t = 0; t < L; ++t) {
+      const float cp = c;
+      c *= ww[t * RS + d];
+      rr[t * RS + d] *= cp;
+      kk[t * RS + d] = kk[t * RS + d] / fmaxf(c, 1e-30f);
+    }
+    decay[slot * D + d] = c;
+  }
+  __syncthreads();
+  for (int i = tid; i < DD; i += THREADS) {
+    const int d = i / D, e = i - d * D;
+    float a = 0.f, g = 0.f;
+    for (int s = 0; s < L; ++s) {
+      a = fmaf(kk[s * RS + d], vv[s * RS + e], a);
+      g = fmaf(rr[s * RS + d], gg[s * RS + e], g);
+    }
+    kv[slot * DD + i] = a;
+    rg[slot * DD + i] = g;
+  }
+}
+
+// 2. a thread a (pair, i, j): the increments in place into S0 (forward)
+//    and the end cotangent dS (reverse) of every chunk; d_state0.  SCAN_BATCH
+//    chunks' increments and c_L are loaded before any is stored, so the
+//    loads of a batch are in flight together
+constexpr int SCAN_BATCH = 8;
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+wkv6_bwd_scan_kernel(float* __restrict__ kv, float* __restrict__ rg,
+                     const float* __restrict__ decay,
+                     const float* __restrict__ state0,
+                     const float* __restrict__ d_final,
+                     float* __restrict__ d_state0, int64_t pairs,
+                     int n_chunks, int D) {
+  const int64_t DD = static_cast<int64_t>(D) * D;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * SCAN_THREADS + threadIdx.x;
+  if (idx >= pairs * DD) return;
+  const int64_t pair = idx / DD, ij = idx - pair * DD;
+  const int d = static_cast<int>(ij / D);
+  float* kvp = kv + pair * n_chunks * DD + ij;
+  float* rgp = rg + pair * n_chunks * DD + ij;
+  const float* cl = decay + pair * n_chunks * D + d;
+  float s = state0 ? state0[idx] : 0.f;
+  float ds = d_final ? d_final[idx] : 0.f;
+  for (int j0 = 0; j0 < n_chunks; j0 += SCAN_BATCH) {
+    float x[SCAN_BATCH], y[SCAN_BATCH], cf[SCAN_BATCH], cr[SCAN_BATCH];
+#pragma unroll
+    for (int i = 0; i < SCAN_BATCH; ++i) {
+      const int f = j0 + i, rv = n_chunks - 1 - f;
+      if (f < n_chunks) {
+        x[i] = kvp[f * DD];
+        y[i] = rgp[rv * DD];
+        cf[i] = cl[static_cast<int64_t>(f) * D];
+        cr[i] = cl[static_cast<int64_t>(rv) * D];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < SCAN_BATCH; ++i) {
+      const int f = j0 + i, rv = n_chunks - 1 - f;
+      if (f < n_chunks) {
+        kvp[f * DD] = s;
+        rgp[rv * DD] = ds;
+        s = cf[i] * (s + x[i]);
+        ds = fmaf(cr[i], ds, y[i]);
+      }
+    }
+  }
+  if (d_state0) d_state0[idx] = ds;
+}
+
+// 3. the chunk backward: chunk n of a pair from its S0 and dS
 __global__ void __launch_bounds__(THREADS, 1)
 wkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, int64_t u_bstride,
-                const float* __restrict__ state0,
                 const float* __restrict__ d_out,
-                const float* __restrict__ d_final, float* __restrict__ dr,
+                const float* __restrict__ starts,
+                const float* __restrict__ d_ends, float* __restrict__ dr,
                 float* __restrict__ dk, float* __restrict__ dv,
-                float* __restrict__ dw, float* __restrict__ du,
-                float* __restrict__ d_state0, float* __restrict__ states,
-                int Hn, int S, int D, int L, int64_t sb, int64_t ts,
-                int64_t sh) {
+                float* __restrict__ dw, float* __restrict__ du, int Hn,
+                int S, int D, int L, int64_t sb, int64_t ts, int64_t sh) {
   extern __shared__ float smem[];
   float* rr = smem + R * LC * RS;
   float* kk = smem + K * LC * RS;
@@ -114,15 +238,16 @@ wkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   float* dbeta = smem + OFF_DBETA;
 
   const int tid = threadIdx.x;
-  const int pair = blockIdx.x;
-  const int b = pair / Hn, h = pair - b * Hn;
-  const int64_t in_base = b * sb + h * sh;
   const int n_chunks = S / L;
+  const int pair = blockIdx.x / n_chunks, n = blockIdx.x - pair * n_chunks;
+  const int b = pair / Hn, h = pair - b * Hn;
+  const int c0 = n * L;
+  const int64_t base = b * sb + h * sh + static_cast<int64_t>(c0) * ts;
   const int LD = L * D, DD = D * D;
-  float* my_states = states + static_cast<int64_t>(pair) * n_chunks * DD;
-  // element (token t of the pair, channel d) of a contiguous (B, S, Hn, D)
+  const int64_t slot = static_cast<int64_t>(pair) * n_chunks + n;
+  // element (token t of the chunk, channel d) of a contiguous (B, S, Hn, D)
   auto at = [&](int t, int d) {
-    return (static_cast<int64_t>(b) * S + t) * Hn * D +
+    return (static_cast<int64_t>(b) * S + c0 + t) * Hn * D +
            static_cast<int64_t>(h) * D + d;
   };
 
@@ -130,207 +255,128 @@ wkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
     us[i] = u[b * u_bstride + static_cast<int64_t>(h) * D + i];
   for (int i = tid; i < DD; i += THREADS) {
     const int d = i / D, e = i - d * D;
-    s0[d * SS + e] = state0 ? state0[static_cast<int64_t>(pair) * DD + i] : 0.f;
+    s0[d * SS + e] = starts[slot * DD + i];
+    ds[d * SS + e] = d_ends[slot * DD + i];
+  }
+  for (int i = tid; i < LD; i += THREADS) {
+    const int t = i / D, d = i - t * D;
+    const int64_t gi = base + t * ts + d;
+    rr[t * RS + d] = r[gi];
+    kk[t * RS + d] = k[gi];
+    vv[t * RS + d] = v[gi];
+    ww[t * RS + d] = w[gi];
+    gg[t * RS + d] = d_out[at(t, d)];
   }
   __syncthreads();
 
-  // 1. forward sweep: each chunk's start state into the scratch
-  for (int n = 0; n < n_chunks; ++n) {
-    const int64_t base = in_base + static_cast<int64_t>(n) * L * ts;
-    for (int i = tid; i < DD; i += THREADS) {
-      const int d = i / D, e = i - d * D;
-      my_states[static_cast<int64_t>(n) * DD + i] = s0[d * SS + e];
+  // a. the decay, r_t and k_t, a thread a channel; β and dβ a thread a row
+  if (tid < D) {
+    const int d = tid;
+    float c = 1.f;
+    for (int t = 0; t < L; ++t) {
+      const float cp = c;
+      c *= ww[t * RS + d];
+      cc[t * RS + d] = c;
+      rt[t * RS + d] = rr[t * RS + d] * cp;
+      kt[t * RS + d] = kk[t * RS + d] / fmaxf(c, 1e-30f);
     }
-    for (int i = tid; i < LD; i += THREADS) {
-      const int t = i / D, d = i - t * D;
-      const int64_t gi = base + t * ts + d;
-      kk[t * RS + d] = k[gi];
-      vv[t * RS + d] = v[gi];
-      ww[t * RS + d] = w[gi];
+    cl[d] = c;
+  } else if (tid >= DC && tid < DC + L) {
+    const int t = tid - DC;
+    float bt = 0.f, dbt = 0.f;
+    for (int d = 0; d < D; ++d) {
+      bt = fmaf(rr[t * RS + d] * us[d], kk[t * RS + d], bt);
+      dbt = fmaf(gg[t * RS + d], vv[t * RS + d], dbt);
     }
-    __syncthreads();
-    if (tid < D) {
-      const int d = tid;
-      float c = 1.f;
-      for (int t = 0; t < L; ++t) {
-        c *= ww[t * RS + d];
-        kt[t * RS + d] = kk[t * RS + d] / fmaxf(c, 1e-30f);
-      }
-      cl[d] = c;
-    }
-    __syncthreads();
-    for (int i = tid; i < DD; i += THREADS) {
-      const int d = i / D, e = i - d * D;
-      float acc = 0.f;
-      for (int s = 0; s < L; ++s) acc = fmaf(kt[s * RS + d], vv[s * RS + e], acc);
-      s0[d * SS + e] = cl[d] * (s0[d * SS + e] + acc);
-    }
-    __syncthreads();
+    beta[t] = bt;
+    dbeta[t] = dbt;
   }
+  __syncthreads();
 
-  // 2. the chunks in reverse, dS carried in shared memory
-  for (int i = tid; i < DD; i += THREADS) {
-    const int d = i / D, e = i - d * D;
-    ds[d * SS + e] = d_final ? d_final[static_cast<int64_t>(pair) * DD + i] : 0.f;
-  }
-  float du_acc = 0.f;                  // thread d < D: du[d]
-  for (int n = n_chunks - 1; n >= 0; --n) {
-    const int c0 = n * L;
-    const int64_t base = in_base + static_cast<int64_t>(c0) * ts;
-    for (int i = tid; i < DD; i += THREADS) {
-      const int d = i / D, e = i - d * D;
-      s0[d * SS + e] = my_states[static_cast<int64_t>(n) * DD + i];
-    }
-    for (int i = tid; i < LD; i += THREADS) {
-      const int t = i / D, d = i - t * D;
-      const int64_t gi = base + t * ts + d;
-      rr[t * RS + d] = r[gi];
-      kk[t * RS + d] = k[gi];
-      vv[t * RS + d] = v[gi];
-      ww[t * RS + d] = w[gi];
-      gg[t * RS + d] = d_out[at(c0 + t, d)];
-    }
-    __syncthreads();
-
-    // a. the decay, r_t and k_t, a thread a channel; β and dβ a thread a row
-    if (tid < D) {
-      const int d = tid;
-      float c = 1.f;
-      for (int t = 0; t < L; ++t) {
-        const float cp = c;
-        c *= ww[t * RS + d];
-        cc[t * RS + d] = c;
-        rt[t * RS + d] = rr[t * RS + d] * cp;
-        kt[t * RS + d] = kk[t * RS + d] / fmaxf(c, 1e-30f);
-      }
-      cl[d] = c;
-    } else if (tid >= DC && tid < DC + L) {
-      const int t = tid - DC;
-      float bt = 0.f, dbt = 0.f;
+  // b. A and dA (zero on and above the diagonal), Y = v dSᵀ
+  for (int i = tid; i < L * L; i += THREADS) {
+    const int t = i / L, s = i - t * L;
+    float a = 0.f, da = 0.f;
+    if (s < t) {
       for (int d = 0; d < D; ++d) {
-        bt = fmaf(rr[t * RS + d] * us[d], kk[t * RS + d], bt);
-        dbt = fmaf(gg[t * RS + d], vv[t * RS + d], dbt);
-      }
-      beta[t] = bt;
-      dbeta[t] = dbt;
-    }
-    __syncthreads();
-
-    // b. A and dA (zero on and above the diagonal), Y = v dSᵀ
-    for (int i = tid; i < L * L; i += THREADS) {
-      const int t = i / L, s = i - t * L;
-      float a = 0.f, da = 0.f;
-      if (s < t) {
-        for (int d = 0; d < D; ++d) {
-          a = fmaf(rt[t * RS + d], kt[s * RS + d], a);
-          da = fmaf(gg[t * RS + d], vv[s * RS + d], da);
-        }
-      }
-      aa[t * PS + s] = a;
-      dda[t * PS + s] = da;
-    }
-    for (int i = tid; i < LD; i += THREADS) {
-      const int s = i / D, d = i - s * D;
-      float y = 0.f;
-      for (int e = 0; e < D; ++e) y = fmaf(vv[s * RS + e], ds[d * SS + e], y);
-      yy[s * RS + d] = y;
-    }
-    __syncthreads();
-
-    // c. dv (to memory), dr_t, dk_t and dc_L
-    for (int i = tid; i < LD; i += THREADS) {
-      const int s = i / D, e = i - s * D;
-      float acc = 0.f;
-      for (int t = s + 1; t < L; ++t) acc = fmaf(aa[t * PS + s], gg[t * RS + e], acc);
-      acc = fmaf(beta[s], gg[s * RS + e], acc);
-      float kg = 0.f;
-      for (int d = 0; d < D; ++d)
-        kg = fmaf(kt[s * RS + d], cl[d] * ds[d * SS + e], kg);
-      dv[at(c0 + s, e)] = acc + kg;
-    }
-    for (int i = tid; i < LD; i += THREADS) {
-      const int t = i / D, d = i - t * D;
-      float acc = 0.f;
-      for (int s = 0; s < t; ++s) acc = fmaf(dda[t * PS + s], kt[s * RS + d], acc);
-      float gs = 0.f;
-      for (int e = 0; e < D; ++e) gs = fmaf(gg[t * RS + e], s0[d * SS + e], gs);
-      drt[t * RS + d] = acc + gs;
-      float acc2 = 0.f;
-      for (int q = t + 1; q < L; ++q) acc2 = fmaf(dda[q * PS + t], rt[q * RS + d], acc2);
-      dkt[t * RS + d] = fmaf(cl[d], yy[t * RS + d], acc2);
-    }
-    for (int d = tid; d < D; d += THREADS) {
-      float acc = 0.f;
-      for (int e = 0; e < D; ++e) acc = fmaf(ds[d * SS + e], s0[d * SS + e], acc);
-      float acc2 = 0.f;
-      for (int s = 0; s < L; ++s) acc2 = fmaf(kt[s * RS + d], yy[s * RS + d], acc2);
-      dcl[d] = acc + acc2;
-    }
-    __syncthreads();
-
-    // d. the chunk before's dS, held in registers until every read of dS
-    //    is done; dr, dk (to memory) and the decay's cotangent dc (into Y)
-    float nds[NDS];
-#pragma unroll
-    for (int j = 0; j < NDS; ++j) {
-      const int i = tid + j * THREADS;
-      nds[j] = 0.f;
-      if (i < DD) {
-        const int d = i / D, e = i - d * D;
-        float acc = 0.f;
-        for (int t = 0; t < L; ++t) acc = fmaf(rt[t * RS + d], gg[t * RS + e], acc);
-        nds[j] = fmaf(cl[d], ds[d * SS + e], acc);
+        a = fmaf(rt[t * RS + d], kt[s * RS + d], a);
+        da = fmaf(gg[t * RS + d], vv[s * RS + d], da);
       }
     }
-    for (int i = tid; i < LD; i += THREADS) {
-      const int t = i / D, d = i - t * D;
-      const float c = cc[t * RS + d];
-      const float cp = t ? cc[(t - 1) * RS + d] : 1.f;
-      const float cm = fmaxf(c, 1e-30f);
-      const float bu = dbeta[t] * us[d];
-      dr[at(c0 + t, d)] = fmaf(bu, kk[t * RS + d], drt[t * RS + d] * cp);
-      dk[at(c0 + t, d)] = fmaf(bu, rr[t * RS + d], dkt[t * RS + d] / cm);
-      float dc = 0.f;
-      if (c > 1e-30f)
-        dc = -(dkt[t * RS + d] * kt[t * RS + d]) / cm;
-      else if (c == 1e-30f)
-        dc = -(dkt[t * RS + d] * kt[t * RS + d]) / cm * 0.5f;
-      dc += t + 1 < L ? drt[(t + 1) * RS + d] * rr[(t + 1) * RS + d] : dcl[d];
-      yy[t * RS + d] = dc;
-    }
-    __syncthreads();
-
-    // e. dS stored; a thread a channel: the suffix sums into dw, and du
-#pragma unroll
-    for (int j = 0; j < NDS; ++j) {
-      const int i = tid + j * THREADS;
-      if (i < DD) {
-        const int d = i / D, e = i - d * D;
-        ds[d * SS + e] = nds[j];
-      }
-    }
-    if (tid < D) {
-      const int d = tid;
-      float q = yy[(L - 1) * RS + d];
-      dw[at(c0 + L - 1, d)] = (L > 1 ? cc[(L - 2) * RS + d] : 1.f) * q;
-      for (int t = L - 2; t >= 0; --t) {
-        q = fmaf(ww[(t + 1) * RS + d], q, yy[t * RS + d]);
-        dw[at(c0 + t, d)] = (t ? cc[(t - 1) * RS + d] : 1.f) * q;
-      }
-      float acc = 0.f;
-      for (int t = 0; t < L; ++t)
-        acc = fmaf(dbeta[t] * rr[t * RS + d], kk[t * RS + d], acc);
-      du_acc += acc;
-    }
-    __syncthreads();
+    aa[t * PS + s] = a;
+    dda[t * PS + s] = da;
   }
+  for (int i = tid; i < LD; i += THREADS) {
+    const int s = i / D, d = i - s * D;
+    float y = 0.f;
+    for (int e = 0; e < D; ++e) y = fmaf(vv[s * RS + e], ds[d * SS + e], y);
+    yy[s * RS + d] = y;
+  }
+  __syncthreads();
 
-  if (tid < D) du[static_cast<int64_t>(pair) * D + tid] = du_acc;
-  if (d_state0) {
-    for (int i = tid; i < DD; i += THREADS) {
-      const int d = i / D, e = i - d * D;
-      d_state0[static_cast<int64_t>(pair) * DD + i] = ds[d * SS + e];
+  // c. dv (to memory), dr_t, dk_t and dc_L
+  for (int i = tid; i < LD; i += THREADS) {
+    const int s = i / D, e = i - s * D;
+    float acc = 0.f;
+    for (int t = s + 1; t < L; ++t) acc = fmaf(aa[t * PS + s], gg[t * RS + e], acc);
+    acc = fmaf(beta[s], gg[s * RS + e], acc);
+    float kg = 0.f;
+    for (int d = 0; d < D; ++d)
+      kg = fmaf(kt[s * RS + d], cl[d] * ds[d * SS + e], kg);
+    dv[at(s, e)] = acc + kg;
+  }
+  for (int i = tid; i < LD; i += THREADS) {
+    const int t = i / D, d = i - t * D;
+    float acc = 0.f;
+    for (int s = 0; s < t; ++s) acc = fmaf(dda[t * PS + s], kt[s * RS + d], acc);
+    float gs = 0.f;
+    for (int e = 0; e < D; ++e) gs = fmaf(gg[t * RS + e], s0[d * SS + e], gs);
+    drt[t * RS + d] = acc + gs;
+    float acc2 = 0.f;
+    for (int q = t + 1; q < L; ++q) acc2 = fmaf(dda[q * PS + t], rt[q * RS + d], acc2);
+    dkt[t * RS + d] = fmaf(cl[d], yy[t * RS + d], acc2);
+  }
+  for (int d = tid; d < D; d += THREADS) {
+    float acc = 0.f;
+    for (int e = 0; e < D; ++e) acc = fmaf(ds[d * SS + e], s0[d * SS + e], acc);
+    float acc2 = 0.f;
+    for (int s = 0; s < L; ++s) acc2 = fmaf(kt[s * RS + d], yy[s * RS + d], acc2);
+    dcl[d] = acc + acc2;
+  }
+  __syncthreads();
+
+  // d. dr, dk (to memory) and the decay's cotangent dc (into Y)
+  for (int i = tid; i < LD; i += THREADS) {
+    const int t = i / D, d = i - t * D;
+    const float c = cc[t * RS + d];
+    const float cp = t ? cc[(t - 1) * RS + d] : 1.f;
+    const float cm = fmaxf(c, 1e-30f);
+    const float bu = dbeta[t] * us[d];
+    dr[at(t, d)] = fmaf(bu, kk[t * RS + d], drt[t * RS + d] * cp);
+    dk[at(t, d)] = fmaf(bu, rr[t * RS + d], dkt[t * RS + d] / cm);
+    float dc = 0.f;
+    if (c > 1e-30f)
+      dc = -(dkt[t * RS + d] * kt[t * RS + d]) / cm;
+    else if (c == 1e-30f)
+      dc = -(dkt[t * RS + d] * kt[t * RS + d]) / cm * 0.5f;
+    dc += t + 1 < L ? drt[(t + 1) * RS + d] * rr[(t + 1) * RS + d] : dcl[d];
+    yy[t * RS + d] = dc;
+  }
+  __syncthreads();
+
+  // e. a thread a channel: the suffix sums into dw, and the du row
+  if (tid < D) {
+    const int d = tid;
+    float q = yy[(L - 1) * RS + d];
+    dw[at(L - 1, d)] = (L > 1 ? cc[(L - 2) * RS + d] : 1.f) * q;
+    for (int t = L - 2; t >= 0; --t) {
+      q = fmaf(ww[(t + 1) * RS + d], q, yy[t * RS + d]);
+      dw[at(t, d)] = (t ? cc[(t - 1) * RS + d] : 1.f) * q;
     }
+    float acc = 0.f;
+    for (int t = 0; t < L; ++t)
+      acc = fmaf(dbeta[t] * rr[t * RS + d], kk[t * RS + d], acc);
+    du[slot * D + d] = acc;
   }
 }
 
@@ -345,36 +391,109 @@ cudaError_t prepare() {
   err = cudaFuncSetAttribute(wkv6_bwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(SMEM_BYTES));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wkv6_bwd_terms_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(TERMS_SMEM_BYTES));
   if (err == cudaSuccess) ready.fetch_or(bit);
   return err;
 }
 
+bool bad_shape(int B, int Hn, int S, int D, int L) {
+  return B < 1 || Hn < 1 || static_cast<long long>(B) * Hn > 0x7fffffffLL ||
+         D < 1 || D > DC || L < 1 || L > LC || S < L || S % L ||
+         static_cast<long long>(B) * Hn * (S / L) > 0x7fffffffLL;
+}
+
 }  // namespace
 
-// All tensors f32.  r, k, v, w share the strides sb (batch), ts (token)
-// and sh (head), in elements, with D contiguous; d_out, dr, dk, dv, dw are
-// contiguous (B, S, Hn, D); state0, d_final and d_state0 (B, Hn, D, D) or
-// null (zero start state; zero cotangent of the final state; no
-// cotangent of the start state wanted); du (B·Hn, D); states a scratch of
-// B·Hn·(S/L)·D·D floats.  S must be a positive multiple of L, L ≤ 32,
-// D ≤ 64, B·Hn < 2^31.  Returns the cudaError_t of the launch.
+// The launches named in `parts` (bit 0 the chunk terms, bit 1 the state
+// scan, bit 2 the chunk backward; 7 for the whole backward), in that
+// order.  r, k, v, w share the strides sb (batch), ts (token) and sh
+// (head), in elements, with D contiguous; d_out, dr, dk, dv, dw are
+// contiguous (B, S, Hn, D); u: row b·u_bstride + h·D; state0, d_final and
+// d_state0 (B, Hn, D, D) or null (zero start state; zero cotangent of the
+// final state; no cotangent of the start state wanted).  scratch: f32,
+// with P = B·Hn pairs and N = S/L chunks a pair, the start states
+// (P, N, D, D), then the end cotangents (P, N, D, D), c_L (P, N, D) and
+// the du rows (P·N, D), a row a (pair, chunk).  The grids must be
+// P·N (terms), ⌈P·D² / 256⌉ (scan) and P·N (chunk backward).  S a
+// positive multiple of L, L ≤ 32, D ≤ 64.  Returns the cudaError_t of the
+// first launch that failed.
 extern "C" int wkv6_bwd_launch(const float* r, const float* k, const float* v,
                                const float* w, const float* u,
                                long long u_bstride, const float* state0,
                                const float* d_out, const float* d_final,
                                float* dr, float* dk, float* dv, float* dw,
-                               float* du, float* d_state0, float* states,
-                               int B, int Hn, int S, int D, int L,
-                               long long sb, long long ts, long long sh,
-                               void* stream) {
-  if (B < 1 || Hn < 1 || static_cast<long long>(B) * Hn > 0x7fffffffLL ||
-      D < 1 || D > DC || L < 1 || L > LC || S < L || S % L)
+                               float* d_state0, float* scratch, int B, int Hn,
+                               int S, int D, int L, long long sb, long long ts,
+                               long long sh, int terms_grid, int scan_grid,
+                               int chunk_grid, int parts, void* stream) {
+  if (bad_shape(B, Hn, S, D, L) || parts < 1 || parts > 7)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long P = static_cast<long long>(B) * Hn, N = S / L;
+  if (terms_grid != P * N || chunk_grid != P * N ||
+      scan_grid != (P * D * D + SCAN_THREADS - 1) / SCAN_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = prepare();
   if (err != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_kernel<<<B * Hn, THREADS, SMEM_BYTES,
-                    static_cast<cudaStream_t>(stream)>>>(
-      r, k, v, w, u, u_bstride, state0, d_out, d_final, dr, dk, dv, dw, du,
-      d_state0, states, Hn, S, D, L, sb, ts, sh);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* starts = scratch;
+  float* d_ends = starts + P * N * D * D;
+  float* decay = d_ends + P * N * D * D;
+  float* du = decay + P * N * D;
+  if (parts & 1) {
+    wkv6_bwd_terms_kernel<<<terms_grid, THREADS, TERMS_SMEM_BYTES, st>>>(
+        r, k, v, w, d_out, starts, d_ends, decay, Hn, S, D, L, sb, ts, sh);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 2) {
+    wkv6_bwd_scan_kernel<<<scan_grid, SCAN_THREADS, 0, st>>>(
+        starts, d_ends, decay, state0, d_final, d_state0, P, S / L, D);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 4) {
+    wkv6_bwd_kernel<<<chunk_grid, THREADS, SMEM_BYTES, st>>>(
+        r, k, v, w, u, u_bstride, d_out, starts, d_ends, dr, dk, dv, dw, du,
+        Hn, S, D, L, sb, ts, sh);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
+// The resources of launch `which` (0 terms, 1 scan, 2 chunk backward):
+// resident blocks an SM (the CUDA occupancy calculator at its dynamic
+// shared memory), registers a thread, shared memory a block and local
+// memory a thread (spills), in bytes.
+extern "C" int wkv6_bwd_occupancy(int which, int* blocks, int* regs,
+                                  int* smem, int* local) {
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* fn;
+  int threads;
+  size_t bytes;
+  if (which == 0) {
+    fn = reinterpret_cast<const void*>(wkv6_bwd_terms_kernel);
+    threads = THREADS;
+    bytes = TERMS_SMEM_BYTES;
+  } else if (which == 1) {
+    fn = reinterpret_cast<const void*>(wkv6_bwd_scan_kernel);
+    threads = SCAN_THREADS;
+    bytes = 0;
+  } else if (which == 2) {
+    fn = reinterpret_cast<const void*>(wkv6_bwd_kernel);
+    threads = THREADS;
+    bytes = SMEM_BYTES;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *smem = static_cast<int>(bytes + attr.sharedSizeBytes);
+  *local = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

@@ -16,16 +16,16 @@ layouts, one kernel:
   head strides (a slice ``t[:, :n]`` of the projections is read in place),
   u (Hn, D), state (B, Hn, D, D); out is a new contiguous (B, S, Hn, D).
 
-Its backward, ``csrc/wkv6_bwd.cu`` (:func:`wkv6_bwd`), takes the same
-f32 inputs and the cotangents; :class:`WKV6` joins the two into an
-autograd function.  Each launch is counted in ``wkv6.launches`` or
+Its backward, ``csrc/wkv6_bwd.cu`` (:func:`wkv6_bwd`, three launches
+cut by :func:`bwd_plan`), takes the same f32 inputs and the cotangents; :class:`WKV6` joins the two into an
+autograd function.  Each call is counted in ``wkv6.launches`` or
 ``wkv6_bwd.launches``.  Callers go through
 :mod:`repro_torch.kernels.ops`, which sends CPU tensors to the plain
 versions.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -145,19 +145,49 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 wkv6.launches = 0
 
 
-def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             w: torch.Tensor, u: torch.Tensor, d_out: torch.Tensor,
-             chunk: int = WKV_CHUNK, *, state: Optional[torch.Tensor] = None,
-             d_state: Optional[torch.Tensor] = None):
-    """The VJP of :func:`wkv6` (``csrc/wkv6_bwd.cu``): r, k, v, w, u,
-    ``chunk`` and ``state`` as the forward took them, in f32; ``d_out``
-    the cotangent of out (r's shape, any strides: made contiguous) and
-    ``d_state`` that of the final state (a contiguous f32 tensor of the
-    state's shape, or None for zero).  Returns new f32 tensors: dr, dk, dv,
-    dw (contiguous, r's shape), du (u's shape: summed over the batch from
-    one row a pair, in a fixed order) and the start state's cotangent
-    (None when ``state`` is None).  :func:`ref.wkv6_bwd_ref` is the plain
-    version."""
+class BwdPlan(NamedTuple):
+    """How one :func:`wkv6_bwd` call is cut into its three launches
+    (``csrc/wkv6_bwd.cu``): the chunk terms and the chunk backward run a
+    block of 256 threads a (pair, chunk), the state scan a thread a (pair,
+    i, j), 256 a block.  One f32 scratch of ``scratch`` floats holds, in
+    this order, the two state arrays of shape ``states`` (the increments,
+    turned by the scan into each chunk's start state and its end
+    cotangent), c_L of shape ``decays`` and the partial du of shape
+    ``du_rows`` (a row a (pair, chunk), summed by the wrapper) from
+    ``du_offset``."""
+
+    pairs: int
+    chunks: int
+    terms_grid: int
+    scan_grid: int
+    chunk_grid: int
+    states: Tuple[int, int, int, int]
+    decays: Tuple[int, int, int]
+    du_rows: Tuple[int, int]
+    du_offset: int
+    scratch: int
+
+
+#: threads a block of the state scan (csrc/wkv6_bwd.cu: SCAN_THREADS)
+SCAN_THREADS = 256
+#: the launches of one backward, as bits of the launcher's ``parts``
+BWD_PARTS = ("terms", "scan", "chunk backward")
+
+
+def bwd_plan(pairs: int, S: int, D: int, chunk: int) -> BwdPlan:
+    """The launch plan of a backward over ``pairs`` (batch, head) pairs of
+    S tokens, head dimension D and chunk length ``chunk``."""
+    n = S // chunk
+    du_offset = pairs * n * (2 * D * D + D)
+    return BwdPlan(pairs, n, pairs * n, -(-pairs * D * D // SCAN_THREADS),
+                   pairs * n, (pairs, n, D, D), (pairs, n, D), (pairs * n, D),
+                   du_offset, du_offset + pairs * n * D)
+
+
+def _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state):
+    """Check :func:`wkv6_bwd`'s inputs and allocate its outputs and
+    scratch: returns the launcher's arguments up to ``parts`` and a
+    function that returns the outputs once all three launches ran."""
     lay = _layout(r, k, v, w, u, chunk, state, (torch.float32,))
     _require(isinstance(d_out, torch.Tensor) and d_out.device == r.device
              and d_out.dtype == torch.float32 and d_out.shape == r.shape,
@@ -166,30 +196,74 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(d_state is None or _is_state(d_state, lay.s_shape, r.device),
              lambda: f"d_state must be a contiguous {lay.s_shape} float32 "
              f"tensor on {r.device} or None")
+    plan = bwd_plan(lay.B * lay.Hn, lay.S, lay.D, chunk)
     d_out = d_out.contiguous()
     u32 = u.to(torch.float32).contiguous()
-    dr, dk, dv, dw = (torch.empty(r.shape, dtype=torch.float32,
-                                  device=r.device) for _ in range(4))
-    du = torch.empty((lay.B * lay.Hn, lay.D), dtype=torch.float32,
-                     device=r.device)
+    grads = torch.empty((4, *r.shape), dtype=torch.float32, device=r.device)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=r.device)
     d_start = (None if state is None else
                torch.empty(lay.s_shape, dtype=torch.float32, device=r.device))
-    scratch = torch.empty((lay.B * lay.Hn, lay.S // chunk, lay.D, lay.D),
-                          dtype=torch.float32, device=r.device)
-    launch = _build.launcher(_BWD)
+    dr, dk, dv, dw = grads.unbind(0)
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u32.data_ptr(), lay.u_bstride, _ptr(state), d_out.data_ptr(),
+            _ptr(d_state), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dw.data_ptr(), _ptr(d_start), scratch.data_ptr(), lay.B, lay.Hn,
+            lay.S, lay.D, chunk, *lay.strides, plan.terms_grid,
+            plan.scan_grid, plan.chunk_grid)
+
+    def outputs():
+        du = scratch[plan.du_offset:].view(lay.B, lay.Hn, plan.chunks, lay.D)
+        du = du.sum((0, 2) if r.dim() == 4 else 2).view(u.shape)
+        return dr, dk, dv, dw, du, d_start
+
+    return args, outputs
+
+
+def bwd_launches(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, d_out: torch.Tensor,
+                 chunk: int = WKV_CHUNK, *,
+                 state: Optional[torch.Tensor] = None,
+                 d_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[List[Callable[[], None]], Callable[[], tuple]]:
+    """:func:`wkv6_bwd` cut into its launches, for timing each apart: its
+    inputs checked and its outputs and scratch allocated once; returns a
+    function a launch (:data:`BWD_PARTS`, to be run in that order; the
+    scan turns the terms' scratch into states in place) and a function
+    that returns the outputs.  Not counted in ``wkv6_bwd.launches``."""
+    args, outputs = _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state)
+    stream = _args.stream(r)
+
+    def part(bit):
+        def run():
+            with _args.on_card(r.device):
+                err = _build.launcher(_BWD)(*args, bit, stream)
+            _build.check(err, _BWD)
+        return run
+
+    return [part(1 << i) for i in range(len(BWD_PARTS))], outputs
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, d_out: torch.Tensor,
+             chunk: int = WKV_CHUNK, *, state: Optional[torch.Tensor] = None,
+             d_state: Optional[torch.Tensor] = None):
+    """The VJP of :func:`wkv6` (``csrc/wkv6_bwd.cu``: the chunk terms, the
+    state scan and the chunk backward, three launches from one call of
+    the launcher, counted as one): r, k, v, w, u, ``chunk`` and ``state``
+    as the forward took them, in f32; ``d_out`` the cotangent of out (r's
+    shape, any strides: made contiguous) and ``d_state`` that of the
+    final state (a contiguous f32 tensor of the state's shape, or None for
+    zero).  Returns new f32 tensors: dr, dk, dv, dw (contiguous, r's
+    shape), du (u's shape: summed over the batch and the chunks from one
+    row a (pair, chunk), in a fixed order) and the start state's
+    cotangent (None when ``state`` is None).  :func:`ref.wkv6_bwd_ref` is
+    the plain version."""
+    args, outputs = _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state)
     with _args.on_card(r.device):
-        err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                     u32.data_ptr(), lay.u_bstride, _ptr(state),
-                     d_out.data_ptr(), _ptr(d_state), dr.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-                     du.data_ptr(), _ptr(d_start), scratch.data_ptr(),
-                     lay.B, lay.Hn, lay.S, lay.D, chunk, *lay.strides,
-                     _args.stream(r))
+        err = _build.launcher(_BWD)(*args, 7, _args.stream(r))
     _build.check(err, _BWD)
     wkv6_bwd.launches += 1
-    if r.dim() == 4:
-        du = du.view(lay.B, lay.Hn, lay.D).sum(0)
-    return dr, dk, dv, dw, du, d_start
+    return outputs()
 
 
 wkv6_bwd.launches = 0

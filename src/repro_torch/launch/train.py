@@ -14,7 +14,7 @@ full config in bf16 with ``--full``; on the CUDA card unless
 ``--device cpu``.  Only ``rwkv6-3b`` is ported; the other architectures
 raise ``NotImplementedError`` (ROADMAP A11).  ``--production-mesh`` (the
 reference's sharded mesh, ROADMAP A12) and ``--checkpoint-dir`` (ROADMAP
-next slice 3) raise ``NotImplementedError`` too.
+N4) raise ``NotImplementedError`` too.
 """
 from __future__ import annotations
 
@@ -83,8 +83,8 @@ def main(argv=None) -> List[Tuple[int, float]]:
             "(ROADMAP A12)")
     if args.checkpoint_dir:
         raise NotImplementedError(
-            "--checkpoint-dir: checkpoints are not ported yet (ROADMAP, "
-            "next slices: 3)")
+            "--checkpoint-dir: checkpoints are not ported yet (ROADMAP "
+            "N4)")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -802,6 +802,37 @@ def test_wkv6_bwd_matches_autograd_through_plain(cuda, shape, heads, given):
                                    atol=1e-5 * float(p.abs().max()))
 
 
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 32, 40, 64), 32), ((2, 128, 4, 64), 16), ((2, 96, 3, 32), 32),
+    ((8, 2048, 40, 64), 32)], ids=["one-chunk", "chunk-16", "d32", "serve"])
+def test_wkv6_bwd_chunks_through_the_scan(cuda, shape, chunk):
+    """The backward's three launches (chunk terms, state scan, chunk
+    backward) from a given start state with a cotangent of the final
+    state: one chunk (nothing to scan), chunks of 16, D = 32, and the
+    serving shape's 64 chunks a pair through the scan, against autograd
+    through the plain forward at 1e-5 of each cotangent's max + rtol 1e-5
+    (f32 sums in other orders); the counter goes up by one a call; two
+    calls bit-equal."""
+    B, S, Hn, D = shape
+    x4, u, s0 = _wkv6_model_inputs(cuda, B, S, Hn, D, seed=S + D)
+    d_out, d_fin, _ = _wkv6_cotangents(cuda, shape, Hn, S + D)
+    before = ops.launch_counts()["wkv6_bwd"]
+    got = ops.wkv6_bwd(*x4, u, d_out, chunk, state=s0, d_state=d_fin)
+    assert ops.launch_counts()["wkv6_bwd"] == before + 1
+    again = ops.wkv6_bwd(*x4, u, d_out, chunk, state=s0, d_state=d_fin)
+    assert ops.launch_counts()["wkv6_bwd"] == before + 2
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    xs = [t.clone().requires_grad_() for t in x4 + [u]]
+    st = s0.clone().requires_grad_()
+    out, fin = ref.wkv6_ref(*xs, chunk, state=st)
+    plain = torch.autograd.grad([out, fin], xs + [st], [d_out, d_fin])
+    for a, p in zip(got, plain):
+        assert a.shape == p.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()))
+
+
 def test_wkv6_bwd_where_the_clamp_fires(cuda):
     """Four channels decay at 0.05–0.2 a step, so cumprod(w) < 1e-30 inside
     a chunk: the kernel's cotangents are finite and agree with the plain
