@@ -77,10 +77,12 @@ Phases, in order (any failure raises and exits non-zero):
    (2 ``wkv6`` launches and 1 ``wkv6_bwd`` a layer and pass: each layer
    is recomputed in the backward), with seconds, peak memory, finite
    losses and |∇f|, and one more FSVRG round traced for the device's idle
-   share and top kernels; ``wkv6_bwd``'s time at the training and the
-   serving shape beside its bound and autograd through the plain forward,
-   and each of its three launches (terms, scan, chunk backward) timed
-   apart; ``wkv6``'s forward at the training shape;
+   share and top kernels; ``wkv6_bwd``'s device time (a CUDA graph of
+   calls, so without the host's cost) at the training and the serving
+   shape beside its bound and autograd through the plain forward, each of
+   its three launches (terms, scan, chunk backward) timed apart the same
+   way, a call back to back from the host and the host's enqueue alone;
+   ``wkv6``'s forward at the training shape;
 9. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
    line ``{"ok": true, "device": {...}}``.
 """
@@ -88,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -493,6 +496,28 @@ def wkv6_bwd_ops(B, S, Hn, D, L=32) -> int:
     return (2 * macs + 30 * L * D) * B * Hn * (S // L)
 
 
+def graph_ms(fn, iters=10) -> float:
+    """Device ms a call of ``fn``: ``iters`` calls captured once in a CUDA
+    graph and the graph replayed between CUDA events, so the host's cost
+    of a call is not in it (``fn`` runs once first, outside the capture,
+    and must launch on PyTorch's current stream)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def wkv6_plain_grads(x, s0, d_out, d_fin, chunk=32):
     """The cotangents of r, k, v, w, u (and the start state) by autograd
     through ref.wkv6_ref."""
@@ -718,7 +743,14 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
     for e in events[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:7d}× {e.key[:90]}")
-    del batch, prof, events
+    bwd = [(m.group(0), e) for e in events
+           if (m := re.search(r"wkv6_bwd\w*", e.key))]
+    bwd_ms = sum(e.self_device_time_total for _, e in bwd) / 1e3
+    log(f"[profile] wkv6_bwd's launches in the round: {bwd_ms:.2f} ms, "
+        f"{bwd_ms / 1e3 / max(busy_s, 1e-9):.1%} of the device's busy time ("
+        + ", ".join(f"{name} {e.count}× {e.self_device_time_total / 1e3:.2f} "
+                    "ms" for name, e in bwd) + ")")
+    del batch, prof, events, bwd
     opt = adamw(TRAIN_LR)
     opt_state = opt.init(dict(params.named_parameters()))
     adamw_step = steps.make_adamw_step(model, opt)
@@ -742,11 +774,13 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
     # built once) beside it.  Bound: r, k, v, w, dout read and dr, dk, dv,
     # dw written once, u read and du written: bytes over the HBM rate, or
     # the f32 work of wkv6_bwd_ops over 67 TFLOP/s, the larger
-    # Each of its three launches is timed apart on one call's scratches
-    # (the scan each time on the terms' output of the run before: its
-    # time does not depend on the values).  wkv6's forward at the
-    # training shape beside it (its kernels-line row is at the serving
-    # shape).
+    # The kernel's time is the device's, from a CUDA graph of 10 calls
+    # (graph_ms); back to back from the host a call also pays the host's
+    # enqueue, timed apart.  Each of its three launches is timed apart the
+    # same way on one call's scratch (the scan each time on the terms'
+    # output of the run before: its time does not depend on the values).
+    # wkv6's forward at the training shape beside it (its kernels-line row
+    # is at the serving shape).
     from repro_torch.kernels import wkv6 as wkv6_kernel
     times = {}
     for shape in (TRAIN_WKV, SERVE_WKV):
@@ -755,18 +789,31 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
         d_out = torch.randn(shape, device=dev, generator=gen)
         xs = [t.clone().requires_grad_() for t in x]
         out, _ = ref.wkv6_ref(*xs)
-        k_ms = cuda_ms(lambda: ops.wkv6_bwd(*x, d_out), iters=10)
+        k_ms = graph_ms(lambda: ops.wkv6_bwd(*x, d_out))
+        call_ms = cuda_ms(lambda: ops.wkv6_bwd(*x, d_out), iters=10)
         parts, _ = wkv6_kernel.bwd_launches(*x, d_out)
-        part_ms = [cuda_ms(fn, iters=10) for fn in parts]
-        log(f"[time] wkv6_bwd {shape} by launch: terms {part_ms[0]:.4f} ms, "
-            f"scan {part_ms[1]:.4f} ms, chunk backward {part_ms[2]:.4f} ms "
-            f"(sum {sum(part_ms):.4f})")
+        part_ms = [graph_ms(fn) for fn in parts]
+        log(f"[time] wkv6_bwd {shape} by launch (device): terms "
+            f"{part_ms[0]:.4f} ms, scan {part_ms[1]:.4f} ms, chunk backward "
+            f"{part_ms[2]:.4f} ms (sum {sum(part_ms):.4f}); a call back to "
+            f"back from the host {call_ms:.4f} ms")
         if shape == TRAIN_WKV:
-            f_ms = cuda_ms(lambda: ops.wkv6(*x), iters=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                ops.wkv6_bwd(*x, d_out)
+            host_ms = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
+            log(f"[time] wkv6_bwd {shape}: the host's enqueue {host_ms:.4f} "
+                "ms a call (checks, allocations, one launcher call, the du "
+                "sum)")
+            f_ms = graph_ms(lambda: ops.wkv6(*x))
+            f_call = cuda_ms(lambda: ops.wkv6(*x), iters=10)
             fb_ms, fb_by = bound(*wkv6_cost(*shape))
-            log(f"[time] wkv6 forward {shape} f32: kernel {f_ms:.4f} ms, "
-                f"bound {fb_ms:.6f} ms ({fb_by}); {fb_ms / f_ms:.1%} of the "
-                "bound")
+            log(f"[time] wkv6 forward {shape} f32: kernel {f_ms:.4f} ms "
+                f"(device), bound {fb_ms:.6f} ms ({fb_by}); {fb_ms / f_ms:.1%} "
+                f"of the bound; a call back to back from the host "
+                f"{f_call:.4f} ms")
         del parts
         p_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, d_out,
                                                    retain_graph=True),
@@ -774,7 +821,7 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
         nbytes = 9 * B_ * S_ * Hn_ * D_ * 4 + 2 * Hn_ * D_ * 4
         b_ms, b_by = bound(nbytes, wkv6_bwd_ops(B_, S_, Hn_, D_))
         times[shape] = (k_ms, p_ms, b_ms, b_by)
-        log(f"[time] wkv6_bwd {shape}: kernel {k_ms:.4f} ms, plain "
+        log(f"[time] wkv6_bwd {shape}: kernel {k_ms:.4f} ms (device), plain "
             f"(autograd through wkv6_ref) {p_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}); {b_ms / k_ms:.1%} of the bound")
         del x, d_out, xs, out

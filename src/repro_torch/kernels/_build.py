@@ -66,7 +66,7 @@ SIGNATURES = {
                              _I, _I, _I, _L, _L, _L, _P]),
     "wkv6_bwd": ("wkv6_bwd_launch", [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _L, _L, _L, _I, _I, _I, _I, _P]),
+                                     _L, _L, _L, _I, _I, _I, _P]),
 }
 EXTRA_SIGNATURES = {
     "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],

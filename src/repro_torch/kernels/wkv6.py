@@ -147,9 +147,10 @@ wkv6.launches = 0
 
 class BwdPlan(NamedTuple):
     """How one :func:`wkv6_bwd` call is cut into its three launches
-    (``csrc/wkv6_bwd.cu``): the chunk terms and the chunk backward run a
-    block of 256 threads a (pair, chunk), the state scan a thread a (pair,
-    i, j), 256 a block.  One f32 scratch of ``scratch`` floats holds, in
+    (``csrc/wkv6_bwd.cu``): the chunk terms and the chunk backward run
+    ``blocks`` blocks of 256 threads, a block a (pair, chunk); the state
+    scan ``scan_blocks`` of SCAN_THREADS, a thread a (pair, i, j).  One
+    f32 scratch of ``scratch`` floats holds, in
     this order, the two state arrays of shape ``states`` (the increments,
     turned by the scan into each chunk's start state and its end
     cotangent), c_L of shape ``decays`` and the partial du of shape
@@ -158,9 +159,8 @@ class BwdPlan(NamedTuple):
 
     pairs: int
     chunks: int
-    terms_grid: int
-    scan_grid: int
-    chunk_grid: int
+    blocks: int
+    scan_blocks: int
     states: Tuple[int, int, int, int]
     decays: Tuple[int, int, int]
     du_rows: Tuple[int, int]
@@ -170,8 +170,6 @@ class BwdPlan(NamedTuple):
 
 #: threads a block of the state scan (csrc/wkv6_bwd.cu: SCAN_THREADS)
 SCAN_THREADS = 256
-#: the launches of one backward, as bits of the launcher's ``parts``
-BWD_PARTS = ("terms", "scan", "chunk backward")
 
 
 def bwd_plan(pairs: int, S: int, D: int, chunk: int) -> BwdPlan:
@@ -180,7 +178,7 @@ def bwd_plan(pairs: int, S: int, D: int, chunk: int) -> BwdPlan:
     n = S // chunk
     du_offset = pairs * n * (2 * D * D + D)
     return BwdPlan(pairs, n, pairs * n, -(-pairs * D * D // SCAN_THREADS),
-                   pairs * n, (pairs, n, D, D), (pairs, n, D), (pairs * n, D),
+                   (pairs, n, D, D), (pairs, n, D), (pairs * n, D),
                    du_offset, du_offset + pairs * n * D)
 
 
@@ -208,8 +206,7 @@ def _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state):
             u32.data_ptr(), lay.u_bstride, _ptr(state), d_out.data_ptr(),
             _ptr(d_state), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dw.data_ptr(), _ptr(d_start), scratch.data_ptr(), lay.B, lay.Hn,
-            lay.S, lay.D, chunk, *lay.strides, plan.terms_grid,
-            plan.scan_grid, plan.chunk_grid)
+            lay.S, lay.D, chunk, *lay.strides, plan.blocks, plan.scan_blocks)
 
     def outputs():
         du = scratch[plan.du_offset:].view(lay.B, lay.Hn, plan.chunks, lay.D)
@@ -227,20 +224,21 @@ def bwd_launches(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ) -> Tuple[List[Callable[[], None]], Callable[[], tuple]]:
     """:func:`wkv6_bwd` cut into its launches, for timing each apart: its
     inputs checked and its outputs and scratch allocated once; returns a
-    function a launch (:data:`BWD_PARTS`, to be run in that order; the
-    scan turns the terms' scratch into states in place) and a function
-    that returns the outputs.  Not counted in ``wkv6_bwd.launches``."""
+    function a launch (the chunk terms, the state scan, the chunk
+    backward, to be run in that order: the scan turns the terms' scratch
+    into states in place) and a function
+    that returns the outputs.  Each launches on PyTorch's current stream
+    when it runs.  Not counted in ``wkv6_bwd.launches``."""
     args, outputs = _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state)
-    stream = _args.stream(r)
 
     def part(bit):
         def run():
             with _args.on_card(r.device):
-                err = _build.launcher(_BWD)(*args, bit, stream)
+                err = _build.launcher(_BWD)(*args, bit, _args.stream(r))
             _build.check(err, _BWD)
         return run
 
-    return [part(1 << i) for i in range(len(BWD_PARTS))], outputs
+    return [part(1), part(2), part(4)], outputs
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

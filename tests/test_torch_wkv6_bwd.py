@@ -193,7 +193,7 @@ def test_wkv6_bwd_kernel_wrapper_refuses_cpu_tensors():
         wkv6_kernel.wkv6_bwd(*map(torch.tensor, x), torch.tensor(g))
 
 
-@pytest.mark.parametrize("shape,chunk,n,scan_grid", [
+@pytest.mark.parametrize("shape,chunk,n,scan_blocks", [
     ((2, 128, 40, 64), 32, 4, 1_280),        # the training path
     ((8, 2_048, 40, 64), 32, 64, 5_120),     # the serving shape
     ((2, 32, 40, 64), 32, 1, 1_280),         # S = L: one chunk
@@ -202,7 +202,7 @@ def test_wkv6_bwd_kernel_wrapper_refuses_cpu_tensors():
     ((2, 64, 3, 1), 32, 2, 1),               # D = 1
     ((2, 64, 3, 32), 32, 2, 24),             # D = 32
 ], ids=["train", "serve", "one-chunk", "chunk-11", "chunk-16", "d1", "d32"])
-def test_wkv6_bwd_launch_plan(shape, chunk, n, scan_grid):
+def test_wkv6_bwd_launch_plan(shape, chunk, n, scan_blocks):
     """The backward's three launches: a block a (pair, chunk) for the
     chunk terms and the chunk backward, a thread a (pair, i, j) for the
     state scan (256 a block, none idle but in the last block); one f32
@@ -212,10 +212,11 @@ def test_wkv6_bwd_launch_plan(shape, chunk, n, scan_grid):
     pairs = B * Hn
     p = wkv6_kernel.bwd_plan(pairs, S, D, chunk)
     assert (p.pairs, p.chunks) == (pairs, n)
-    assert p.terms_grid == p.chunk_grid == pairs * n
-    assert p.scan_grid == scan_grid
+    assert p.blocks == pairs * n
+    assert p.scan_blocks == scan_blocks
     threads = wkv6_kernel.SCAN_THREADS
-    assert (p.scan_grid - 1) * threads < pairs * D * D <= p.scan_grid * threads
+    assert ((p.scan_blocks - 1) * threads < pairs * D * D
+            <= p.scan_blocks * threads)
     assert p.states == (pairs, n, D, D)
     assert p.decays == (pairs, n, D)
     assert p.du_rows == (pairs * n, D)
