@@ -69,8 +69,8 @@ Phases, in order (any failure raises and exits non-zero):
    state with the final state's cotangent, the serving shape, the
    (B·Hn, S, D) entry, a strided slice, one chunk, chunk 16; strong
    decays against the plain backward; two calls bit-equal); the reduced
-   config's FSVRG and FedAvg
-   rounds on the card against the CPU; at full width in bf16
+   config's FSVRG and FedAvg rounds on the card against the CPU; at full
+   width in bf16
    (``launch/train.py``'s defaults: 4 clients × 1 step × 2 × 128 tokens)
    2 FSVRG rounds, a FedAvg round and 3 AdamW steps through
    ``launch.steps``, counts set to 0 just before each and read just after
@@ -811,9 +811,9 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
             f_call = cuda_ms(lambda: ops.wkv6(*x), iters=10)
             fb_ms, fb_by = bound(*wkv6_cost(*shape))
             log(f"[time] wkv6 forward {shape} f32: kernel {f_ms:.4f} ms "
-                f"(device), bound {fb_ms:.6f} ms ({fb_by}); {fb_ms / f_ms:.1%} "
-                f"of the bound; a call back to back from the host "
-                f"{f_call:.4f} ms")
+                f"(device), bound {fb_ms:.6f} ms ({fb_by}); "
+                f"{fb_ms / f_ms:.1%} of the bound; a call back to back "
+                f"from the host {f_call:.4f} ms")
         del parts
         p_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, d_out,
                                                    retain_graph=True),

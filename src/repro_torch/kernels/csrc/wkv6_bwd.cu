@@ -49,7 +49,7 @@
 //
 // Inside launches 1 and 3 every product runs in f32 FMAs from registers,
 // as in wkv6.cu: a thread loads float4 rows of both operands from shared
-// memory and does 5.3 to 10.7 FMAs for every load.  A product over a
+// memory and does 8 to 10.7 FMAs for every load.  A product over a
 // tile's own rows (an "outer" product: k_tᵀ v, r_tᵀ dout, A, Aᵀ dout,
 // k_t G) has its operands stored with the summed index as the row: lanes
 // of a quarter warp read consecutive 16-byte words of one row, or one

@@ -17,14 +17,16 @@ layouts, one kernel:
   u (Hn, D), state (B, Hn, D, D); out is a new contiguous (B, S, Hn, D).
 
 Its backward, ``csrc/wkv6_bwd.cu`` (:func:`wkv6_bwd`, three launches
-cut by :func:`bwd_plan`), takes the same f32 inputs and the cotangents; :class:`WKV6` joins the two into an
-autograd function.  Each call is counted in ``wkv6.launches`` or
+cut by :func:`bwd_plan`), takes the same f32 inputs and the cotangents;
+:class:`WKV6` joins the two into an autograd function.  Each call is
+counted in ``wkv6.launches`` or
 ``wkv6_bwd.launches``.  Callers go through
 :mod:`repro_torch.kernels.ops`, which sends CPU tensors to the plain
 versions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -150,12 +152,11 @@ class BwdPlan(NamedTuple):
     (``csrc/wkv6_bwd.cu``): the chunk terms and the chunk backward run
     ``blocks`` blocks of 256 threads, a block a (pair, chunk); the state
     scan ``scan_blocks`` of SCAN_THREADS, a thread a (pair, i, j).  One
-    f32 scratch of ``scratch`` floats holds, in
-    this order, the two state arrays of shape ``states`` (the increments,
-    turned by the scan into each chunk's start state and its end
-    cotangent), c_L of shape ``decays`` and the partial du of shape
-    ``du_rows`` (a row a (pair, chunk), summed by the wrapper) from
-    ``du_offset``."""
+    f32 scratch of ``scratch`` floats holds, in this order, the two state
+    arrays of shape ``states`` (the increments, turned by the scan into
+    each chunk's start state and its end cotangent), c_L of shape
+    ``decays`` and, from ``du_offset``, the partial du of shape
+    ``du_rows`` (a row a (pair, chunk), summed by the wrapper)."""
 
     pairs: int
     chunks: int
@@ -184,8 +185,10 @@ def bwd_plan(pairs: int, S: int, D: int, chunk: int) -> BwdPlan:
 
 def _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state):
     """Check :func:`wkv6_bwd`'s inputs and allocate its outputs and
-    scratch: returns the launcher's arguments up to ``parts`` and a
-    function that returns the outputs once all three launches ran."""
+    scratch: returns a function that runs the launches named by its
+    ``parts`` bits (1 the chunk terms, 2 the state scan, 4 the chunk
+    backward) on PyTorch's current stream, raising if one fails, and a
+    function that returns the outputs once all three ran."""
     lay = _layout(r, k, v, w, u, chunk, state, (torch.float32,))
     _require(isinstance(d_out, torch.Tensor) and d_out.device == r.device
              and d_out.dtype == torch.float32 and d_out.shape == r.shape,
@@ -208,12 +211,17 @@ def _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state):
             dw.data_ptr(), _ptr(d_start), scratch.data_ptr(), lay.B, lay.Hn,
             lay.S, lay.D, chunk, *lay.strides, plan.blocks, plan.scan_blocks)
 
+    def launch(parts):
+        with _args.on_card(r.device):
+            err = _build.launcher(_BWD)(*args, parts, _args.stream(r))
+        _build.check(err, _BWD)
+
     def outputs():
         du = scratch[plan.du_offset:].view(lay.B, lay.Hn, plan.chunks, lay.D)
         du = du.sum((0, 2) if r.dim() == 4 else 2).view(u.shape)
         return dr, dk, dv, dw, du, d_start
 
-    return args, outputs
+    return launch, outputs
 
 
 def bwd_launches(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -226,19 +234,11 @@ def bwd_launches(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs checked and its outputs and scratch allocated once; returns a
     function a launch (the chunk terms, the state scan, the chunk
     backward, to be run in that order: the scan turns the terms' scratch
-    into states in place) and a function
-    that returns the outputs.  Each launches on PyTorch's current stream
-    when it runs.  Not counted in ``wkv6_bwd.launches``."""
-    args, outputs = _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state)
-
-    def part(bit):
-        def run():
-            with _args.on_card(r.device):
-                err = _build.launcher(_BWD)(*args, bit, _args.stream(r))
-            _build.check(err, _BWD)
-        return run
-
-    return [part(1), part(2), part(4)], outputs
+    into states in place), each on PyTorch's current stream when it runs,
+    and a function that returns the outputs.  Not counted in
+    ``wkv6_bwd.launches``."""
+    launch, outputs = _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state)
+    return [functools.partial(launch, bit) for bit in (1, 2, 4)], outputs
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -256,10 +256,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row a (pair, chunk), in a fixed order) and the start state's
     cotangent (None when ``state`` is None).  :func:`ref.wkv6_bwd_ref` is
     the plain version."""
-    args, outputs = _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state)
-    with _args.on_card(r.device):
-        err = _build.launcher(_BWD)(*args, 7, _args.stream(r))
-    _build.check(err, _BWD)
+    launch, outputs = _bwd_call(r, k, v, w, u, d_out, chunk, state, d_state)
+    launch(7)
     wkv6_bwd.launches += 1
     return outputs()
 
