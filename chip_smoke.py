@@ -24,7 +24,9 @@ Phases, in order (any failure raises and exits non-zero):
    as a ragged prompt's strided 2,016 tokens, from zeros and a given
    state, f32 and bf16 — at small shapes, with strong decays, and
    refusing a ragged S); then the card's threefry draws, fleet masks and
-   fault kinds against the CPU's, bit for bit;
+   fault kinds against the CPU's, bit for bit, and its ``split``,
+   ``randint`` (spans on both sides of 2¹⁶), ``permutation`` (n = 1,625,
+   1,626 and 8,192) bit for bit and ``gumbel`` within 2 ulp;
 4. run the four solvers of Fig. 2 that the port has kernels for at the
    paper's full width — ``generate`` of the §4 config (K = 10,000 clients,
    d = 20,002 features, n = 2,166,693 examples) and ``build_problem`` once,
@@ -471,6 +473,50 @@ def serve_phase(dev, sync) -> dict:
         require(max(errs) <= 1e-4, "card and CPU serving disagree")
     return dict(model=model, params=params, prompt=prompt,
                 launches=launches, runs=runs)
+
+
+def check_draws(dev) -> None:
+    """The card's split, randint, permutation and gumbel on a batch of 256
+    keys against the CPU's: bit for bit, but gumbel's value (CUDA's logf
+    against the CPU's log) within 2 ulp of max(|g|, 1)."""
+    import torch
+    from repro_torch.utils import threefry
+    kc = threefry.split(threefry.fold_in(threefry.PRNGKey(SEED), 23), 256)
+    kg = threefry.as_key(kc, dev)
+    require(all(torch.equal(x.cpu(), y) for x, y in
+                zip(threefry.split(kg, 7), threefry.split(kc, 7))),
+            "split on the card differs from the CPU")
+    spans = (1, 2, 97, 6_750, 65_536, 65_537, 2 ** 31 - 1)
+    for span in spans:
+        require(torch.equal(threefry.randint(kg, (64,), 0, span).cpu(),
+                            threefry.randint(kc, (64,), 0, span)),
+                f"randint up to {span} on the card differs from the CPU")
+    per_key = torch.tensor(spans * 37, dtype=torch.int64)[:256]
+    require(torch.equal(
+        threefry.randint(kg, (50,), 0, per_key.to(dev)).cpu(),
+        threefry.randint(kc, (50,), 0, per_key)),
+        "randint with a maxval a key on the card differs from the CPU")
+    for n in (1_625, 1_626, 8_192):
+        require(torch.equal(threefry.permutation(kg, n).cpu(),
+                            threefry.permutation(kc, n)),
+                f"permutation of {n} on the card differs from the CPU")
+    n = 20_000
+    tiny = 2.0 ** -126
+    require(torch.equal(threefry.uniform(kg, (n,), tiny, 1.0).cpu(),
+                        threefry.uniform(kc, (n,), tiny, 1.0)),
+            "gumbel's uniforms on the card differ from the CPU's")
+    g_c = threefry.gumbel(kc, (n,)).double()
+    g_g = threefry.gumbel(kg, (n,)).cpu().double()
+    ulp = 2.0 ** -23 * torch.exp2(torch.floor(torch.log2(
+        g_c.abs().clamp(min=1.0))))
+    err = float(((g_g - g_c).abs() / ulp).max())
+    differ = int((g_g != g_c).sum())
+    log(f"[check] threefry split, randint (spans {spans}, and one a key), "
+        "permutation (n = 1,625, 1,626, 8,192) on 256 keys: card == CPU bit "
+        f"for bit; gumbel (256 × {n}): uniforms bit for bit, {differ} of "
+        f"{256 * n} values differ, by at most {err:.2f} ulp of "
+        "max(|g|, 1) (tolerance 2)")
+    require(err <= 2.0, "gumbel on the card is not within 2 ulp of the CPU")
 
 
 def wkv6_cost(B, S, Hn, D, L=32):
@@ -1189,6 +1235,7 @@ def main() -> int:
     log(f"[check] threefry fold_in / uniform, fleet masks and fault kinds "
         f"at K={K}, rounds 0-{ROUNDS - 1}: card == CPU bit for bit "
         f"(round 0 returns {m_trace} clients)")
+    check_draws(dev)
     max_err["wkv6"] = check_wkv6(dev, g, compare)
 
     # -- 4. the main paths at full width ----------------------------------- #

@@ -1,26 +1,37 @@
 """JAX's threefry2x32 counter-based generator in PyTorch, bit for bit.
 
-The part of ``jax.random`` the fleet layer draws from (with
-``jax_threefry_partitionable=True``, JAX's default since 0.5):
+The part of ``jax.random`` that the reference's data, round engine,
+solvers and fleet layer draw from (with ``jax_threefry_partitionable=True``,
+JAX's default since 0.5):
 
   * :func:`PRNGKey` — ``PRNGKey(seed)`` for a seed in [0, 2³²);
   * :func:`fold_in` — ``fold_in(key, data)``, also vectorised over a tensor
     of ids (then the key is a pair of tensors, one key per id);
+  * :func:`split` — ``split(key, n)``: key i is ``fold_in(key, i)``;
   * :func:`random_bits` — 32-bit ``bits(key, shape)`` for shapes ``()``,
     ``(n,)`` and ``(n, d)``, from one key or from one key per leading index;
-  * :func:`uniform` — ``uniform(key, shape, float32, minval, maxval)``.
+  * :func:`uniform` — ``uniform(key, shape, float32, minval, maxval)``;
+  * :func:`randint` — ``randint(key, shape, minval, maxval)`` (int32
+    bounds, which may be tensors), with its uint32 arithmetic;
+  * :func:`permutation` — ``permutation(key, n)``, the stable sorts by
+    fresh 32-bit keys;
+  * :func:`gumbel` — ``gumbel(key, shape)`` in its default ``"low"`` mode.
 
 A key is a pair ``(k1, k2)`` of 32-bit words: Python ints for one key, or
-int64 tensors of equal shape for a batch.  Words are carried in ``int64``
-and masked to 32 bits after every add and shift, because ``torch.uint32``
-lacks shifts and adds on some backends: the same code is then exact on the
-CPU and on CUDA.
+int64 tensors of equal shape ``B`` for a batch of keys, and every function
+above maps a batch of keys to a batch of draws (leading shape ``B``).
+Words are carried in ``int64`` and masked to 32 bits after every add,
+multiply and shift, because ``torch.uint32`` lacks shifts and adds on some
+backends: the same code is then exact on the CPU and on CUDA.  The draws
+run on the device the key's words live on (:func:`as_key` places them).
 
-``split``, ``randint``, ``permutation``, ``bernoulli`` and ``gumbel`` are
-not here yet; the solvers' round streams stay ``torch.Generator`` draws.
+Only :func:`gumbel` is not bit-equal to JAX: it takes ``torch.log`` of the
+bit-equal uniforms, and ``torch.log`` (like CUDA's ``logf``) rounds a few
+inputs in seven one ulp away from XLA's ``log``.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -32,6 +43,9 @@ MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _ONE_F32_BITS = 0x3F800000       # 1.0f: mantissa bits | this lie in [1, 2)
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+#: the smallest normal f32, ``gumbel``'s floor of its uniforms
+_TINY_F32 = 2.0 ** -126
 
 
 def PRNGKey(seed: int) -> Key:  # noqa: N802 - JAX's name
@@ -40,6 +54,24 @@ def PRNGKey(seed: int) -> Key:  # noqa: N802 - JAX's name
     if not 0 <= seed <= MASK32:
         raise ValueError("seed must be in [0, 2**32)")
     return 0, seed
+
+
+def as_key(key: Key, device=None) -> Key:
+    """``key`` with its words as int64 tensors on ``device`` (a key of
+    Python ints becomes two 0-d tensors), so that its draws run there."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return tuple(w.to(dev) if isinstance(w, torch.Tensor)
+                 else torch.tensor(int(w) & MASK32, dtype=torch.int64,
+                                   device=dev) for w in key)
+
+
+def _batch_shape(key: Key) -> Tuple[int, ...]:
+    return tuple(key[0].shape) if isinstance(key[0], torch.Tensor) else ()
+
+
+def _key_device(key: Key) -> torch.device:
+    return (key[0].device if isinstance(key[0], torch.Tensor)
+            else torch.device("cpu"))
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -79,6 +111,24 @@ def fold_in(key: Key, data: Word) -> Key:
     else:
         data = int(data) & MASK32
     return threefry2x32(key, 0, data)
+
+
+def split(key: Key, n: int) -> Key:
+    """``jax.random.split(key, n)`` (the foldlike split of the
+    partitionable layout): key i is the hash of the counter ``(0, i)``,
+    i.e. ``fold_in(key, i)``.  A batch of keys of shape ``B`` gives keys of
+    shape ``B + (n,)``."""
+    k0, k1 = key
+    ids = torch.arange(int(n), dtype=torch.int64, device=_key_device(key))
+    if _batch_shape(key):
+        k0, k1 = k0.unsqueeze(-1), k1.unsqueeze(-1)
+    return threefry2x32((k0, k1), 0, ids)
+
+
+def take(key: Key, i) -> Key:
+    """Key ``i`` along the last axis of a batch of keys (``split``'s
+    output): ``(k1[..., i], k2[..., i])``."""
+    return key[0][..., i], key[1][..., i]
 
 
 def random_bits(key: Key, shape: Sequence[int]) -> torch.Tensor:
@@ -146,3 +196,82 @@ def uniform(key: Key, shape: Sequence[int] = (), minval: float = 0.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
     return torch.maximum(lo, fma_f32(f, hi - lo, lo))
+
+
+def _bound(v, batch: Tuple[int, ...], ndim: int,
+           device: torch.device) -> torch.Tensor:
+    """An int32 bound of :func:`randint` as int64: an int, or a tensor of
+    the keys' batch shape (one bound per key, broadcast over the draw's
+    shape), clipped to the int32 range as JAX clips it."""
+    if isinstance(v, torch.Tensor):
+        v = v.to(device=device, dtype=torch.int64)
+        if batch and tuple(v.shape) == batch:
+            v = v.reshape(batch + (1,) * ndim)
+    else:
+        v = torch.tensor(int(v), dtype=torch.int64, device=device)
+    return v.clamp(_INT32_MIN, _INT32_MAX)
+
+
+def _rem(x: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
+    """XLA's unsigned remainder: ``x % 0`` is ``x``."""
+    return torch.where(span == 0, x, x % span.clamp(min=1))
+
+
+def randint(key: Key, shape: Sequence[int], minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), as int64.
+
+    Two words a draw, from the keys ``split(key, 2)``: with
+    span = maxval − minval (1 where maxval ≤ minval) and
+    mult = (2¹⁶ mod span)² mod span, the draw is
+    minval + ((hi mod span)·mult + lo mod span) mod span, every product
+    and sum a uint32 operation that wraps mod 2³² (for span > 2¹⁶,
+    (2¹⁶)² wraps to 0).  ``minval`` and ``maxval`` are ints or tensors of
+    the keys' batch shape."""
+    shape = tuple(int(s) for s in shape)
+    batch, dev = _batch_shape(key), _key_device(key)
+    ks = split(key, 2)
+    hi = random_bits(take(ks, 0), shape)
+    lo = random_bits(take(ks, 1), shape)
+    lo_b = _bound(minval, batch, len(shape), dev)
+    hi_b = _bound(maxval, batch, len(shape), dev)
+    span = torch.where(hi_b <= lo_b, torch.ones_like(hi_b),
+                       (hi_b - lo_b) & MASK32)
+    mult = _rem(torch.full_like(span, 1 << 16), span)
+    mult = _rem((mult * mult) & MASK32, span)
+    offset = ((_rem(hi, span) * mult) & MASK32) + _rem(lo, span)
+    offset = _rem(offset & MASK32, span)
+    # minval + offset as an int32 sum, which wraps
+    return ((lo_b + offset - _INT32_MIN) & MASK32) + _INT32_MIN
+
+
+def permutation(key: Key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as int64: ``num_rounds`` stable
+    sorts of the running order by fresh 32-bit keys, where num_rounds =
+    ceil(3·ln(max(1, n)) / ln(2³² − 1)) — 1 for n ≤ 1,625, 2 up to
+    n ≈ 2.6·10⁶ — and each round draws ``key, sub = split(key, 2)`` and
+    sorts by ``bits(sub, (n,))``.  A stable sort keeps equal keys in their
+    previous order, as ``lax.sort_key_val`` does; the words hold uint32
+    values, so int64 order is their order.  A batch of keys of shape ``B``
+    gives ``B + (n,)``."""
+    n = int(n)
+    batch, dev = _batch_shape(key), _key_device(key)
+    order = torch.arange(n, dtype=torch.int64, device=dev).expand(
+        batch + (n,))
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK32))
+    for _ in range(rounds):
+        ks = split(key, 2)
+        key, sub = take(ks, 0), take(ks, 1)
+        sort_keys = random_bits(sub, (n,))
+        idx = torch.argsort(sort_keys, dim=-1, stable=True)
+        order = order.gather(-1, idx)
+    return order.contiguous()
+
+
+def gumbel(key: Key, shape: Sequence[int] = (), *,
+           device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in f32, mode ``"low"``:
+    −log(−log(u)) of u = ``uniform(key, shape, tiny, 1)``.  The uniforms
+    are JAX's bits; the logs are ``torch.log``'s (see the module's
+    docstring)."""
+    u = uniform(key, shape, _TINY_F32, 1.0, device=device)
+    return -torch.log(-torch.log(u))

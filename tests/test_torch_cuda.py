@@ -538,6 +538,32 @@ def test_threefry_and_fleet_on_the_card_equal_the_cpu(cuda):
             faults.apply(deltas, r, ids), rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.parametrize("n", [1_625, 1_626, 8_192])
+def test_threefry_draws_on_the_card_equal_the_cpu(cuda, n):
+    """split, randint (spans on both sides of 2¹⁶), permutation (one and
+    two sorting rounds) on a batch of 64 keys: the card's are the CPU's
+    bit for bit; gumbel's uniforms too, and its value (CUDA's logf against
+    the CPU's log) within 2 ulp of max(|g|, 1)."""
+    kc = threefry.split(threefry.fold_in(threefry.PRNGKey(5), n), 64)
+    kg = threefry.as_key(kc, cuda)
+    assert all(torch.equal(x.cpu(), y) for x, y in
+               zip(threefry.split(kg, 3), threefry.split(kc, 3)))
+    span = torch.tensor([1, 2, 97, 6_750, 65_536, 65_537, 2 ** 31 - 1, n]
+                        * 8, dtype=torch.int64)
+    assert torch.equal(threefry.randint(kg, (50,), 0, span.to(cuda)).cpu(),
+                       threefry.randint(kc, (50,), 0, span))
+    assert torch.equal(threefry.permutation(kg, n).cpu(),
+                       threefry.permutation(kc, n))
+    tiny = 2.0 ** -126
+    assert torch.equal(threefry.uniform(kg, (n,), tiny, 1.0).cpu(),
+                       threefry.uniform(kc, (n,), tiny, 1.0))
+    g_cpu = threefry.gumbel(kc, (n,)).double()
+    ulp = torch.tensor(2.0 ** -23, dtype=torch.float64) * torch.exp2(
+        torch.floor(torch.log2(g_cpu.abs().clamp(min=1.0))))
+    err = (threefry.gumbel(kg, (n,)).cpu().double() - g_cpu).abs()
+    assert bool((err <= 2 * ulp).all())
+
+
 def test_faulted_small_run_on_the_card(cuda):
     """FSVRG with a trace, delta faults and the trimmed-mean guard for
     three rounds on the card and on the CPU from the same data and draws
