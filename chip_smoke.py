@@ -26,19 +26,25 @@ Phases, in order (any failure raises and exits non-zero):
    refusing a ragged S); then the card's threefry draws, fleet masks and
    fault kinds against the CPU's, bit for bit, and its ``split``,
    ``randint`` (spans on both sides of 2¹⁶), ``permutation`` (n = 1,625,
-   1,626 and 8,192) bit for bit and ``gumbel`` within 2 ulp;
-4. run the four solvers of Fig. 2 that the port has kernels for at the
-   paper's full width — ``generate`` of the §4 config (K = 10,000 clients,
-   d = 20,002 features, n = 2,166,693 examples) and ``build_problem`` once,
-   then ``make_solver("fsvrg" | "fedavg" | "dane" | "cocoa",
-   aggregator="pallas")`` → ``Trainer`` for 3 rounds each — with the launch
-   counts set to 0 just before each solver and read just after (CoCoA+:
-   one ``cocoa_sdca_pass`` launch a bucket, no ``cocoa_sdca_update``);
-   CoCoA+'s pass kernel against the plain step loop on the card at every
-   full-width bucket and at one with repeated features in a row, and 3
-   more CoCoA+ rounds through the plain loop, which must agree; then each
-   solver on a small problem on the card and on the CPU (plain versions)
-   with the same data and draws, which must agree;
+   1,626 and 8,192), ``gumbel`` and ``floatmath``'s log, pow, sigmoid and
+   sums, bit for bit;
+4. run the solvers of Fig. 2 at the paper's full width from the seed —
+   ``generate`` of the §4 config (K = 10,000 clients, d = 20,002
+   features, n = 2,166,693 examples) and ``build_problem`` once; the
+   engine's Bernoulli masks at that layout, card against CPU bit for bit;
+   then ``make_solver("fsvrg" | "fedavg" | "dane" | "cocoa" |
+   "svrg_naive", aggregator="pallas")`` → ``Trainer`` for 3 rounds each,
+   every round on the key ``fold_in(PRNGKey(0), r)`` from which the
+   solver draws its masks, permutations and samples on the card — with
+   the launch counts set to 0 just before each solver and read just after
+   (CoCoA+: one ``cocoa_sdca_pass`` launch a bucket, no
+   ``cocoa_sdca_update``), and the seconds a round's draws take beside
+   the round's; CoCoA+'s pass kernel against the plain step loop on the
+   card at every full-width bucket and at one with repeated features in a
+   row, and 3 more CoCoA+ rounds through the plain loop, which must agree;
+   then each solver on a small problem on the card and on the CPU (plain
+   versions) from the same seed, each device drawing for itself, which
+   must agree;
 5. the fault-tolerant rounds at full width: a fleet trace, delta faults
    (NaN / sign / scale / replay) and a guard — FSVRG with the trimmed
    mean, FedAvg with the median (both through ``robust_aggregate``),
@@ -135,7 +141,10 @@ SOURCES = {
 }
 #: solver -> the kernel its client pass launches
 STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
-               "dane": "dane_update", "cocoa": "cocoa_sdca_pass"}
+               "dane": "dane_update", "cocoa": "cocoa_sdca_pass",
+               "svrg_naive": "fsvrg_update"}
+#: the solvers whose round starts with the full gradient (the prelude)
+PRELUDE = ("fsvrg", "dane", "svrg_naive")
 # about 20 f32 operations a Newton step (log and divisions counted as one)
 # and 5 for the start: the SDCA solve's work per coordinate at 12 steps
 SDCA_OPS_PER_COORD = 5 + 12 * 20
@@ -477,10 +486,10 @@ def serve_phase(dev, sync) -> dict:
 
 def check_draws(dev) -> None:
     """The card's split, randint, permutation and gumbel on a batch of 256
-    keys against the CPU's: bit for bit, but gumbel's value (CUDA's logf
-    against the CPU's log) within 2 ulp of max(|g|, 1)."""
+    keys, and the f32 functions the data sampler takes of them, against
+    the CPU's: bit for bit."""
     import torch
-    from repro_torch.utils import threefry
+    from repro_torch.utils import floatmath, threefry
     kc = threefry.split(threefry.fold_in(threefry.PRNGKey(SEED), 23), 256)
     kg = threefry.as_key(kc, dev)
     require(all(torch.equal(x.cpu(), y) for x, y in
@@ -501,22 +510,22 @@ def check_draws(dev) -> None:
                             threefry.permutation(kc, n)),
                 f"permutation of {n} on the card differs from the CPU")
     n = 20_000
-    tiny = 2.0 ** -126
-    require(torch.equal(threefry.uniform(kg, (n,), tiny, 1.0).cpu(),
-                        threefry.uniform(kc, (n,), tiny, 1.0)),
-            "gumbel's uniforms on the card differ from the CPU's")
-    g_c = threefry.gumbel(kc, (n,)).double()
-    g_g = threefry.gumbel(kg, (n,)).cpu().double()
-    ulp = 2.0 ** -23 * torch.exp2(torch.floor(torch.log2(
-        g_c.abs().clamp(min=1.0))))
-    err = float(((g_g - g_c).abs() / ulp).max())
-    differ = int((g_g != g_c).sum())
+    require(torch.equal(threefry.gumbel(kg, (n,)).cpu(),
+                        threefry.gumbel(kc, (n,))),
+            "gumbel on the card differs from the CPU")
+    x = torch.rand(1_000_000, generator=torch.Generator().manual_seed(SEED))
+    for label, fn, arg in (
+            ("log", floatmath.log_f32, x * 50 + 2.0 ** -126),
+            ("pow", lambda v: floatmath.pow_f32(v, 1.0 / 0.3), x * 50),
+            ("sigmoid", floatmath.sigmoid_f32, x * 40 - 20),
+            ("sum", floatmath.sum_f32, x.reshape(2_500, 400)),
+            ("cumsum", floatmath.cumsum_f32, x.reshape(2_500, 400))):
+        require(torch.equal(fn(arg.to(dev)).cpu(), fn(arg)),
+                f"floatmath {label} on the card differs from the CPU")
     log(f"[check] threefry split, randint (spans {spans}, and one a key), "
-        "permutation (n = 1,625, 1,626, 8,192) on 256 keys: card == CPU bit "
-        f"for bit; gumbel (256 × {n}): uniforms bit for bit, {differ} of "
-        f"{256 * n} values differ, by at most {err:.2f} ulp of "
-        "max(|g|, 1) (tolerance 2)")
-    require(err <= 2.0, "gumbel on the card is not within 2 ulp of the CPU")
+        "permutation (n = 1,625, 1,626, 8,192) and gumbel (256 × "
+        f"{n}) on 256 keys, and floatmath's log, pow, sigmoid, sum and "
+        "cumsum on 10⁶ values: card == CPU bit for bit")
 
 
 def wkv6_cost(B, S, Hn, D, L=32):
@@ -888,14 +897,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_logreg_config
-    from repro_torch.core import (DANE, FSVRG, CoCoAPlus, FedAvg,
-                                  NonFiniteIterateError, Trainer,
-                                  build_problem, make_solver)
+    from repro_torch.core import (EngineConfig, NonFiniteIterateError,
+                                  RoundEngine, Trainer, build_problem,
+                                  make_solver)
     from repro_torch.core.problem import LogRegProblem
     from repro_torch.data import generate
-    from repro_torch.fleet import (DeltaFaults, FleetTrace,
-                                   TraceParticipation, fault_counts,
-                                   fleet_masks)
+    from repro_torch.fleet import (BernoulliParticipation, DeltaFaults,
+                                   FleetTrace, TraceParticipation,
+                                   fault_counts, fleet_masks)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import robust_aggregate as ra_kernel
     from repro_torch.utils import threefry
@@ -1261,6 +1270,24 @@ def main() -> int:
         + f"; Σ m_pad {steps}")
     f0 = float(prob.flat.loss(torch.zeros(prob.d, device=dev)))
 
+    # the engine's Bernoulli masks on the card against the CPU's, at the
+    # full-width layout: uniform(fold_in(fold_in(key, wi), 997)) < p
+    mask_eng = RoundEngine(prob, EngineConfig(participation=0.1))
+    drawn = []
+    for r in range(ROUNDS):
+        key = threefry.fold_in(threefry.PRNGKey(SEED), r)
+        mg = mask_eng.participation_masks(key, r)
+        mc = BernoulliParticipation(0.1).masks(
+            key, r, mask_eng._offsets, mask_eng._sizes, torch.device("cpu"))
+        require(all(torch.equal(x.cpu(), y) for x, y in zip(mg, mc)),
+                f"the engine's masks of round {r} differ between card and "
+                "CPU")
+        drawn.append(int(sum(float(m.sum()) for m in mg)))
+    log(f"[check] the engine's Bernoulli masks (p = 0.1) at K = "
+        f"{prob.num_clients}, rounds 0-{ROUNDS - 1}: card == CPU bit for "
+        f"bit ({', '.join(map(str, drawn))} clients drawn)")
+    del mask_eng
+
     def local_steps(name, solver):
         """Launches of the client pass's kernel a round: a batched local
         step each (CoCoA+: the whole pass of a bucket each)."""
@@ -1269,7 +1296,31 @@ def main() -> int:
         if name in ("dane", "cocoa"):
             return (solver.cfg.local_steps if name == "dane" else 1) * len(
                 prob.buckets)
+        if name == "svrg_naive":
+            return solver.cfg.naive_steps * len(prob.buckets)
         return steps
+
+    def draw_seconds(name, solver, r):
+        """The seconds round r's own draws take on the card: the masks,
+        each bucket's key and its clients' keys and permutations (FSVRG,
+        FedAvg, CoCoA+) or samples (svrg_naive; DANE's SVRG solver)."""
+        eng = solver.engine
+        sync()
+        t = time.perf_counter()
+        key = threefry.fold_in(threefry.as_key(threefry.PRNGKey(SEED), dev),
+                               r)
+        eng.participation_masks(key, r)
+        for bi, (wi, b) in enumerate(zip(eng._offsets, prob.buckets)):
+            kb = threefry.fold_in(key, wi)
+            if name in ("fsvrg", "fedavg", "cocoa"):
+                solver.permutations(kb, bi, b)
+            elif name == "svrg_naive" or (
+                    name == "dane" and solver.cfg.local_solver == "svrg"):
+                solver.samples(kb, bi, b)
+            else:
+                eng.client_keys(kb, b.num_clients)
+        sync()
+        return time.perf_counter() - t
 
     # the prelude's full gradients, counted where they are computed
     grads = [0]
@@ -1329,9 +1380,13 @@ def main() -> int:
         expected = ROUNDS * local_steps(name, solver)
         log(f"[main] {name}: make_solver {t_make:.2f} s; loss: round 0 "
             f"{f0:.6f} -> " + " -> ".join(f"{f:.6f}" for f in hist))
+        draw_s = draw_seconds(name, solver, ROUNDS - 1)
+        run_["draw_s"] = draw_s
         log(f"[main] {name}: seconds per round " + ", ".join(
-            f"{s:.3f}" for s in run_["round_s"]) + f"; peak device memory "
-            f"{run_['peak_gb']:.2f} GB; full gradients {run_['grads']}")
+            f"{s:.3f}" for s in run_["round_s"]) + f"; of a round, its own "
+            f"draws (masks, keys, permutations or samples) {draw_s:.4f} s; "
+            f"peak device memory {run_['peak_gb']:.2f} GB; full gradients "
+            f"{run_['grads']}")
         log(f"[main] {name}: launches {launches} (expected {kernel} "
             f"{expected}, fused_aggregate {ROUNDS})")
         require(all(f == f and abs(f) != float("inf") for f in hist),
@@ -1368,7 +1423,7 @@ def main() -> int:
         require(all(v == 0 for k, v in launches.items()
                     if k not in (kernel, "fused_aggregate")),
                 f"{name}: launched another solver's kernel")
-        require(run_["grads"] == (ROUNDS if name in ("fsvrg", "dane") else 0),
+        require(run_["grads"] == (ROUNDS if name in PRELUDE else 0),
                 f"{name}: not one full gradient per round")
 
     # CoCoA+'s pass kernel against the plain step loop on the card, at every
@@ -1380,11 +1435,12 @@ def main() -> int:
     cocoa_solver, cocoa_res = runs["cocoa"]["solver"], runs["cocoa"]["res"]
     flat = prob.flat
     sdca_args = []
-    pass_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    for bi, b in enumerate(prob.buckets):
+    pass_key = threefry.PRNGKey(SEED + 5)
+    for bi, (wi, b) in enumerate(zip(cocoa_solver.engine._offsets,
+                                     prob.buckets)):
         sdca_args.append((cocoa_res.w, cocoa_res.state.aux[bi], b.idx, b.val,
-                          b.y, b.n_k, cocoa_solver.permutations(pass_gen, bi,
-                                                                b)))
+                          b.y, b.n_k, cocoa_solver.permutations(
+                              threefry.fold_in(pass_key, wi), bi, b)))
     big_b = max(range(len(prob.buckets)),
                 key=lambda i: prob.buckets[i].num_clients)
     rep_idx = prob.buckets[big_b].idx.clone()
@@ -1458,22 +1514,8 @@ def main() -> int:
         lambda: make_solver("cocoa", prob, aggregator="pallas"))
 
     # each solver on a small problem, kernels on the card vs plain versions
-    # on the CPU, same data and the same permutations (drawn on the CPU
-    # from one generator per round and bucket)
-    def shared_draws(cls):
-        class SharedDraws(cls):
-            def round(self, state, gen):
-                self._r = state.round
-                return super().round(state, gen)
-
-            def permutations(self, gen, bucket_index, bucket):
-                cpu = torch.Generator().manual_seed(1000 * self._r
-                                                    + bucket_index)
-                return super().permutations(cpu, bucket_index, bucket)
-        return SharedDraws
-
-    classes = {"fsvrg": shared_draws(FSVRG), "fedavg": shared_draws(FedAvg),
-               "dane": DANE, "cocoa": shared_draws(CoCoAPlus)}
+    # on the CPU, same data and the same round keys: each device draws the
+    # masks, permutations and samples itself, bit for bit the same
     small = generate(get_logreg_config().scaled(0.002), seed=SEED,
                      device="cpu")
 
@@ -1482,14 +1524,13 @@ def main() -> int:
         ws, engines = [], []
         for device in ("cpu", "cuda"):
             p = build_problem(small, device=device)
-            cfg_s = make_solver(name, p, device=device, aggregator="pallas",
-                                **kw).cfg
-            sv = classes[name](p, cfg=cfg_s, device=device)
+            sv = make_solver(name, p, device=device, aggregator="pallas",
+                             **kw)
             ws.append(Trainer(sv, rounds=ROUNDS, seed=SEED).fit().w.cpu())
             engines.append(sv.engine)
         return ws, engines
 
-    for name in classes:
+    for name in STEP_KERNEL:
         ws, _ = small_runs(name)
         scale = float(ws[0].abs().max())
         err = float((ws[1] - ws[0]).abs().max())
@@ -1642,17 +1683,18 @@ def main() -> int:
         solver, res = run_["solver"], run_["res"]
         w = res.w
         eng = solver.engine
-        gen = torch.Generator(device=dev).manual_seed(SEED)
+        key = threefry.fold_in(threefry.as_key(threefry.PRNGKey(SEED), dev),
+                               ROUNDS)
         masks, mask_s, fault_s = None, 0.0, 0.0
         if faulted:
             sync()
             t = time.perf_counter()
-            masks = eng.participation_masks(gen, ROUNDS)
+            masks = eng.participation_masks(key, ROUNDS)
             sync()
             mask_s = time.perf_counter() - t
         sync()
         t = time.perf_counter()
-        ctx = (prob.flat.grad(w),) if name in ("fsvrg", "dane") else ()
+        ctx = (prob.flat.grad(w),) if name in PRELUDE else ()
         sync()
         prelude_s = time.perf_counter() - t
         deltas = torch.empty((K, d), device=dev)
@@ -1661,10 +1703,11 @@ def main() -> int:
             out = deltas[wi:wi + b.num_clients]
             sync()
             t = time.perf_counter()
+            kb = threefry.fold_in(key, wi)
             if name == "cocoa":
-                solver._pass(w, bi, b, res.state.aux[bi], gen, out)
+                solver._pass(w, bi, b, res.state.aux[bi], kb, out)
             else:
-                solver._pass(w, bi, b, gen, out, *ctx)
+                solver._pass(w, bi, b, kb, out, *ctx)
             sync()
             pass_s.append(time.perf_counter() - t)
             if faulted:
@@ -1946,8 +1989,8 @@ def main() -> int:
         solver, res = run_["solver"], run_["res"]
         t = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            solver.round(res.state,
-                         torch.Generator(device=dev).manual_seed(SEED))
+            solver.round(res.state, threefry.fold_in(
+                threefry.PRNGKey(SEED), ROUNDS))
             sync()
         events = sorted((e for e in prof.key_averages()
                          if e.device_type == DeviceType.CUDA),

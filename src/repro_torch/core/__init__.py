@@ -5,8 +5,8 @@
   engine.py    — the round: masks, per-bucket client passes, aggregation
   solver.py    — the FederatedSolver protocol over a SolverState
   registry.py  — make_solver("fsvrg", prob), defaults from repro_torch.configs
-  trainer.py   — the Trainer.fit round-loop driver
-  fsvrg.py     — Algorithm 4 (the paper's method)
+  trainer.py   — the Trainer.fit round-loop driver and sweep
+  fsvrg.py     — Algorithm 4 (the paper's method) and Algorithm 3
   baselines.py — distributed GD
   fedavg.py    — Federated Averaging
   dane.py      — DANE (Algorithm 2), GD and Prop.-1 SVRG local solvers
@@ -19,7 +19,8 @@ from repro_torch.core.engine import EngineConfig, RoundEngine
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.core.registry import (available, get_spec, make_solver,
                                        register)
-from repro_torch.core.trainer import FitResult, NonFiniteIterateError, Trainer
+from repro_torch.core.trainer import (FitResult, NonFiniteIterateError,
+                                      Trainer, sweep)
 from repro_torch.core.fsvrg import FSVRG, FSVRGConfig
 from repro_torch.core.baselines import DistributedGD
 from repro_torch.core.fedavg import FedAvg, FedAvgConfig
@@ -30,7 +31,8 @@ __all__ = [
     "ClientBucket", "FederatedLogReg", "LogRegProblem", "build_problem",
     "build_test_problem", "EngineConfig", "RoundEngine", "FederatedSolver",
     "SolverState", "available", "get_spec", "make_solver", "register",
-    "FitResult", "NonFiniteIterateError", "Trainer", "FSVRG", "FSVRGConfig",
+    "FitResult", "NonFiniteIterateError", "Trainer", "sweep", "FSVRG",
+    "FSVRGConfig",
     "DistributedGD", "FedAvg", "FedAvgConfig", "DANE", "DANEConfig",
     "CoCoAPlus", "CoCoAConfig",
 ]

@@ -15,6 +15,7 @@ from repro_torch.core.engine import EngineConfig, RoundEngine
 from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
+from repro_torch.utils import threefry
 from repro_torch.utils.device import DeviceLike
 
 
@@ -40,7 +41,7 @@ def gd_client_pass(w: torch.Tensor, bucket: ClientBucket, lam: float,
 
 class DistributedGD(FederatedSolver):
     """Distributed GD on the RoundEngine (client pass = exact local
-    gradient, n_k/n aggregation).  Deterministic: the round's generator is
+    gradient, n_k/n aggregation).  Deterministic: the round's key is
     unused."""
 
     name = "gd"
@@ -63,13 +64,13 @@ class DistributedGD(FederatedSolver):
             participation_model=participation_model,
             fault_model=fault_model)
         lam = problem.flat.lam
-        gd_pass = lambda w, bi, b, gen, out: gd_client_pass(w, b, lam,
-                                                            stepsize, out)
+        gd_pass = lambda w, bi, b, kb, out: gd_client_pass(w, b, lam,
+                                                           stepsize, out)
         self._round_fast = self.engine.compile(gd_pass)
 
     def round(self, state: SolverState,
-              gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen,
+              key: threefry.Key) -> SolverState:
+        return state.replace(w=self._round_fast(state.w, key,
                                                 round_index=state.round),
                              round=state.round + 1)
 

@@ -10,7 +10,9 @@ engine sums them (``weighting="sum"``): w^{t+1} = w^t + (γ/λn) Σ_k X_k u_k.
 Under partial participation the engine freezes the dual blocks of the
 clients the round's draw left out, so w = (1/λn) Σ_k X_k α_k keeps holding.
 
-The local solver is one permutation pass of SDCA per round.  A bucket's
+The local solver is one permutation pass of SDCA per round, client k of
+the bucket with key kb in the order ``permutation(take(split(kb, Kb), k),
+m_pad)``, the reference's, bit for bit.  A bucket's
 clients are independent, so the whole bucket's pass is one
 ``cocoa_sdca_pass`` call: on the card one kernel launch that runs every
 client's chain of m_pad steps (a warp a client), in place of the
@@ -31,7 +33,8 @@ from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.kernels import ops
-from repro_torch.utils.device import DeviceLike, random_permutations
+from repro_torch.utils import threefry
+from repro_torch.utils.device import DeviceLike
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,24 +113,24 @@ class CoCoAPlus(FederatedSolver):
             aux=tuple(torch.zeros((b.num_clients, b.m_pad), device=dev)
                       for b in self.problem.buckets))
 
-    def permutations(self, gen: torch.Generator, bucket_index: int,
+    def permutations(self, kb: threefry.Key, bucket_index: int,
                      bucket: ClientBucket) -> torch.Tensor:
         """Every client's random order of its m_pad dual coordinates, drawn
-        batched from the round's generator: (Kb, m_pad) int64."""
-        return random_permutations(gen, (bucket.num_clients, bucket.m_pad),
-                                   bucket.idx.device)
+        batched from the bucket's key: (Kb, m_pad) int64."""
+        return threefry.permutation(
+            self.engine.client_keys(kb, bucket.num_clients), bucket.m_pad)
 
-    def _pass(self, w, bi, bucket, alpha, gen, out):
+    def _pass(self, w, bi, bucket, alpha, kb, out):
         flat = self.problem.flat
         u = sdca_local_pass_keyed(w, alpha, bucket, flat.lam, flat.n,
                                   self.sigma,
-                                  self.permutations(gen, bi, bucket), out)
+                                  self.permutations(kb, bi, bucket), out)
         out.mul_(self._scale)
         return alpha + u
 
     def round(self, state: SolverState,
-              gen: torch.Generator) -> SolverState:
-        w, alphas = self._round_fast(state.w, state.aux, gen,
+              key: threefry.Key) -> SolverState:
+        w, alphas = self._round_fast(state.w, state.aux, key,
                                      round_index=state.round)
         return SolverState(w=w, aux=alphas, round=state.round + 1)
 

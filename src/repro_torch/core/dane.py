@@ -14,7 +14,9 @@ client of a bucket at once:
     subproblem, each step the ``dane_update`` kernel.  Deterministic.
   * ``local_solver="svrg"`` — the Proposition-1 construction: one epoch of
     generic SVRG on the explicitly materialized subproblem (η = 1, µ = 0),
-    over ``svrg_steps`` sampled examples per client.
+    over ``svrg_steps`` examples per client sampled with replacement,
+    client k of the bucket with key kb from ``randint(take(split(kb, Kb),
+    k), (m,), 0, max(n_k, 1))``, the reference's samples, bit for bit.
 
 Not ported yet: ``DANERidge`` and ``dane_svrg_round`` (they need
 ``build_dense_problem``), and the streamed, cohort and virtual options.
@@ -31,6 +33,7 @@ from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.kernels import ops
+from repro_torch.utils import threefry
 from repro_torch.utils.device import DeviceLike
 
 _SOLVERS = ("gd", "svrg")
@@ -175,28 +178,27 @@ class DANE(FederatedSolver):
         prelude = lambda w: (self.problem.flat.grad(w),)
         self._round_fast = self.engine.compile(self._pass, prelude=prelude)
 
-    def samples(self, gen: torch.Generator, bucket_index: int,
+    def samples(self, kb: threefry.Key, bucket_index: int,
                 bucket: ClientBucket) -> torch.Tensor:
         """The SVRG solver's sample indices, uniform over each client's
-        rows, drawn batched from the round's generator: (Kb, m) int64."""
-        u = torch.rand((bucket.num_clients, self.cfg.svrg_steps),
-                       generator=gen, device=gen.device).to(bucket.idx.device)
-        n_k = bucket.n_k.clamp(min=1)
-        return torch.floor(u * n_k[:, None]).to(torch.int64).clamp(
-            max=n_k[:, None] - 1)
+        rows with replacement, drawn batched from the bucket's key:
+        (Kb, m) int64."""
+        return threefry.randint(
+            self.engine.client_keys(kb, bucket.num_clients),
+            (self.cfg.svrg_steps,), 0, bucket.n_k.clamp(min=1))
 
-    def _pass(self, w, bi, bucket, gen, out, full_grad):
+    def _pass(self, w, bi, bucket, kb, out, full_grad):
         lam = self.problem.flat.lam
         if self.cfg.local_solver == "gd":
             dane_gd_pass(w, full_grad, bucket, lam, self.cfg, out, g=self._g,
                          a=self._a)
         else:
             dane_svrg_pass_keyed(w, full_grad, bucket, lam, self.cfg,
-                                 self.samples(gen, bi, bucket), out)
+                                 self.samples(kb, bi, bucket), out)
 
     def round(self, state: SolverState,
-              gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen,
+              key: threefry.Key) -> SolverState:
+        return state.replace(w=self._round_fast(state.w, key,
                                                 round_index=state.round),
                              round=state.round + 1)
 

@@ -20,9 +20,15 @@ Algorithms with per-client state across rounds (CoCoA+'s dual blocks) use
 returns its bucket's state, and under partial participation a client left
 out of the round keeps its old state.
 
-Randomness: the round's ``torch.Generator`` is drawn from in a fixed order
-— first the participation masks of every bucket (once per round, shared by
-every consumer), then whatever the client passes draw, bucket by bucket.
+Randomness: a round takes the reference's round key (a
+:mod:`repro_torch.utils.threefry` key, the Trainer's
+``fold_in(PRNGKey(seed), r)``), and its words are moved to the engine's
+device, so every draw of the round runs there.  The bucket whose first
+client is ``wi`` gets ``kb = fold_in(key, wi)``: its Bernoulli mask is
+``uniform(fold_in(kb, 997), (Kb,)) < participation``, drawn once a round
+and shared by every consumer, and its pass receives ``kb`` and draws its
+clients' keys ``split(kb, Kb)`` (:meth:`RoundEngine.client_keys`) — the
+reference's draws, bit for bit.
 
 Fault tolerance (the reference's fleet layer on the plain round):
 
@@ -52,12 +58,13 @@ import torch
 
 from repro_torch.core.problem import FederatedLogReg
 from repro_torch.kernels import ops
+from repro_torch.utils import threefry
 
-#: client_pass(w, bucket_index, bucket, gen, out, *ctx) writes the bucket's
-#: (Kb, d) deltas w_k − w into ``out``
+#: client_pass(w, bucket_index, bucket, kb, out, *ctx) writes the bucket's
+#: (Kb, d) deltas w_k − w into ``out``; kb is the bucket's key
 ClientPassFn = Callable[..., None]
 
-#: state_pass(w, bucket_index, bucket, state, gen, out, *ctx) writes the
+#: state_pass(w, bucket_index, bucket, state, kb, out, *ctx) writes the
 #: bucket's deltas into ``out`` and returns its new state, a new tensor
 #: whose leading axis is the bucket's client axis (CoCoA+'s α, (Kb, m_pad));
 #: the old state is left as it was
@@ -137,7 +144,7 @@ class RoundEngine:
                 participation_model, "masks"):
             raise ValueError(
                 "participation_model must implement "
-                "masks(gen, round_index, offsets, sizes, device) — see "
+                "masks(key, round_index, offsets, sizes, device) — see "
                 "repro_torch.fleet.participation.ParticipationModel")
         self.participation_model = participation_model
         if fault_model is not None and not hasattr(fault_model, "apply"):
@@ -244,23 +251,38 @@ class RoundEngine:
             return torch.ones((num_clients,), device=self.device)
         return self.problem.client_weights[wi:wi + num_clients]
 
-    def participation_masks(self, gen: torch.Generator,
+    def participation_mask(self, bucket_key: threefry.Key,
+                           num_clients: int) -> torch.Tensor:
+        """i.i.d. Bernoulli(participation) mask of one bucket from its key
+        (1.0 = in the round): ``uniform(fold_in(kb, 997), (Kb,)) < p``."""
+        u = threefry.uniform(threefry.fold_in(bucket_key, 997),
+                             (num_clients,))
+        return (u < self.cfg.participation).to(torch.float32)
+
+    def participation_masks(self, key: threefry.Key,
                             round_index: Optional[int] = None
                             ) -> Optional[List[torch.Tensor]]:
-        """The round's per-bucket Bernoulli(participation) masks (1.0 = in
-        the round), drawn once from the round's generator; ``None`` under
-        full participation.  With a ``participation_model`` the draw is
-        the model's ``masks(gen, round_index, offsets, sizes, device)``."""
+        """The round's per-bucket Bernoulli(participation) masks, drawn
+        once from the round key's ``fold_in`` chain; ``None`` under full
+        participation.  With a ``participation_model`` the draw is the
+        model's ``masks(key, round_index, offsets, sizes, device)``."""
         if self.participation_model is not None:
             return self.participation_model.masks(
-                gen, self._round_index_arg(round_index), self._offsets,
+                key, self._round_index_arg(round_index), self._offsets,
                 self._sizes, self.device)
         if self.cfg.participation >= 1.0:
             return None
-        return [(torch.rand((b.num_clients,), generator=gen,
-                            device=self.device)
-                 < self.cfg.participation).to(torch.float32)
-                for b in self.problem.buckets]
+        key = threefry.as_key(key, self.device)
+        return [self.participation_mask(threefry.fold_in(key, wi),
+                                        b.num_clients)
+                for wi, b in zip(self._offsets, self.problem.buckets)]
+
+    def client_keys(self, bucket_key: threefry.Key,
+                    num_clients: int) -> threefry.Key:
+        """The bucket's per-client keys, ``split(kb, Kb)``, on the engine's
+        device: client k's key is ``threefry.take(keys, k)``."""
+        return threefry.split(threefry.as_key(bucket_key, self.device),
+                              num_clients)
 
     @staticmethod
     def _reweight_scale(total_mass, expected_mass):
@@ -325,28 +347,30 @@ class RoundEngine:
 
     # -- steps 2-4: one full round ----------------------------------------- #
 
-    def round(self, w: torch.Tensor, gen: torch.Generator,
+    def round(self, w: torch.Tensor, key: threefry.Key,
               client_pass: ClientPassFn, *ctx,
               round_index: Optional[int] = None) -> torch.Tensor:
         """Draw the masks, run every bucket's client pass into the stacked
         delta buffer, corrupt each bucket's returned deltas through the
-        fault model (if any), then aggregate.  ``round_index`` feeds
-        round-dependent participation models and the fault draws."""
-        masks = self.participation_masks(gen, round_index)
+        fault model (if any), then aggregate.  Bucket ``bi`` with first
+        client ``wi`` gets the key ``fold_in(key, wi)``.  ``round_index``
+        feeds round-dependent participation models and the fault draws."""
+        key = threefry.as_key(key, self.device)
+        masks = self.participation_masks(key, round_index)
         r = (self._round_index_arg(round_index)
              if self.fault_model is not None else None)
         deltas = torch.empty((self.problem.num_clients, self.problem.d),
                              dtype=w.dtype, device=w.device)
         for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
             out = deltas[wi:wi + b.num_clients]
-            client_pass(w, bi, b, gen, out, *ctx)
+            client_pass(w, bi, b, threefry.fold_in(key, wi), out, *ctx)
             if r is not None:
                 self._faulted(out, r, bi,
                               masks[bi] if masks is not None else None)
         return self.aggregate(w, deltas, masks)
 
     def round_with_state(self, w: torch.Tensor,
-                         states: Sequence[torch.Tensor], gen: torch.Generator,
+                         states: Sequence[torch.Tensor], key: threefry.Key,
                          client_pass: StateClientPassFn, *ctx,
                          round_index: Optional[int] = None
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -357,7 +381,8 @@ class RoundEngine:
         whose aggregation weight they zero also keeps its old state, bit
         for bit, so primal and dual views never diverge.  Faults hit the
         delta only, never the state."""
-        masks = self.participation_masks(gen, round_index)
+        key = threefry.as_key(key, self.device)
+        masks = self.participation_masks(key, round_index)
         r = (self._round_index_arg(round_index)
              if self.fault_model is not None else None)
         deltas = torch.empty((self.problem.num_clients, self.problem.d),
@@ -366,7 +391,8 @@ class RoundEngine:
         for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
             old = states[bi]
             out = deltas[wi:wi + b.num_clients]
-            new = client_pass(w, bi, b, old, gen, out, *ctx)
+            new = client_pass(w, bi, b, old, threefry.fold_in(key, wi), out,
+                              *ctx)
             if r is not None:
                 self._faulted(out, r, bi,
                               masks[bi] if masks is not None else None)
@@ -379,13 +405,13 @@ class RoundEngine:
 
     def reference(self, client_pass: ClientPassFn, *,
                   prelude: Optional[Callable] = None) -> Callable:
-        """``round(w, gen, round_index=None) -> w_next``: the prelude's
+        """``round(w, key, round_index=None) -> w_next``: the prelude's
         results are appended to the client pass's arguments."""
 
-        def reference_round(w: torch.Tensor, gen: torch.Generator, *,
+        def reference_round(w: torch.Tensor, key: threefry.Key, *,
                             round_index: Optional[int] = None):
             ctx = tuple(prelude(w)) if prelude is not None else ()
-            return self.round(w, gen, client_pass, *ctx,
+            return self.round(w, key, client_pass, *ctx,
                               round_index=round_index)
 
         return reference_round
@@ -398,16 +424,16 @@ class RoundEngine:
 
     def reference_with_state(self, client_pass: StateClientPassFn, *,
                              prelude: Optional[Callable] = None) -> Callable:
-        """``round(w, states, gen, round_index=None) -> (w_next,
+        """``round(w, states, key, round_index=None) -> (w_next,
         new_states)`` over
         :meth:`round_with_state`, the prelude's results appended to the
         client pass's arguments as in :meth:`reference`."""
 
-        def reference_round(w: torch.Tensor, states, gen: torch.Generator, *,
+        def reference_round(w: torch.Tensor, states, key: threefry.Key, *,
                             round_index: Optional[int] = None):
             ctx = tuple(prelude(w)) if prelude is not None else ()
             w2, new_states = self.round_with_state(
-                w, list(states), gen, client_pass, *ctx,
+                w, list(states), key, client_pass, *ctx,
                 round_index=round_index)
             return w2, tuple(new_states)
 

@@ -11,7 +11,9 @@ objective is
 the ``fedavg_update`` kernel.  A bucket's Kb clients step together: step t
 of epoch e is one batched step of every client over its own permutation,
 and padded permutation slots are exact no-ops (their step size is
-h_eff = valid·h = 0).
+h_eff = valid·h = 0).  Client k of the bucket with key kb runs epoch e over
+``permutation(take(split(take(split(kb, Kb), k), E), e), m_pad)``, the
+reference's permutation, bit for bit.
 
 Not ported yet: the streamed, cohort and virtual options.
 """
@@ -27,7 +29,8 @@ from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.kernels import ops
-from repro_torch.utils.device import DeviceLike, random_permutations
+from repro_torch.utils import threefry
+from repro_torch.utils.device import DeviceLike
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,24 +121,25 @@ class FedAvg(FederatedSolver):
         )
         self._round_fast = self.engine.compile(self._pass)
 
-    def permutations(self, gen: torch.Generator, bucket_index: int,
+    def permutations(self, kb: threefry.Key, bucket_index: int,
                      bucket: ClientBucket) -> torch.Tensor:
         """Every client's random order of its m_pad slots for each of the
-        E epochs, drawn batched from the round's generator:
+        E epochs, drawn batched from the bucket's key: client k's keys are
+        ``split(take(split(kb, Kb), k), E)``, one permutation each:
         (Kb, E, m_pad) int64."""
-        return random_permutations(
-            gen, (bucket.num_clients, self.cfg.local_epochs, bucket.m_pad),
-            bucket.idx.device)
+        keys = self.engine.client_keys(kb, bucket.num_clients)
+        return threefry.permutation(
+            threefry.split(keys, self.cfg.local_epochs), bucket.m_pad)
 
-    def _pass(self, w, bi, bucket, gen, out):
+    def _pass(self, w, bi, bucket, kb, out):
         local_sgd_pass_keyed(w, bucket, self.problem.flat.lam,
                              self.cfg.stepsize,
-                             self.permutations(gen, bi, bucket), out,
+                             self.permutations(kb, bi, bucket), out,
                              g=self._g)
 
     def round(self, state: SolverState,
-              gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen,
+              key: threefry.Key) -> SolverState:
+        return state.replace(w=self._round_fast(state.w, key,
                                                 round_index=state.round),
                              round=state.round + 1)
 

@@ -1,5 +1,5 @@
-"""Federated SVRG — the paper's Algorithm 4, ported from the reference's
-``core/fsvrg.py``.
+"""Federated SVRG — the paper's Algorithm 4 (and the naive Algorithm 3),
+ported from the reference's ``core/fsvrg.py``.
 
 One round:
   1. server: compute ∇f(w^t) over all data      — 1 round of communication
@@ -14,9 +14,13 @@ step of every client, over its own permutation, and padded permutation
 slots are exact no-ops (their step size is 0).  The local step itself is
 the ``fsvrg_update`` kernel (the reference computes the same step inline).
 
-Not ported yet: the naive Algorithm 3 (its with-replacement sampling needs
-the rest of the bit-exact threefry, a later slice), and the streamed,
-cohort and virtual options.
+The naive Algorithm 3 (``naive=True``, registered as ``svrg_naive``) runs
+the same pass with S = I, a fixed h, m samples drawn with replacement
+(``randint``) and every step valid, averaged uniformly without A.  Client
+k of the bucket with key kb draws from ``take(split(kb, Kb), k)``: its
+permutation or its samples are the reference's, bit for bit.
+
+Not ported yet: the streamed, cohort and virtual options.
 """
 from __future__ import annotations
 
@@ -31,12 +35,15 @@ from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.kernels import ops
-from repro_torch.utils.device import DeviceLike, random_permutations
+from repro_torch.utils import threefry
+from repro_torch.utils.device import DeviceLike
 
 
 @dataclasses.dataclass(frozen=True)
 class FSVRGConfig:
     stepsize: float = 1.0          # h; h_k = h/n_k per client
+    naive: bool = False            # Algorithm 3: S=I, A=I, h_k=h, uniform agg
+    naive_steps: int = 0           # m for Algorithm 3 (0 -> one pass, m=m_pad)
     use_S: bool = True             # ablation switches of the four §3.6.2
     use_A: bool = True             # modifications
     use_local_stepsize: bool = True
@@ -62,16 +69,21 @@ def client_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
                       bucket: ClientBucket, lam: float, s_diag: torch.Tensor,
                       h_k: torch.Tensor, perms: torch.Tensor,
                       out: torch.Tensor, *,
-                      diff: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      diff: Optional[torch.Tensor] = None,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Algorithm 4, lines 5-9, for every client of a bucket at once, over
-    explicit per-client permutations ``perms`` (Kb, m_pad) — the
-    counterpart of the reference's ``_client_pass_keyed``.
+    explicit per-client row orders ``perms`` (Kb, m) — the counterpart of
+    the reference's ``_client_pass_keyed``.
 
-    ``s_diag`` is S_k, (Kb, d) or one shared (d,) row; ``h_k`` (Kb,) the
-    local step sizes.  The iterates w_k are stepped in place in ``out``
-    (Kb, d), which ends holding the deltas w_k − w0.  ``diff`` is an
-    optional (≥Kb, d) scratch, so a caller running many buckets allocates
-    it once.  Per step, in the reference's order of operations:
+    ``perms`` are the clients' permutations of their m_pad slots, or
+    (Algorithm 3) their m samples; ``valid`` (Kb, m) weights each step,
+    by default 1 where the row is one of the client's n_k rows and 0 on a
+    padded slot.  ``s_diag`` is S_k, (Kb, d) or one shared (d,) row;
+    ``h_k`` (Kb,) the local step sizes.  The iterates w_k are stepped in
+    place in ``out`` (Kb, d), which ends holding the deltas w_k − w0.
+    ``diff`` is an optional (≥Kb, d) scratch, so a caller running many
+    buckets allocates it once.  Per step, in the reference's order of
+    operations:
 
         diff = λ(w_k − w0), then diff[x_i] += (g_new − g_old)·v_i
         w_k  = fsvrg_update(w_k, S, g_new=diff, g_old=0, ḡ=∇f(w0),
@@ -79,15 +91,17 @@ def client_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
 
     which is the reference's w_k − valid·h_k(S⊙diff + ∇f(w0)).
     """
-    Kb, m_pad, nnz = bucket.idx.shape
+    Kb, _, nnz = bucket.idx.shape
+    m = perms.shape[1]
     d = w0.shape[0]
     # the permuted rows, step-major: row t of client k is its row perms[k, t]
-    take = perms[..., None].expand(Kb, m_pad, nnz)
+    take = perms[..., None].expand(Kb, m, nnz)
     pidx = bucket.idx.gather(1, take).transpose(0, 1).contiguous()
     pval = bucket.val.gather(1, take).transpose(0, 1).contiguous()
-    py = bucket.y.gather(1, perms).t().contiguous()               # (m_pad, Kb)
-    valid = (perms < bucket.n_k[:, None]).to(torch.float32).t()
-    h = (valid * h_k[None, :]).contiguous()                       # (m_pad, Kb)
+    py = bucket.y.gather(1, perms).t().contiguous()                   # (m, Kb)
+    if valid is None:
+        valid = (perms < bucket.n_k[:, None]).to(torch.float32)
+    h = (valid.t() * h_k[None, :]).contiguous()                       # (m, Kb)
     # the anchor's per-example gradient scalars need only x·w0: all at once
     z_old = (pval * w0[pidx]).sum(dim=-1)
     g_old = -py * torch.sigmoid(-py * z_old)
@@ -96,7 +110,7 @@ def client_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
     wk.copy_(w0.expand(Kb, d))
     diff = torch.empty_like(wk) if diff is None else diff[:Kb]
     zero = torch.zeros_like(w0)
-    for t in range(m_pad):
+    for t in range(m):
         xi, vi, yi = pidx[t], pval[t], py[t]
         z_new = (vi * wk.gather(1, xi)).sum(dim=1)
         g_new = -yi * torch.sigmoid(-yi * z_new)
@@ -107,7 +121,7 @@ def client_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
 
 
 class FSVRG(FederatedSolver):
-    """Algorithm 4 on the :class:`~repro_torch.core.engine.RoundEngine`:
+    """Algorithms 3 and 4 on the :class:`~repro_torch.core.engine.RoundEngine`:
     φ, A and every bucket's S_k are computed once here, then each round is
     the full-gradient prelude plus the engine's round."""
 
@@ -118,6 +132,8 @@ class FSVRG(FederatedSolver):
                  device: DeviceLike = None):
         self._bind(problem, device)
         self.cfg = cfg
+        self.name = "svrg_naive" if cfg.naive else "fsvrg"
+        plain = cfg.naive            # Alg. 3: S = I, fixed h, no A, 1/K
         flat = problem.flat
         dev = problem.device
         d = problem.d
@@ -129,13 +145,14 @@ class FSVRG(FederatedSolver):
         # reference; without use_S one shared row of ones stands for it
         ones = torch.ones((d,), device=dev)
         self.s_diags = [scaling.s_k_diag(self.phi, b.idx, b.val, b.n_k)
-                        if cfg.use_S else ones for b in problem.buckets]
+                        if cfg.use_S and not plain else ones
+                        for b in problem.buckets]
         # h_k = h / n_k as a tensor division (torch computes `h / tensor` as
         # reciprocal(tensor) · h, which rounds differently)
         self.h_k = []
         for b in problem.buckets:
             h = torch.full((b.num_clients,), float(cfg.stepsize), device=dev)
-            if cfg.use_local_stepsize:
+            if cfg.use_local_stepsize and not plain:
                 h = h / b.n_k.to(torch.float32).clamp(min=1.0)
             self.h_k.append(h)
         # the step's scratch, shared by every bucket's pass
@@ -145,8 +162,9 @@ class FSVRG(FederatedSolver):
             problem,
             EngineConfig(
                 participation=cfg.participation,
-                weighting="nk" if cfg.use_weighted_agg else "uniform",
-                server_scaling="diag" if cfg.use_A else "none",
+                weighting=("uniform" if plain or not cfg.use_weighted_agg
+                           else "nk"),
+                server_scaling="diag" if cfg.use_A and not plain else "none",
                 aggregator=cfg.aggregator,
                 aggregator_guard=cfg.aggregator_guard,
                 guard_clip_norm=cfg.guard_clip_norm,
@@ -160,22 +178,38 @@ class FSVRG(FederatedSolver):
         prelude = lambda w: (self.problem.flat.grad(w),)
         self._round_fast = self.engine.compile(self._pass, prelude=prelude)
 
-    def permutations(self, gen: torch.Generator, bucket_index: int,
+    def permutations(self, kb: threefry.Key, bucket_index: int,
                      bucket: ClientBucket) -> torch.Tensor:
-        """Every client's random order of its m_pad slots (Alg. 4 line 6),
-        drawn batched from the round's generator: (Kb, m_pad) int64."""
-        return random_permutations(gen, (bucket.num_clients, bucket.m_pad),
-                                   bucket.idx.device)
+        """Every client's random order of its m_pad slots (Alg. 4 line 6):
+        ``permutation(take(split(kb, Kb), k), m_pad)`` for client k, drawn
+        batched from the bucket's key: (Kb, m_pad) int64."""
+        return threefry.permutation(
+            self.engine.client_keys(kb, bucket.num_clients), bucket.m_pad)
 
-    def _pass(self, w, bi, bucket, gen, out, full_grad):
-        perms = self.permutations(gen, bi, bucket)
+    def samples(self, kb: threefry.Key, bucket_index: int,
+                bucket: ClientBucket) -> torch.Tensor:
+        """Algorithm 3's m uniform samples with replacement from each
+        client's n_k rows (Alg. 3 line 7): ``randint(take(split(kb, Kb),
+        k), (m,), 0, max(n_k, 1))`` for client k: (Kb, m) int64."""
+        m = self.cfg.naive_steps if self.cfg.naive_steps > 0 else bucket.m_pad
+        return threefry.randint(
+            self.engine.client_keys(kb, bucket.num_clients), (m,), 0,
+            bucket.n_k.clamp(min=1))
+
+    def _pass(self, w, bi, bucket, kb, out, full_grad):
+        valid = None
+        if self.cfg.naive:
+            rows = self.samples(kb, bi, bucket)
+            valid = torch.ones(rows.shape, device=w.device)  # every step
+        else:
+            rows = self.permutations(kb, bi, bucket)
         client_pass_keyed(w, full_grad, bucket, self.problem.flat.lam,
-                          self.s_diags[bi], self.h_k[bi], perms, out,
-                          diff=self._diff)
+                          self.s_diags[bi], self.h_k[bi], rows, out,
+                          diff=self._diff, valid=valid)
 
     def round(self, state: SolverState,
-              gen: torch.Generator) -> SolverState:
-        return state.replace(w=self._round_fast(state.w, gen,
+              key: threefry.Key) -> SolverState:
+        return state.replace(w=self._round_fast(state.w, key,
                                                 round_index=state.round),
                              round=state.round + 1)
 
@@ -190,3 +224,12 @@ def _fsvrg_defaults():
 def _make_fsvrg(problem: FederatedLogReg, *, device: DeviceLike = None,
                 **kw) -> FSVRG:
     return FSVRG(problem, FSVRGConfig(**kw), device=device)
+
+
+@register("svrg_naive",
+          defaults=lambda: {"stepsize": 0.01, "naive_steps": 50},
+          description="naive distributed SVRG (Algorithm 3: S=I, A=I, "
+                      "fixed h, uniform averaging)")
+def _make_svrg_naive(problem: FederatedLogReg, *, device: DeviceLike = None,
+                     **kw) -> FSVRG:
+    return FSVRG(problem, FSVRGConfig(naive=True, **kw), device=device)

@@ -1,8 +1,8 @@
 """String-keyed solver registry: ``make_solver("fsvrg", problem)`` — the
 port of the reference's ``core/registry.py``, with the solvers of Fig. 2
-(``fsvrg``, ``gd``, ``fedavg``, ``dane``, ``cocoa``).  Defaults come from
-:mod:`repro_torch.configs`; ``make_solver``'s ``device`` defaults to the
-CUDA card, as every entry point's does.
+(``fsvrg``, ``svrg_naive``, ``gd``, ``fedavg``, ``dane``, ``cocoa``).
+Defaults come from :mod:`repro_torch.configs`; ``make_solver``'s
+``device`` defaults to the CUDA card, as every entry point's does.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ def _populate() -> None:
     import repro_torch.core.cocoa      # noqa: F401  (cocoa)
     import repro_torch.core.dane       # noqa: F401  (dane)
     import repro_torch.core.fedavg     # noqa: F401  (fedavg)
-    import repro_torch.core.fsvrg      # noqa: F401  (fsvrg)
+    import repro_torch.core.fsvrg      # noqa: F401  (fsvrg, svrg_naive)
 
 
 def get_spec(name: str) -> SolverSpec:

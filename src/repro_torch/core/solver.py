@@ -3,8 +3,9 @@ algorithm, ported from the reference's ``core/solver.py``:
 
   * ``init(w0) -> SolverState`` — the iterate ``w``, per-client auxiliary
     state ``aux`` (empty for stateless algorithms) and the ``round`` count;
-  * ``round(state, gen) -> SolverState`` — one round of communication,
-    drawing its randomness from the round's ``torch.Generator``;
+  * ``round(state, key) -> SolverState`` — one round of communication,
+    drawing its randomness from the round's key (a
+    :mod:`repro_torch.utils.threefry` key, the reference's round key);
     deterministic solvers ignore it;
   * ``name`` — the registry name;
   * ``fit(rounds, ...)`` — a wrapper over
@@ -18,6 +19,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.problem import FederatedLogReg
+from repro_torch.utils import threefry
 from repro_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -27,8 +29,9 @@ class SolverState:
 
     w     : (d,) the server iterate.
     aux   : per-client auxiliary state, one entry per bucket, or ().
-    round : the round count; the Trainer seeds round r's generator from
-            ``(seed, r)``, so a restored state resumes the same draws.
+    round : the round count; the Trainer runs round r on the key
+            ``fold_in(PRNGKey(seed), r)``, so a restored state resumes the
+            same draws.
     """
 
     w: torch.Tensor
@@ -64,7 +67,7 @@ class FederatedSolver:
         return SolverState(w=w0)
 
     def round(self, state: SolverState,
-              gen: torch.Generator) -> SolverState:
+              key: threefry.Key) -> SolverState:
         raise NotImplementedError
 
     def fit(self, rounds: int, *, seed: int = 0, w0=None, state=None,

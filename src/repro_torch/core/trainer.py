@@ -1,27 +1,29 @@
 """`Trainer` — the round-loop driver every solver shares, ported from the
-reference's ``core/trainer.py`` (its eager loop):
+reference's ``core/trainer.py`` (its eager loop), and :func:`sweep`:
 
-  * **Random streams** — round r draws from ``utils.device.generator(seed,
-    r)``, a ``torch.Generator`` on the solver's device, r the
-    absolute round from ``state.round`` (the counterpart of
-    ``fold_in(PRNGKey(seed), r)``).
+  * **Random streams** — round r runs on the reference's key
+    ``fold_in(PRNGKey(seed), r)`` (:mod:`repro_torch.utils.threefry`, its
+    words on the solver's device), r the absolute round from
+    ``state.round``: the same seed gives the reference's masks,
+    permutations and samples, and a restored state resumes them.
   * **Eval / history** — ``eval_fn(w) -> dict`` of scalars, recorded as
     Python floats every ``eval_every`` rounds and always after the last;
     ``callback(state, r)`` for side effects.
   * **fail_fast** — :class:`NonFiniteIterateError` the round the iterate
     stops being finite.
 
-Not ported yet: checkpoints, the ``lax.scan`` fast path and ``sweep``.
+Not ported yet: checkpoints and the ``lax.scan`` fast path.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.solver import FederatedSolver, SolverState
-from repro_torch.utils.device import generator
+from repro_torch.utils import threefry
 
 EvalFn = Callable[[torch.Tensor], Dict[str, Any]]
 
@@ -83,9 +85,10 @@ class Trainer:
         elif w0 is not None:
             raise ValueError("pass w0 or state, not both")
         history: List[Dict[str, float]] = []
+        base = threefry.as_key(threefry.PRNGKey(self.seed),
+                               self.solver.device)
         for r in range(int(state.round), self.rounds):
-            gen = generator(self.seed, r, self.solver.device)
-            state = self.solver.round(state, gen)
+            state = self.solver.round(state, threefry.fold_in(base, r))
             self._check_finite(state, r)
             if self.eval_fn is not None and self._is_eval_round(r):
                 history.append({k: float(v)
@@ -93,3 +96,27 @@ class Trainer:
             if self.callback is not None:
                 self.callback(state, r)
         return FitResult(state=state, history=history)
+
+
+def sweep(build_solver: Callable[[Any], FederatedSolver],
+          candidates: Sequence[Any], *, rounds: int, seed: int = 0,
+          eval_fn: EvalFn, objective: str = "f",
+          **trainer_kw) -> Tuple[Optional[FitResult], Optional[Any]]:
+    """Retrospective hyperparameter sweep (the paper's protocol), as the
+    reference's ``sweep``: runs ``build_solver(v)`` for the full round
+    budget for every candidate ``v`` and keeps the run whose final
+    ``history[-1][objective]`` is lowest; non-finite runs are discarded.
+    ``fail_fast`` is off unless the caller sets it: a divergent candidate
+    just loses the sweep.  Returns ``(best_result, best_value)``, or
+    ``(None, None)`` if every run diverged."""
+    best_res, best_v, best_f = None, None, math.inf
+    trainer_kw.setdefault("fail_fast", False)
+    for v in candidates:
+        res = Trainer(build_solver(v), rounds=rounds, seed=seed,
+                      eval_fn=eval_fn, **trainer_kw).fit()
+        if not res.history:        # degenerate budget (rounds <= start)
+            continue
+        f = res.history[-1][objective]
+        if math.isfinite(f) and f < best_f:
+            best_res, best_v, best_f = res, v, f
+    return best_res, best_v

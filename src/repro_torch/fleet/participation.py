@@ -3,11 +3,11 @@ ported from the reference's ``fleet/participation.py``.
 
 Contract (:class:`ParticipationModel`):
 
-  * ``masks(gen, round_index, offsets, sizes, device)`` returns the round's
+  * ``masks(key, round_index, offsets, sizes, device)`` returns the round's
     per-bucket float {0,1} mask list on ``device`` (1.0 = this client's
     delta enters the aggregate), or ``None`` for full participation.
-    ``gen`` is the round's ``torch.Generator`` (the one the client passes
-    draw from), ``round_index`` the absolute round, ``offsets``/``sizes``
+    ``key`` is the round's threefry key (the one the client passes draw
+    from), ``round_index`` the absolute round, ``offsets``/``sizes``
     the engine's per-bucket first client index and client count — a
     client's *global* id is ``offset + position``, which is what trace
     draws fold in;
@@ -17,12 +17,12 @@ Contract (:class:`ParticipationModel`):
   * ``needs_round_index`` declares the model round-dependent: the engine
     then refuses mask requests that do not carry the round.
 
-The reference's Bernoulli model draws from the round's threefry key; the
-port's draws from the round's ``torch.Generator`` exactly as
-``RoundEngine.participation_masks`` does, so it is bit-identical to the
-engine's own draw.  The trace model ignores ``gen``: the fleet's state is
-a pure function of ``(trace.seed, r)`` and matches the reference's bit for
-bit.
+The Bernoulli model draws from the round's threefry key through the
+reference's chain, ``uniform(fold_in(fold_in(key, wi), 997), (Kb,))``, as
+``RoundEngine.participation_masks`` does: it is bit-identical to the
+engine's own draw and to the reference's.  The trace and fixed models
+ignore the key: the fleet's state is a pure function of
+``(trace.seed, r)`` and matches the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.fleet.traces import FleetTrace, fleet_masks
+from repro_torch.utils import threefry
 
 MaskList = List[torch.Tensor]
 
@@ -44,26 +45,27 @@ class ParticipationModel:
     #: mask requests instead of silently drawing round 0
     needs_round_index: bool = False
 
-    def masks(self, gen: torch.Generator, round_index: int,
+    def masks(self, key: threefry.Key, round_index: int,
               offsets: Sequence[int], sizes: Sequence[int],
               device: torch.device) -> Optional[MaskList]:
         raise NotImplementedError
 
-    def mask_components(self, gen: torch.Generator, round_index: int,
+    def mask_components(self, key: threefry.Key, round_index: int,
                         offsets: Sequence[int], sizes: Sequence[int],
                         device: torch.device
                         ) -> Optional[Tuple[MaskList, MaskList]]:
         """(available, returned) mask lists — identical for models
         without stragglers, where every sampled client reports."""
-        m = self.masks(gen, round_index, offsets, sizes, device)
+        m = self.masks(key, round_index, offsets, sizes, device)
         return None if m is None else (m, m)
 
 
 @dataclasses.dataclass(frozen=True)
 class BernoulliParticipation(ParticipationModel):
-    """The engine's i.i.d. draw as a model: one ``torch.rand`` per bucket
-    from the round's generator, in bucket order — bit-identical to
-    ``RoundEngine.participation_masks`` without a model."""
+    """The engine's i.i.d. draw as a model: bucket ``wi``'s mask is
+    ``uniform(fold_in(fold_in(key, wi), 997), (Kb,)) < participation`` —
+    bit-identical to ``RoundEngine.participation_masks`` without a model
+    and to the reference's draw."""
 
     participation: float = 1.0
 
@@ -71,11 +73,14 @@ class BernoulliParticipation(ParticipationModel):
         if not 0.0 < self.participation <= 1.0:
             raise ValueError("participation must be in (0, 1]")
 
-    def masks(self, gen, round_index, offsets, sizes, device):
+    def masks(self, key, round_index, offsets, sizes, device):
         if self.participation >= 1.0:
             return None
-        return [(torch.rand((kb,), generator=gen, device=device)
-                 < self.participation).to(torch.float32) for kb in sizes]
+        key = threefry.as_key(key, device)
+        return [(threefry.uniform(threefry.fold_in(threefry.fold_in(key, wi),
+                                                   997), (kb,))
+                 < self.participation).to(torch.float32)
+                for wi, kb in zip(offsets, sizes)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +90,7 @@ class TraceParticipation(ParticipationModel):
     The mask handed to the engine is the trace's ``returned`` mask
     (available AND reported): a straggler's delta is zeroed and its dual
     state frozen, exactly like a never-sampled client.  The draw ignores
-    ``gen``: the fleet is a pure function of ``(trace.seed, r)``,
+    ``key``: the fleet is a pure function of ``(trace.seed, r)``,
     independent of the solver seed.  All buckets are drawn in one pass
     over the global ids and then split, which gives the same bits as a
     draw per bucket.
@@ -104,11 +109,11 @@ class TraceParticipation(ParticipationModel):
                          for wi, kb in zip(offsets, sizes)])
         return fleet_masks(self.trace, round_index, ids)
 
-    def masks(self, gen, round_index, offsets, sizes, device):
+    def masks(self, key, round_index, offsets, sizes, device):
         return self._split(self._draw(round_index, offsets, sizes,
                                       device).returned, sizes)
 
-    def mask_components(self, gen, round_index, offsets, sizes, device):
+    def mask_components(self, key, round_index, offsets, sizes, device):
         fm = self._draw(round_index, offsets, sizes, device)
         return self._split(fm.available, sizes), self._split(fm.returned,
                                                              sizes)
@@ -122,7 +127,7 @@ class FixedParticipation(ParticipationModel):
 
     fixed: Tuple[torch.Tensor, ...]
 
-    def masks(self, gen, round_index, offsets, sizes, device):
+    def masks(self, key, round_index, offsets, sizes, device):
         if len(self.fixed) != len(sizes):
             raise ValueError("fixed mask list does not match bucket count")
         return [m.to(device) for m in self.fixed]

@@ -25,9 +25,10 @@ multiply and shift, because ``torch.uint32`` lacks shifts and adds on some
 backends: the same code is then exact on the CPU and on CUDA.  The draws
 run on the device the key's words live on (:func:`as_key` places them).
 
-Only :func:`gumbel` is not bit-equal to JAX: it takes ``torch.log`` of the
-bit-equal uniforms, and ``torch.log`` (like CUDA's ``logf``) rounds a few
-inputs in seven one ulp away from XLA's ``log``.
+Only :func:`gumbel` is not bit-equal to JAX: it takes the logs of the
+bit-equal uniforms with :func:`repro_torch.utils.floatmath.log_f32`, which
+rounds correctly and gives the same bits on the CPU and on CUDA, while
+XLA's ``log`` rounds about one input in seven an ulp away.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ import math
 from typing import Sequence, Tuple, Union
 
 import torch
+
+from repro_torch.utils.floatmath import log_f32
 
 Word = Union[int, torch.Tensor]
 Key = Tuple[Word, Word]
@@ -270,8 +273,8 @@ def permutation(key: Key, n: int) -> torch.Tensor:
 def gumbel(key: Key, shape: Sequence[int] = (), *,
            device=None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape)`` in f32, mode ``"low"``:
-    −log(−log(u)) of u = ``uniform(key, shape, tiny, 1)``.  The uniforms
-    are JAX's bits; the logs are ``torch.log``'s (see the module's
-    docstring)."""
+    −log(−log(u)) of u = ``uniform(key, shape, tiny, 1)``, each log rounded
+    to f32.  The uniforms are JAX's bits; the logs are ``log_f32``'s (see
+    the module's docstring), the same on the CPU and on CUDA."""
     u = uniform(key, shape, _TINY_F32, 1.0, device=device)
-    return -torch.log(-torch.log(u))
+    return -log_f32(-log_f32(u))

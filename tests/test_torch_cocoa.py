@@ -28,6 +28,7 @@ from repro_torch.core import CoCoAPlus, CoCoAConfig, Trainer  # noqa: E402
 from repro_torch.core import build_problem, make_solver  # noqa: E402
 from repro_torch.core.cocoa import sdca_local_pass_keyed  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.utils import threefry  # noqa: E402
 
 ROUNDS = 3
 
@@ -251,7 +252,7 @@ def test_cocoa_resumes_from_a_reference_state(small_problem, port_problem):
     state = state_from_array(np.asarray(mid.w), 1, "cpu",
                              aux=[np.asarray(a) for a in mid.aux])
     got = ReferenceDrawsCoCoA(pp, CoCoAConfig(), seed=0).round(
-        state, torch.Generator())
+        state, threefry.fold_in(threefry.PRNGKey(0), 1))
     assert got.round == 2
     w_ref = np.asarray(expect.w)
     np.testing.assert_allclose(got.w.numpy(), w_ref, rtol=1e-4,

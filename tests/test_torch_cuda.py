@@ -329,7 +329,7 @@ def _shared_draws(cls):
             return super().round(state, gen)
 
         def permutations(self, gen, bucket_index, bucket):
-            cpu = torch.Generator().manual_seed(1000 * self._r + bucket_index)
+            cpu = threefry.PRNGKey(1000 * self._r + bucket_index)
             return super().permutations(cpu, bucket_index, bucket)
 
     return SharedDraws
@@ -541,9 +541,8 @@ def test_threefry_and_fleet_on_the_card_equal_the_cpu(cuda):
 @pytest.mark.parametrize("n", [1_625, 1_626, 8_192])
 def test_threefry_draws_on_the_card_equal_the_cpu(cuda, n):
     """split, randint (spans on both sides of 2¹⁶), permutation (one and
-    two sorting rounds) on a batch of 64 keys: the card's are the CPU's
-    bit for bit; gumbel's uniforms too, and its value (CUDA's logf against
-    the CPU's log) within 2 ulp of max(|g|, 1)."""
+    two sorting rounds) and gumbel (its logs from ``floatmath``) on a
+    batch of 64 keys: the card's are the CPU's bit for bit."""
     kc = threefry.split(threefry.fold_in(threefry.PRNGKey(5), n), 64)
     kg = threefry.as_key(kc, cuda)
     assert all(torch.equal(x.cpu(), y) for x, y in
@@ -554,14 +553,21 @@ def test_threefry_draws_on_the_card_equal_the_cpu(cuda, n):
                        threefry.randint(kc, (50,), 0, span))
     assert torch.equal(threefry.permutation(kg, n).cpu(),
                        threefry.permutation(kc, n))
-    tiny = 2.0 ** -126
-    assert torch.equal(threefry.uniform(kg, (n,), tiny, 1.0).cpu(),
-                       threefry.uniform(kc, (n,), tiny, 1.0))
-    g_cpu = threefry.gumbel(kc, (n,)).double()
-    ulp = torch.tensor(2.0 ** -23, dtype=torch.float64) * torch.exp2(
-        torch.floor(torch.log2(g_cpu.abs().clamp(min=1.0))))
-    err = (threefry.gumbel(kg, (n,)).cpu().double() - g_cpu).abs()
-    assert bool((err <= 2 * ulp).all())
+    assert torch.equal(threefry.gumbel(kg, (n,)).cpu(),
+                       threefry.gumbel(kc, (n,)))
+
+
+def test_floatmath_on_the_card_equals_the_cpu(cuda):
+    """log, pow, sigmoid and the left-to-right sums: the same bits."""
+    from repro_torch.utils import floatmath
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(1_000_000, generator=g) * 50 + 2.0 ** -126
+    z = torch.randn(1_000_000, generator=g) * 20
+    rows = torch.rand((1_000, 400), generator=g)
+    for fn, arg in ((floatmath.log_f32, x), (floatmath.sigmoid_f32, z),
+                    (lambda v: floatmath.pow_f32(v, 1.0 / 0.3), x),
+                    (floatmath.sum_f32, rows), (floatmath.cumsum_f32, rows)):
+        assert torch.equal(fn(arg.to(cuda)).cpu(), fn(arg))
 
 
 def test_faulted_small_run_on_the_card(cuda):

@@ -26,6 +26,7 @@ from repro_torch.bridge import dataset_from_arrays, state_from_array  # noqa: E4
 from repro_torch.core import DANE, DANEConfig, Trainer  # noqa: E402
 from repro_torch.core import build_problem, make_solver  # noqa: E402
 from repro_torch.core.dane import dane_gd_pass  # noqa: E402
+from repro_torch.utils import threefry  # noqa: E402
 
 ROUNDS = 3
 
@@ -133,7 +134,7 @@ def test_dane_dense_and_kernel_aggregators_agree(port_problem, local_solver):
     w = np.random.default_rng(2).standard_normal(pp.d).astype(np.float32)
     outs = [make_solver("dane", pp, device="cpu", aggregator=agg,
                         local_solver=local_solver).round(
-        state_from_array(w * 0.1, 0, "cpu"), torch.Generator().manual_seed(3)
+        state_from_array(w * 0.1, 0, "cpu"), threefry.PRNGKey(3)
     ).w for agg in ("dense", "pallas")]
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-7)
 
@@ -154,7 +155,8 @@ def test_dane_partial_participation_matches_reference(small_problem,
     assert 0 < sum(float(m.sum()) for m in masks) < pp.num_clients
     solver = make_solver("dane", pp, device="cpu", participation=0.5)
     solver.engine.participation_masks = lambda gen, round_index=None: masks
-    got = solver.round(state_from_array(w, 0, "cpu"), torch.Generator()).w
+    got = solver.round(state_from_array(w, 0, "cpu"),
+                       threefry.fold_in(threefry.PRNGKey(0), 0)).w
     scale = np.abs(expect - w).max()
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4,
                                atol=1e-4 * scale)
@@ -172,6 +174,6 @@ def test_dane_own_samples_lie_in_each_clients_rows(port_problem):
     pp = port_problem
     solver = make_solver("dane", pp, device="cpu", local_solver="svrg")
     for bi, b in enumerate(pp.buckets):
-        s = solver.samples(torch.Generator().manual_seed(bi), bi, b)
+        s = solver.samples(threefry.PRNGKey(bi), bi, b)
         assert s.shape == (b.num_clients, solver.cfg.svrg_steps)
         assert bool((s >= 0).all()) and bool((s < b.n_k[:, None]).all())

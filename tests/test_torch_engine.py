@@ -19,6 +19,7 @@ from repro.core.engine import RoundEngine as RefRoundEngine  # noqa: E402
 from repro_torch.bridge import dataset_from_arrays  # noqa: E402
 from repro_torch.core import build_problem  # noqa: E402
 from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
+from repro_torch.utils import threefry  # noqa: E402
 
 #: tests/test_engine.py's _INVALID_CONFIGS restricted to the ported knobs
 _INVALID = [
@@ -103,14 +104,14 @@ def test_partial_participation_needs_the_rounds_masks(problems):
 def test_masks_are_drawn_once_per_round_from_the_generator(problems):
     _, pp = problems
     eng = RoundEngine(pp, EngineConfig(participation=0.5))
-    draw = lambda: eng.participation_masks(torch.Generator().manual_seed(3))
+    draw = lambda: eng.participation_masks(threefry.PRNGKey(3))
     a, b = draw(), draw()
     assert [m.shape[0] for m in a] == [bk.num_clients for bk in pp.buckets]
     for x, y in zip(a, b):
         assert torch.equal(x, y)
         assert set(x.unique().tolist()) <= {0.0, 1.0}
     assert RoundEngine(pp, EngineConfig()).participation_masks(
-        torch.Generator()) is None
+        threefry.PRNGKey(0)) is None
 
 
 def _state_passes(rp):
@@ -156,7 +157,7 @@ def test_round_with_state_matches_reference(problems, participation,
         port.participation_masks = lambda gen, round_index=None: masks
     old = [torch.tensor(s) for s in states]
     w_got, s_got = port.round_with_state(torch.tensor(w), old,
-                                         torch.Generator(), port_pass)
+                                         threefry.PRNGKey(0), port_pass)
     for bi, (o, new, expect) in enumerate(zip(old, s_got, s_ref)):
         sel = (torch.ones(o.shape[0]) if masks is None else masks[bi]) > 0
         assert torch.equal(new[~sel], o[~sel])          # frozen: bit-exact
@@ -181,7 +182,7 @@ def test_reference_and_compile_with_state_take_the_prelude(problems):
     states = tuple(torch.zeros(b.num_clients, 2) for b in pp.buckets)
     w = torch.ones(pp.d)
     outs = [f(pass_, prelude=lambda w: (float(w.sum()),))(w, states,
-                                                          torch.Generator())
+                                                          threefry.PRNGKey(0))
             for f in (eng.reference_with_state, eng.compile_with_state)]
     assert seen == [float(pp.d)] * (2 * len(pp.buckets))
     for w2, s2 in outs:

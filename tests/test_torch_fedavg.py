@@ -30,6 +30,7 @@ from repro_torch.bridge import dataset_from_arrays, state_from_array  # noqa: E4
 from repro_torch.core import FedAvg, FedAvgConfig, Trainer  # noqa: E402
 from repro_torch.core import build_problem, make_solver  # noqa: E402
 from repro_torch.core.fedavg import local_sgd_pass_keyed  # noqa: E402
+from repro_torch.utils import threefry  # noqa: E402
 
 ROUNDS = 3
 EPOCHS = 2      # configs/fedavg_gplus.py's E
@@ -142,7 +143,8 @@ def test_fedavg_partial_participation_uniform_matches_reference(
     assert 0 < sum(float(m.sum()) for m in masks) < pp.num_clients
     solver = ReferenceDrawsFedAvg(pp, FedAvgConfig(stepsize=0.1, **kw),
                                   seed=0, masks=masks)
-    got = solver.round(state_from_array(w, 0, "cpu"), torch.Generator()).w
+    got = solver.round(state_from_array(w, 0, "cpu"),
+                       threefry.fold_in(threefry.PRNGKey(0), 0)).w
     scale = np.abs(expect - w).max()
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4,
                                atol=1e-4 * scale)
@@ -154,7 +156,7 @@ def test_fedavg_dense_and_kernel_aggregators_agree(port_problem):
                      dtype=torch.float32)
     outs = [ReferenceDrawsFedAvg(pp, FedAvgConfig(aggregator=agg),
                                  seed=1).round(
-        state_from_array(w.numpy(), 0, "cpu"), torch.Generator()).w
+        state_from_array(w.numpy(), 0, "cpu"), threefry.PRNGKey(0)).w
         for agg in ("dense", "pallas")]
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-7)
 
@@ -172,7 +174,7 @@ def test_fedavg_own_draws_are_seeded_and_decrease_the_loss(
     assert torch.equal(runs[0].w, runs[1].w)
     assert runs[0].history[-1]["f"] < runs[0].history[0]["f"] < f0
     solver = make_solver("fedavg", pp, device="cpu")
-    perms = solver.permutations(torch.Generator().manual_seed(0), 0,
+    perms = solver.permutations(threefry.PRNGKey(0), 0,
                                 pp.buckets[0])
     b = pp.buckets[0]
     assert perms.shape == (b.num_clients, EPOCHS, b.m_pad)

@@ -35,6 +35,7 @@ from repro_torch.core import (CoCoAPlus, FedAvg, FSVRG,  # noqa: E402
                               NonFiniteIterateError, Trainer, build_problem,
                               make_solver)
 from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
+from repro_torch.utils import threefry  # noqa: E402
 
 TRACE = rfleet.FleetTrace(seed=5, base=0.5, amplitude=0.3, period=7.0,
                           burst_prob=0.3, burst_frac=0.5,
@@ -114,7 +115,7 @@ def test_trace_participation_masks_bit_equal_over_rounds(port_problem):
         jax.random.PRNGKey(0), r, offsets, sizes))
     for r in range(31):
         ra, rr = ref_draw(jnp.int32(r))
-        ga, gr = model.mask_components(torch.Generator().manual_seed(r), r,
+        ga, gr = model.mask_components(threefry.PRNGKey(r), r,
                                        offsets, sizes, torch.device("cpu"))
         masks = model.masks(None, r, offsets, sizes, torch.device("cpu"))
         for x, y, z, u, v in zip(ga, gr, masks, ra, rr):
@@ -262,7 +263,7 @@ def test_faulted_round_matches_reference(small_problem, port_problem, guard,
     for r in (0, 1, 2):
         expect = np.asarray(ref.round(jnp.asarray(w), jax.random.PRNGKey(r),
                                       ref_pass, round_index=r))
-        got = port.round(torch.tensor(w), torch.Generator(), port_pass,
+        got = port.round(torch.tensor(w), threefry.PRNGKey(r), port_pass,
                          round_index=r).numpy()
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-6)
@@ -292,7 +293,7 @@ def test_faulted_state_round_keeps_honest_state(small_problem, port_problem):
                                   round_index=2)
     gw, gs = port.round_with_state(torch.tensor(w),
                                    [torch.tensor(s) for s in states],
-                                   torch.Generator(), port_pass,
+                                   threefry.PRNGKey(0), port_pass,
                                    round_index=2)
     np.testing.assert_allclose(gw.numpy(), np.asarray(ew), rtol=1e-5,
                                atol=1e-6)
@@ -308,7 +309,7 @@ def test_round_dependent_models_need_the_round(port_problem):
                dict(fault_model=faults_from_config(FAULTS))):
         eng = RoundEngine(pp, EngineConfig(), **kw)
         with pytest.raises(ValueError, match="round"):
-            eng.round(torch.zeros(pp.d), torch.Generator(), port_pass)
+            eng.round(torch.zeros(pp.d), threefry.PRNGKey(0), port_pass)
     with pytest.raises(ValueError, match="participation_model"):
         RoundEngine(pp, EngineConfig(), participation_model=object())
     with pytest.raises(ValueError, match="fault_model"):
@@ -328,7 +329,7 @@ def test_straggler_equals_removed_delta(port_problem):
     _, port_pass, _, _ = _passes(_fixed_deltas(pp))
     w = torch.zeros(pp.d)
     outs = [RoundEngine(pp, EngineConfig(), participation_model=m).round(
-        w, torch.Generator(), port_pass, round_index=2)
+        w, threefry.PRNGKey(0), port_pass, round_index=2)
         for m in (model, fleet.FixedParticipation(tuple(returned)),
                   fleet.FixedParticipation(tuple(avail)))]
     assert torch.equal(outs[0], outs[1])
@@ -343,14 +344,14 @@ def test_bernoulli_model_is_the_engines_draw(port_problem):
                         participation_model=fleet.BernoulliParticipation(0.4))
     w = torch.zeros(pp.d)
     for r in range(3):
-        g1 = torch.Generator().manual_seed(30 + r)
-        g2 = torch.Generator().manual_seed(30 + r)
+        g1 = threefry.PRNGKey(30 + r)
+        g2 = threefry.PRNGKey(30 + r)
         for a, b in zip(eng.participation_masks(g1),
                         eng_m.participation_masks(g2, r)):
             assert torch.equal(a, b)
         assert torch.equal(
-            eng.round(w, torch.Generator().manual_seed(r), port_pass),
-            eng_m.round(w, torch.Generator().manual_seed(r), port_pass,
+            eng.round(w, threefry.PRNGKey(r), port_pass),
+            eng_m.round(w, threefry.PRNGKey(r), port_pass,
                         round_index=r))
     assert fleet.BernoulliParticipation(1.0).masks(
         None, 0, (0,), (3,), torch.device("cpu")) is None
@@ -361,7 +362,7 @@ def test_zero_rate_faults_are_the_identity(port_problem):
     _, port_pass, _, _ = _passes(_fixed_deltas(pp))
     w = torch.zeros(pp.d)
     outs = [RoundEngine(pp, EngineConfig(participation=0.5), **kw).round(
-        w, torch.Generator().manual_seed(7), port_pass, round_index=0)
+        w, threefry.PRNGKey(7), port_pass, round_index=0)
         for kw in ({}, dict(fault_model=fleet.DeltaFaults(seed=3)))]
     assert torch.equal(outs[0], outs[1])
 

@@ -30,6 +30,7 @@ from repro_torch.core import FSVRG, FSVRGConfig, Trainer  # noqa: E402
 from repro_torch.core import build_problem, make_solver, scaling  # noqa: E402
 from repro_torch.core.baselines import gd_round  # noqa: E402
 from repro_torch.core.fsvrg import client_pass_keyed  # noqa: E402
+from repro_torch.utils import threefry  # noqa: E402
 
 ROUNDS = 3
 
@@ -132,7 +133,7 @@ def test_fsvrg_dense_and_kernel_aggregators_agree(port_problem):
         solver = ReferenceDrawsFSVRG(pp, FSVRGConfig(aggregator=aggregator),
                                      seed=1)
         outs.append(solver.round(state_from_array(w.numpy(), 0, "cpu"),
-                                 torch.Generator()).w)
+                                 threefry.PRNGKey(0)).w)
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-7)
 
 
@@ -190,7 +191,8 @@ def test_fsvrg_options_match_reference_for_one_round(small_problem,
                  ref_solver.engine.participation_masks(key)]
         assert 0 < sum(float(m.sum()) for m in masks) < pp.num_clients
         solver.engine.participation_masks = lambda gen, round_index=None: masks
-    got = solver.round(state_from_array(w, 0, "cpu"), torch.Generator()).w
+    got = solver.round(state_from_array(w, 0, "cpu"),
+                       threefry.fold_in(threefry.PRNGKey(0), 0)).w
     scale = np.abs(expect - w).max()
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4,
                                atol=1e-4 * scale)
@@ -200,7 +202,8 @@ def test_registry_names():
     """The solvers of Fig. 2; the dense-layout ones wait for
     build_dense_problem."""
     from repro_torch.core import available
-    assert available() == ("cocoa", "dane", "fedavg", "fsvrg", "gd")
+    assert available() == ("cocoa", "dane", "fedavg", "fsvrg", "gd",
+                           "svrg_naive")
     with pytest.raises(KeyError, match="unknown solver"):
         make_solver("dane_ridge", None)
 

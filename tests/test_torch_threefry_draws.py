@@ -4,10 +4,10 @@
 
 ``split``, ``randint`` and ``permutation`` are held bit for bit, on one key
 and on a batch of keys.  ``gumbel``'s uniforms are held bit for bit; its
-value is −log(−log u) through ``torch.log``, which rounds about one input
-in seven an ulp away from XLA's ``log``, so the value is held within 2 ulp
-of max(|g|, 1): near g = 0 the outer log turns one ulp of the inner
-log (≈ 1) into an absolute error of ≈ 1.2e-7.
+value is −log(−log u) through ``floatmath.log_f32``, which rounds
+correctly where XLA's ``log`` rounds about one input in seven an ulp away,
+so the value is held within 2 ulp of max(|g|, 1): near g = 0 the outer log
+turns one ulp of the inner log (≈ 1) into an absolute error of ≈ 1.2e-7.
 """
 import jax
 import jax.numpy as jnp
