@@ -31,7 +31,9 @@ Phases, in order (any failure raises and exits non-zero):
 4. run the solvers of Fig. 2 at the paper's full width from the seed —
    ``generate`` of the §4 config (K = 10,000 clients, d = 20,002
    features, n = 2,166,693 examples) and ``build_problem`` once; the
-   engine's Bernoulli masks at that layout, card against CPU bit for bit;
+   data at scale 0.01, card against CPU (every array equal but on counted
+   clients, each a Gumbel pair within 4 ulp), and the engine's Bernoulli
+   masks at the full-width layout, card against CPU bit for bit;
    then ``make_solver("fsvrg" | "fedavg" | "dane" | "cocoa" |
    "svrg_naive", aggregator="pallas")`` → ``Trainer`` for 3 rounds each,
    every round on the key ``fold_in(PRNGKey(0), r)`` from which the
@@ -526,6 +528,54 @@ def check_draws(dev) -> None:
         "permutation (n = 1,625, 1,626, 8,192) and gumbel (256 × "
         f"{n}) on 256 keys, and floatmath's log, pow, sigmoid, sum and "
         "cumsum on 10⁶ values: card == CPU bit for bit")
+
+
+def check_data(dev) -> None:
+    """``generate`` of the §4 config at scale 0.01 on the card against the
+    CPU: every array equal but on counted clients, and each counted client
+    explained — its vocabulary order differs, and the first swapped pair of
+    its Gumbel scores lies within 4 ulp."""
+    import torch
+    from repro_torch.configs import get_logreg_config
+    from repro_torch.data import generate, synthetic
+    from repro_torch.utils import threefry
+    cfg = get_logreg_config().scaled(0.01)
+    dc = generate(cfg, SEED, device="cpu")
+    dg = generate(cfg, SEED, device=dev)
+    counted = set()
+    for name in ("idx", "val", "y", "client_of", "test_idx", "test_val",
+                 "test_y", "test_client_of"):
+        a, b = getattr(dc, name), getattr(dg, name).cpu()
+        require(a.shape == b.shape, f"generate's {name} has another shape "
+                "on the card")
+        rows = (a != b).reshape(a.shape[0], -1).any(dim=1)
+        owner = dc.test_client_of if name.startswith("test") else dc.client_of
+        counted |= set(owner[rows].tolist())
+    spec = synthetic.data_spec(cfg, SEED)
+    log_pop = torch.as_tensor(spec.log_pop)
+    base = threefry.PRNGKey(SEED)
+    for k in sorted(counted):
+        ids = torch.tensor([k])
+        vc = synthetic.client_params(threefry.as_key(base), ids, log_pop,
+                                     spec.vocab_size)[0][0]
+        vg = synthetic.client_params(threefry.as_key(base, dev), ids.to(dev),
+                                     log_pop.to(dev), spec.vocab_size)[0][0]
+        vg = vg.cpu()
+        require(bool((vc != vg).any()), f"client {k}: its rows differ on the "
+                "card, its vocabulary does not")
+        j = int((vc != vg).nonzero()[0])
+        ck = threefry.fold_in(base, k)
+        score = log_pop + threefry.gumbel(threefry.fold_in(ck, 1),
+                                          (log_pop.shape[0],))
+        x, y = score[vc[j] - 2], score[vg[j] - 2]
+        ulp = 2.0 ** -23 * 2.0 ** float(torch.floor(torch.log2(
+            torch.maximum(x.abs(), y.abs()))))
+        require(float((x - y).abs()) <= 4 * ulp, f"client {k}: its swapped "
+                "Gumbel scores are more than 4 ulp apart")
+    log(f"[check] generate at scale 0.01 (K = {cfg.num_clients}, d = "
+        f"{cfg.num_features}, {dc.num_examples} train rows): card vs CPU, "
+        f"every array equal but on {len(counted)} counted clients "
+        f"{sorted(counted)}, each a vocabulary order swapped within 4 ulp")
 
 
 def wkv6_cost(B, S, Hn, D, L=32):
@@ -1263,12 +1313,14 @@ def main() -> int:
     t_build = time.perf_counter() - t0
     m_pads = [b.m_pad for b in prob.buckets]
     steps = sum(m_pads)
-    log(f"[main] generate {t_gen:.2f} s ({ds.num_examples} train rows);"
+    log(f"[main] generate (threefry, on the card) {t_gen:.2f} s "
+        f"({ds.num_examples} train rows);"
         f" build_problem {t_build:.2f} s: {len(prob.buckets)} buckets,"
         " Kb×m_pad " + ", ".join(f"{b.num_clients}×{b.m_pad}"
                                   for b in prob.buckets)
         + f"; Σ m_pad {steps}")
     f0 = float(prob.flat.loss(torch.zeros(prob.d, device=dev)))
+    check_data(dev)
 
     # the engine's Bernoulli masks on the card against the CPU's, at the
     # full-width layout: uniform(fold_in(fold_in(key, wi), 997)) < p

@@ -6,22 +6,30 @@ the reference (:func:`_power_law_sizes` and :func:`train_split_sizes` are
 copied verbatim, drawn from ``np.random.default_rng(seed)`` in the same
 order), so client sizes and ``w_true`` are bit-equal to the reference's.
 
-The per-client sampler is the reference's, batched on the device and fed
-by one ``torch.Generator`` (``utils.device``'s data stream):
+Every row comes from the reference's keyed sampler, batched on the device,
+with JAX's threefry (:mod:`repro_torch.utils.threefry`):
 
-* vocabulary: Gumbel top-k over the global log popularity — weighted
-  sampling without replacement;
-* mixture over the vocabulary: a normalized Weibull(0.3) draw;
-* label bias: a logistic draw of std 1.5;
-* each row: ``n_own`` inverse-CDF draws from the client's mixture and
-  ``nnz − n_own`` from the global zipf popularity, after the always-on bias
-  (0) and unknown-word (1) features; repeated features in a row get value
-  0; the label is Bernoulli(sigmoid(0.7·margin + bias));
+* client k's key is ``ck = fold_in(PRNGKey(seed), k)``;
+* its vocabulary is the Gumbel top-V of the global log popularity,
+  ``top_k(log_pop + gumbel(fold_in(ck, VOCAB), (d − 2,)), V)`` — weighted
+  sampling without replacement, in descending score order;
+* its mixture over the vocabulary is a normalized Weibull(0.3) draw from
+  ``fold_in(ck, MIX)``, its label bias a logistic draw of std 1.5 from
+  ``fold_in(ck, BIAS)``;
+* row p is drawn from ``rk = fold_in(fold_in(ck, ROWS), p)``: ``n_own``
+  inverse-CDF draws from the client's mixture (``fold_in(rk, OWN)``) and
+  ``nnz − n_own`` from the global zipf popularity (``fold_in(rk, GLOB)``),
+  after the always-on bias (0) and unknown-word (1) features; repeated
+  features in a row get value 0; the label is
+  Bernoulli(sigmoid(0.7·margin + bias)) (``fold_in(rk, LABEL)``);
 * the chronological 75/25 split per client.
 
-The rows are drawn from torch's generator, not JAX's threefry, so they
-differ from the reference's rows; their structure and statistics agree.
-Not ported yet: ``VirtualDataset``, ``make_client_batch`` and
+The uniforms are the reference's bits.  The logs, the power and the
+sigmoid are :mod:`repro_torch.utils.floatmath`'s, the same bits on the CPU
+and on the card, and within an ulp or two of XLA's, so the integer arrays
+equal the reference's except where a near tie of two Gumbel scores or a
+uniform within an ulp of an edge of the mixture falls the other way.  Not
+ported yet: ``VirtualDataset``, ``make_client_batch`` and
 ``drifted_dataset``.
 """
 from __future__ import annotations
@@ -31,8 +39,13 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.utils.device import (DATA_STREAM, DeviceLike, generator,
-                                      resolve_device)
+from repro_torch.utils import floatmath, threefry
+from repro_torch.utils.device import DeviceLike, resolve_device
+
+#: fold_in tags off the client key ck = fold_in(PRNGKey(seed), k)
+_ROWS_TAG, _VOCAB_TAG, _MIX_TAG, _BIAS_TAG = 0, 1, 2, 3
+#: fold_in tags off the row key rk = fold_in(fold_in(ck, ROWS), p)
+_OWN_TAG, _GLOB_TAG, _LABEL_TAG = 0, 1, 2
 
 #: logistic(0, s) has std s·π/√3 — this scale gives the label bias std 1.5
 _BIAS_SCALE = 1.5 * math.sqrt(3.0) / math.pi
@@ -163,52 +176,63 @@ def data_spec(cfg, seed: int = 0) -> DataSpec:
     )
 
 
-def _uniform(gen, shape, lo: float, hi: float, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, device=device)
-    return u * (hi - lo) + lo
+def client_params(base_key: threefry.Key, client_ids: torch.Tensor,
+                  log_pop: torch.Tensor, vocab_size: int):
+    """The clients' (vocab, mixture CDF, label bias, rows key): the
+    reference's ``_client_params`` for a batch of client ids.
 
-
-def _client_params(gen, log_pop: torch.Tensor, vocab_size: int, count: int):
-    """``count`` clients' (vocab, mixture CDF, label bias)."""
-    dev = log_pop.device
-    u = torch.rand((count, log_pop.shape[0]), generator=gen, device=dev)
-    gumbel = -torch.log(-torch.log(u))
-    vocab = torch.topk(log_pop + gumbel, vocab_size, dim=1).indices + 2
-    u = _uniform(gen, (count, vocab_size), 1e-7, 1.0, dev)
-    raw = (-torch.log(u)) ** (1.0 / 0.3)
-    cdf = torch.cumsum(raw / raw.sum(dim=1, keepdim=True), dim=1)
+    ``top_k`` is a stable sort of the scores, descending: equal scores keep
+    the lower feature first, as ``lax.top_k`` does, and the mixture's CDF
+    is aligned to that order."""
+    ck = threefry.fold_in(base_key, client_ids)
+    scores = log_pop + threefry.gumbel(threefry.fold_in(ck, _VOCAB_TAG),
+                                       (log_pop.shape[0],))
+    top = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    vocab = top[:, :vocab_size] + 2
+    u = threefry.uniform(threefry.fold_in(ck, _MIX_TAG), (vocab_size,),
+                         1e-7, 1.0)
+    raw = floatmath.pow_f32(-floatmath.log_f32(u), 1.0 / 0.3)
+    cdf = floatmath.cumsum_f32(raw / floatmath.sum_f32(raw)[:, None])
     cdf[:, -1] = 1.0
-    ub = _uniform(gen, (count,), 1e-6, 1.0 - 1e-6, dev)
-    bias = _BIAS_SCALE * torch.log(ub / (1.0 - ub))
-    return vocab, cdf, bias
+    ub = threefry.uniform(threefry.fold_in(ck, _BIAS_TAG), (), 1e-6,
+                          1.0 - 1e-6)
+    scale = torch.tensor(_BIAS_SCALE, dtype=torch.float32, device=ub.device)
+    bias = scale * floatmath.log_f32(ub / (1.0 - ub))
+    return vocab, cdf, bias, threefry.fold_in(ck, _ROWS_TAG)
 
 
-def _rows(gen, client_of, vocab, cdf, bias, w_true, global_cdf, nnz: int,
-          n_own: int):
-    """One batch of rows (idx, val, y), row i drawn for client
-    ``client_of[i]``."""
-    m = client_of.shape[0]
-    dev = client_of.device
+def _rows(rows_key: threefry.Key, pos: torch.Tensor, vocab, cdf, bias,
+          w_true, global_cdf, nnz: int, n_own: int):
+    """One batch of rows (idx, val, y): row i is row ``pos[i]`` of the
+    client whose rows key, vocabulary, CDF and bias are row i of
+    ``rows_key``, ``vocab``, ``cdf`` and ``bias``."""
+    m = pos.shape[0]
+    dev = pos.device
     V = vocab.shape[1]
-    u_own = torch.rand((m, n_own), generator=gen, device=dev)
-    pos = torch.searchsorted(cdf[client_of], u_own, right=True).clamp_(max=V - 1)
-    own = vocab[client_of].gather(1, pos)
+    rk = threefry.fold_in(rows_key, pos)
+    u_own = threefry.uniform(threefry.fold_in(rk, _OWN_TAG), (n_own,))
+    at = torch.searchsorted(cdf, u_own, right=True).clamp_(max=V - 1)
+    own = vocab.gather(1, at)
     dg = global_cdf.shape[0]
-    u_glob = torch.rand((m, nnz - n_own), generator=gen, device=dev)
-    glob = torch.searchsorted(global_cdf, u_glob, right=True).clamp_(max=dg - 1)
+    u_glob = threefry.uniform(threefry.fold_in(rk, _GLOB_TAG), (nnz - n_own,))
+    glob = torch.searchsorted(global_cdf, u_glob, right=True).clamp_(
+        max=dg - 1)
     special = torch.tensor([0, 1], dtype=torch.int64, device=dev).expand(m, 2)
     idx = torch.cat([special, own, glob + 2], dim=1)
     # repeated features within a row keep their slot with value 0: in
     # stable sorted order every repeat after the first is flagged, then the
-    # flags are sent back to the original positions
+    # flags are sent back to the original positions (the reference's two
+    # stable argsorts)
     srt, order = torch.sort(idx, dim=1, stable=True)
     dup = torch.zeros_like(idx, dtype=torch.bool)
     dup[:, 1:] = srt[:, 1:] == srt[:, :-1]
     repeat = torch.zeros_like(dup).scatter_(1, order, dup)
     val = (~repeat).to(torch.float32)
-    margin = (val * w_true[idx]).sum(dim=1)
-    p = torch.sigmoid(0.7 * margin + bias[client_of])
-    u_y = torch.rand((m,), generator=gen, device=dev)
+    margin = floatmath.sum_f32(val * w_true[idx])
+    # XLA contracts 0.7·margin + bias into one fused multiply-add
+    logit = threefry.fma_f32(torch.full_like(margin, 0.7), margin, bias)
+    p = floatmath.sigmoid_f32(logit)
+    u_y = threefry.uniform(threefry.fold_in(rk, _LABEL_TAG), ())
     y = torch.where(u_y < p, 1.0, -1.0).to(torch.float32)
     return idx, val, y
 
@@ -217,40 +241,44 @@ def generate(cfg, seed: int = 0, *,
              device: DeviceLike = None) -> FederatedDataset:
     """cfg: a ``repro_torch.configs.LogRegConfig`` (possibly ``.scaled()``).
 
-    Draws the whole dataset on ``device`` (default: the CUDA card) from the
-    data stream of ``seed``: :func:`data_spec`'s numpy draws, then client
-    parameters in blocks of ``_PARAM_BLOCK`` clients and rows in blocks of
-    ``_ROW_BLOCK``."""
+    The reference's ``generate(cfg, seed)``, drawn on ``device`` (default:
+    the CUDA card): :func:`data_spec`'s numpy draws, then the keyed sampler
+    from ``PRNGKey(seed)`` — client parameters in blocks of
+    ``_PARAM_BLOCK`` clients, rows in blocks of ``_ROW_BLOCK``."""
     dev = resolve_device(device)
     spec = data_spec(cfg, seed)
-    gen = generator(seed, DATA_STREAM, dev)
+    base = threefry.as_key(threefry.PRNGKey(seed), dev)
     K = len(spec.full_sizes)
     log_pop = torch.as_tensor(spec.log_pop, device=dev)
     gcdf = torch.as_tensor(spec.global_cdf, device=dev)
     w_true = torch.as_tensor(spec.w_true, device=dev)
 
-    parts = [_client_params(gen, log_pop, spec.vocab_size,
-                            min(_PARAM_BLOCK, K - k0))
+    parts = [client_params(base, torch.arange(k0, min(k0 + _PARAM_BLOCK, K),
+                                              device=dev),
+                           log_pop, spec.vocab_size)
              for k0 in range(0, K, _PARAM_BLOCK)]
-    vocab, cdf, bias = (torch.cat(p) for p in zip(*parts))
+    vocab, cdf, bias, rows_k0, rows_k1 = (
+        torch.cat(p) for p in zip(*[(v, c, b, rk[0], rk[1])
+                                    for v, c, b, rk in parts]))
 
     sizes = torch.as_tensor(spec.full_sizes, dtype=torch.int64, device=dev)
     n = int(spec.full_sizes.sum())
     client_of = torch.repeat_interleave(
         torch.arange(K, dtype=torch.int64, device=dev), sizes)
+    starts = torch.cumsum(sizes, 0) - sizes
+    pos = torch.arange(n, device=dev) - starts[client_of]
     width = spec.nnz + 2
     idx = torch.empty((n, width), dtype=torch.int64, device=dev)
     val = torch.empty((n, width), dtype=torch.float32, device=dev)
     y = torch.empty((n,), dtype=torch.float32, device=dev)
     for i0 in range(0, n, _ROW_BLOCK):
         i1 = min(i0 + _ROW_BLOCK, n)
+        c = client_of[i0:i1]
         idx[i0:i1], val[i0:i1], y[i0:i1] = _rows(
-            gen, client_of[i0:i1], vocab, cdf, bias, w_true, gcdf, spec.nnz,
-            spec.n_own)
+            (rows_k0[c], rows_k1[c]), pos[i0:i1], vocab[c], cdf[c], bias[c],
+            w_true, gcdf, spec.nnz, spec.n_own)
 
     # chronological split: a client's first client_sizes[k] rows train
-    starts = torch.cumsum(sizes, 0) - sizes
-    pos = torch.arange(n, device=dev) - starts[client_of]
     tr_sizes = torch.as_tensor(spec.client_sizes, dtype=torch.int64,
                                device=dev)
     tr = pos < tr_sizes[client_of]

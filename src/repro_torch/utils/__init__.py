@@ -1,5 +1,5 @@
-"""Device choice and seeded random streams (see :mod:`.device`)."""
-from repro_torch.utils.device import (DATA_STREAM, generator, resolve_device,
-                                      stream_seed)
+"""Device choice (:mod:`.device`), JAX's threefry (:mod:`.threefry`) and
+device-independent f32 functions (:mod:`.floatmath`)."""
+from repro_torch.utils.device import resolve_device
 
-__all__ = ["DATA_STREAM", "generator", "resolve_device", "stream_seed"]
+__all__ = ["resolve_device"]

@@ -1,8 +1,9 @@
 """The port's synthetic data against the reference's.
 
 Sizes and ``w_true`` come from the same numpy stream and must be bit-equal.
-The rows come from torch's generator, not JAX's threefry, so they are held
-to the reference's structure and statistics instead.
+The rows are held here to the reference's structure and statistics; since
+the port draws them from JAX's threefry too, ``test_torch_synthetic_rows``
+holds them bit for bit.
 """
 import dataclasses
 

@@ -1,8 +1,9 @@
 """The port's FSVRG and GD against the reference's.
 
-The two packages draw from different generators, so the port is fed the
+These tests hold the pass apart from the draws: the port is fed the
 reference's own per-client permutations, rebuilt here exactly as the
-reference's round derives them:
+reference's round derives them (``test_torch_own_seed_*`` hold the port's
+own draws):
 ``permutation(split(fold_in(fold_in(PRNGKey(seed), r), wi), Kb)[k], m_pad)``
 for round r, the bucket's first client wi and its client k.
 

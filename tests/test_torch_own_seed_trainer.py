@@ -1,7 +1,8 @@
-"""The port's Trainer from its own seed against the reference's.
+"""The port's main path from its own seed against the reference's.
 
-``Trainer(make_solver(name), rounds=3, seed=0)`` in each package, round by
-round: round r runs on ``fold_in(PRNGKey(0), r)`` in both, and every mask,
+``generate(scale 0.002, seed 0)`` in each package (bit-equal rows), then
+``Trainer(make_solver(name), rounds=3, seed=0)`` in each, round by round:
+round r runs on ``fold_in(PRNGKey(0), r)`` in both, and every mask,
 permutation and sample is drawn from it by the port itself.  The iterates
 are held after every round at rtol 1e-4 of max |w| (ROADMAP C1: the passes
 differ by ulps of sigmoid and FMA contraction, and the cross-bucket sums
@@ -17,16 +18,19 @@ from repro.core import Trainer as RefTrainer  # noqa: E402
 from repro.core import make_solver as ref_make_solver  # noqa: E402
 from repro.core import sweep as ref_sweep  # noqa: E402
 from repro_torch.bridge import dataset_from_arrays  # noqa: E402
+from repro_torch.configs import get_logreg_config  # noqa: E402
 from repro_torch.core import (Trainer, build_problem, make_solver,  # noqa: E402
                               sweep)
+from repro_torch.data import generate  # noqa: E402
 
 ROUNDS = 3
 
 
 @pytest.fixture(scope="module")
-def port_problem(small_dataset):
-    return build_problem(dataset_from_arrays(small_dataset, device="cpu"),
-                         device="cpu")
+def port_problem():
+    """The port's own data: ``tests/conftest.py``'s small_dataset config."""
+    ds = generate(get_logreg_config().scaled(0.002), 0, device="cpu")
+    return build_problem(ds, device="cpu")
 
 
 def _run(trainer_cls, solver, prob, to_numpy, **kw):
