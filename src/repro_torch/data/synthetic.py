@@ -196,7 +196,7 @@ def client_params(base_key: threefry.Key, client_ids: torch.Tensor,
     cdf[:, -1] = 1.0
     ub = threefry.uniform(threefry.fold_in(ck, _BIAS_TAG), (), 1e-6,
                           1.0 - 1e-6)
-    scale = torch.tensor(_BIAS_SCALE, dtype=torch.float32, device=ub.device)
+    scale = torch.full((), _BIAS_SCALE, dtype=torch.float32, device=ub.device)
     bias = scale * floatmath.log_f32(ub / (1.0 - ub))
     return vocab, cdf, bias, threefry.fold_in(ck, _ROWS_TAG)
 
@@ -217,7 +217,7 @@ def _rows(rows_key: threefry.Key, pos: torch.Tensor, vocab, cdf, bias,
     u_glob = threefry.uniform(threefry.fold_in(rk, _GLOB_TAG), (nnz - n_own,))
     glob = torch.searchsorted(global_cdf, u_glob, right=True).clamp_(
         max=dg - 1)
-    special = torch.tensor([0, 1], dtype=torch.int64, device=dev).expand(m, 2)
+    special = torch.arange(2, device=dev).expand(m, 2)
     idx = torch.cat([special, own, glob + 2], dim=1)
     # repeated features within a row keep their slot with value 0: in
     # stable sorted order every repeat after the first is flagged, then the

@@ -64,8 +64,14 @@ def as_key(key: Key, device=None) -> Key:
     Python ints becomes two 0-d tensors), so that its draws run there."""
     dev = torch.device("cpu") if device is None else torch.device(device)
     return tuple(w.to(dev) if isinstance(w, torch.Tensor)
-                 else torch.tensor(int(w) & MASK32, dtype=torch.int64,
-                                   device=dev) for w in key)
+                 else _scalar(int(w) & MASK32, dev) for w in key)
+
+
+def _scalar(value, device, dtype=torch.int64) -> torch.Tensor:
+    """A 0-d tensor on ``device``, written there by a fill kernel: unlike
+    ``torch.tensor(value, device=...)``, no copy from the host that waits
+    for the device."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def _batch_shape(key: Key) -> Tuple[int, ...]:
@@ -89,9 +95,8 @@ def threefry2x32(key: Key, x0: Word, x1: Word
     k0, k1 = key
     dev = next((t.device for t in (k0, k1, x0, x1)
                 if isinstance(t, torch.Tensor)), torch.device("cpu"))
-    as_word = lambda v: (v if isinstance(v, torch.Tensor)
-                         else torch.tensor(int(v), dtype=torch.int64,
-                                           device=dev))
+    as_word = lambda v: v if isinstance(v, torch.Tensor) else _scalar(
+        int(v), dev)
     k0, k1, x0, x1 = (as_word(v) for v in (k0, k1, x0, x1))
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     a = (x0 + ks[0]) & MASK32
@@ -191,13 +196,12 @@ def uniform(key: Key, shape: Sequence[int] = (), minval: float = 0.0,
     scale and shift into one fused multiply-add, and so does this
     (:func:`fma_f32`).  ``device`` places the draw of a plain (int) key."""
     if device is not None and not isinstance(key[0], torch.Tensor):
-        key = tuple(torch.tensor(int(k), dtype=torch.int64, device=device)
-                    for k in key)
+        key = as_key(key, device)
     bits = random_bits(key, shape)
     f = (((bits >> 9) | _ONE_F32_BITS).to(torch.int32)
          .view(torch.float32) - 1.0)
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    lo = _scalar(minval, f.device, torch.float32)
+    hi = _scalar(maxval, f.device, torch.float32)
     return torch.maximum(lo, fma_f32(f, hi - lo, lo))
 
 
@@ -211,13 +215,8 @@ def _bound(v, batch: Tuple[int, ...], ndim: int,
         if batch and tuple(v.shape) == batch:
             v = v.reshape(batch + (1,) * ndim)
     else:
-        v = torch.tensor(int(v), dtype=torch.int64, device=device)
+        v = _scalar(int(v), device)
     return v.clamp(_INT32_MIN, _INT32_MAX)
-
-
-def _rem(x: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
-    """XLA's unsigned remainder: ``x % 0`` is ``x``."""
-    return torch.where(span == 0, x, x % span.clamp(min=1))
 
 
 def randint(key: Key, shape: Sequence[int], minval, maxval) -> torch.Tensor:
@@ -239,10 +238,10 @@ def randint(key: Key, shape: Sequence[int], minval, maxval) -> torch.Tensor:
     hi_b = _bound(maxval, batch, len(shape), dev)
     span = torch.where(hi_b <= lo_b, torch.ones_like(hi_b),
                        (hi_b - lo_b) & MASK32)
-    mult = _rem(torch.full_like(span, 1 << 16), span)
-    mult = _rem((mult * mult) & MASK32, span)
-    offset = ((_rem(hi, span) * mult) & MASK32) + _rem(lo, span)
-    offset = _rem(offset & MASK32, span)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & MASK32) % span
+    offset = (((hi % span) * mult) & MASK32) + lo % span
+    offset = (offset & MASK32) % span
     # minval + offset as an int32 sum, which wraps
     return ((lo_b + offset - _INT32_MIN) & MASK32) + _INT32_MIN
 
