@@ -320,7 +320,7 @@ def test_small_runs_on_the_card(cuda):
 
 
 def _shared_draws(cls):
-    """``cls`` with its permutations drawn on the CPU from one generator
+    """``cls`` with its permutations drawn on the CPU from one key
     per round and bucket, so the card and the CPU walk the same orders."""
 
     class SharedDraws(cls):
