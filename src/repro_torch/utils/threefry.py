@@ -269,11 +269,10 @@ def permutation(key: Key, n: int) -> torch.Tensor:
     return order.contiguous()
 
 
-def gumbel(key: Key, shape: Sequence[int] = (), *,
-           device=None) -> torch.Tensor:
+def gumbel(key: Key, shape: Sequence[int] = ()) -> torch.Tensor:
     """``jax.random.gumbel(key, shape)`` in f32, mode ``"low"``:
     −log(−log(u)) of u = ``uniform(key, shape, tiny, 1)``, each log rounded
     to f32.  The uniforms are JAX's bits; the logs are ``log_f32``'s (see
     the module's docstring), the same on the CPU and on CUDA."""
-    u = uniform(key, shape, _TINY_F32, 1.0, device=device)
+    u = uniform(key, shape, _TINY_F32, 1.0)
     return -log_f32(-log_f32(u))
