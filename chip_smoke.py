@@ -58,7 +58,17 @@ Phases, in order (any failure raises and exits non-zero):
    first round again through the plain pass, which must agree; the same
    faults unguarded must stop FSVRG in round 0; then the three on a small
    problem on the card and on the CPU, which must agree;
-6. serve rwkv6-3b at full width (32 layers, d 2,560, vocab 65,536, bf16,
+6. reproduce Fig. 2 at the paper's width from its command
+   (``repro_torch.experiments.fig2_convergence`` with FIG2_ARGS: OPT, every
+   curve's stepsize sweep for 2 rounds, FSVRGR, one-shot, the constant and
+   majority errors), counts set to 0 just before and read just after, each
+   curve's launches against sweep size × rounds × batched steps, its wall
+   seconds and the rounds-to-10 %-gap table; the command at scale 0.003 on
+   the card against the CPU; then the dense ridge methods in f64
+   (Theorem 5: PrimalMethod against DualMethod at K = 1,000, m = 64,
+   d = 256, and DANERidge, card against CPU) and Proposition 1 on the card
+   in f32;
+7. serve rwkv6-3b at full width (32 layers, d 2,560, vocab 65,536, bf16,
    seeded random weights): ``build_model`` → ``launch.serve.serve`` of 8
    prompts of 2,048 tokens and 32 greedy decode steps, counts set to 0
    just before and read just after (``wkv6`` once a layer in the prefill,
@@ -66,7 +76,7 @@ Phases, in order (any failure raises and exits non-zero):
    run; one prompt's prefill against 256 decode steps from an empty cache
    (kernel against the sequential WKV); the reduced config on the card
    against the CPU with the same weights;
-7. time each kernel, its plain version and a PyTorch yardstick with CUDA
+8. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
    card could take) — ``robust_aggregate``'s trimmed mean and median at
    the faulted cells' m and at m = K, ``cocoa_sdca_pass`` at every bucket
@@ -75,7 +85,7 @@ Phases, in order (any failure raises and exits non-zero):
    break one full-width round of each plain solver into its parts; trace
    one plain round of each solver for the device's idle share, and one
    full-width prefill for its busy share and top operations;
-8. train rwkv6-3b, the serving weights and the earlier phases' tensors
+9. train rwkv6-3b, the serving weights and the earlier phases' tensors
    freed first: ``wkv6_bwd`` against autograd through the plain forward
    (the training path's (2, 128, 40, 64) from zeros and from a given
    state with the final state's cotangent, the serving shape, the
@@ -95,13 +105,14 @@ Phases, in order (any failure raises and exits non-zero):
    its three launches (terms, scan, chunk backward) timed apart the same
    way, a call back to back from the host and the host's enqueue alone;
    ``wkv6``'s forward at the training shape;
-9. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+10. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
+    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -181,6 +192,14 @@ FSVRG_ROUNDS, ADAMW_STEPS = 2, 3
 #: (B, S, Hn, D) of wkv6_bwd on the training path, and at the serving shape
 TRAIN_WKV = (TRAIN_BATCH, TRAIN_SEQ, 40, 64)
 SERVE_WKV = (REQUESTS, PROMPT_LEN, 40, 64)
+#: Fig. 2 from its command at the paper's width, and a small run of it on
+#: the card and on the CPU
+FIG2_ARGS = ["--scale", "1.0", "--rounds", "2", "--opt-iters", "500",
+             "--algo", "all"]
+FIG2_SMALL = ["--scale", "0.003", "--rounds", "2"]
+#: Theorem 5 on the card: (K, m, d) equal-size dense clients, f64
+DENSE_SHAPE = (1_000, 64, 256)
+DENSE_ROUNDS = 5
 
 
 def require(cond: bool, msg: str) -> None:
@@ -486,6 +505,221 @@ def serve_phase(dev, sync) -> dict:
         require(max(errs) <= 1e-4, "card and CPU serving disagree")
     return dict(model=model, params=params, prompt=prompt,
                 launches=launches, runs=runs)
+
+
+def fig2_phase(dev, sync, steps: int, n_buckets: int) -> dict:
+    """Reproduce Fig. 2 at the paper's width through its command,
+    ``repro_torch.experiments.fig2_convergence.main`` (FIG2_ARGS): every
+    curve's history finite, its JSON written and read back, each curve's
+    kernel launches against sweep size × rounds × batched steps (``steps``
+    = Σ m_pad of the §4 buckets, ``n_buckets`` of them), with the counts set
+    to 0 just before and read just after; its wall seconds and the
+    rounds-to-10 %-gap table printed.  Then the command at FIG2_SMALL on the
+    card and on the CPU: every curve's f within rtol 1e-4, its error within
+    one test example, the swept values equal.  Returns the full run's
+    launches by kernel."""
+    import torch
+    from repro_torch.configs import (get_dane_config, get_fedavg_config,
+                                     get_fsvrg_config, get_gd_config)
+    from repro_torch.experiments import fig2_convergence as fig2
+    from repro_torch.kernels import ops
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / "fig2_smoke.json"
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    fig2.main(FIG2_ARGS + ["--json", str(path)])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    res = json.loads(path.read_text())
+    rounds = int(FIG2_ARGS[FIG2_ARGS.index("--rounds") + 1])
+    fsvrg = len(get_fsvrg_config().stepsize_sweep) * rounds * steps
+    fedavg_cfg = get_fedavg_config()
+    expected = {
+        "fsvrg": {"fsvrg_update": fsvrg},
+        "fsvrgr": {"fsvrg_update": fsvrg},
+        "gd": {},
+        "dane": {"dane_update": len(get_dane_config().local_lr_sweep)
+                 * rounds * get_dane_config().local_steps * n_buckets},
+        "cocoa": {"cocoa_sdca_pass": rounds * n_buckets},
+        "fedavg": {"fedavg_update": len(fedavg_cfg.stepsize_sweep) * rounds
+                   * fedavg_cfg.local_epochs * steps},
+        "oneshot": {"fedavg_update": 20 * steps},
+    }
+    log(f"[fig2] {' '.join(FIG2_ARGS)}: {wall:.1f} s in all; OPT f* "
+        f"{res['opt']['f']:.6f} err* {res['opt']['err']:.4f}; constant "
+        f"err {res['const_err']:.4f}; majority err "
+        f"{res['majority_err']:.4f}; K = {res['config']['num_clients']}, "
+        f"d = {res['config']['num_features']}")
+    from repro_torch.configs import get_logreg_config
+    from repro_torch.data import generate
+    scale = float(FIG2_ARGS[FIG2_ARGS.index("--scale") + 1])
+    cfg = get_logreg_config().scaled(scale)
+    require(res["config"]["num_clients"] == cfg.num_clients
+            and res["config"]["num_features"] == cfg.num_features,
+            f"fig2: not the width of scale {scale}")
+    total = {}
+    for name, want in expected.items():
+        cur = res[name]
+        hist = cur.get("hist", [cur])
+        require(all(math.isfinite(p["f"]) and math.isfinite(p["err"])
+                    for p in hist), f"fig2 {name}: a non-finite history")
+        require(len(hist) == (1 if name == "oneshot" else rounds),
+                f"fig2 {name}: {len(hist)} rounds recorded")
+        log(f"[fig2] {name}: {cur['seconds']:.2f} s; swept "
+            f"{cur.get('swept', {})}; f " + " -> ".join(
+                f"{p['f']:.6f}" for p in hist) + f"; err {hist[-1]['err']:.4f}"
+            f"; rounds to the 10 % gap {cur.get('rounds_to_10pct_gap')}; "
+            f"launches {cur['launches']} (expected {want})")
+        require(cur["launches"] == want,
+                f"fig2 {name}: launches {cur['launches']}, expected {want}")
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+    require(launches == total,
+            f"fig2: the run launched {launches}, its curves {total}")
+    log("[fig2] name,rounds_to_10pct_gap,final_f,final_err")
+    for name in fig2.GAP_TABLE:
+        h = res[name]["hist"][-1]
+        log(f"[fig2] {name},{res[name]['rounds_to_10pct_gap']},"
+            f"{h['f']:.5f},{h['err']:.4f}")
+
+    # the small run on the card and on the CPU
+    small = []
+    for device in (dev.type, "cpu"):
+        t = time.perf_counter()
+        small.append(fig2.main(FIG2_SMALL + ["--device", device]))
+        sync()
+        log(f"[fig2] {' '.join(FIG2_SMALL)} on {device}: "
+            f"{time.perf_counter() - t:.1f} s")
+    card, cpu = small
+    scale = float(FIG2_SMALL[FIG2_SMALL.index("--scale") + 1])
+    one = 1.0 / int(generate(get_logreg_config().scaled(scale), SEED,
+                             device="cpu").test_y.shape[0])
+    worst_f, worst_err = 0.0, 0.0
+    pairs = [("opt", card["opt"], cpu["opt"]),
+             ("oneshot", card["oneshot"], cpu["oneshot"])]
+    for name in fig2.GAP_TABLE:
+        require(card[name]["swept"] == cpu[name]["swept"],
+                f"fig2 small {name}: swept {card[name]['swept']} on the "
+                f"card, {cpu[name]['swept']} on the CPU")
+        pairs += [(f"{name} r{r + 1}", a, b) for r, (a, b) in enumerate(
+            zip(card[name]["hist"], cpu[name]["hist"]))]
+    for label, a, b in pairs:
+        rel = abs(a["f"] - b["f"]) / abs(b["f"])
+        worst_f, worst_err = max(worst_f, rel), max(
+            worst_err, abs(a["err"] - b["err"]))
+        require(rel <= 1e-4 and abs(a["err"] - b["err"]) <= one + 1e-12,
+                f"fig2 small {label}: card {a}, CPU {b}")
+    require(card["const_err"] == cpu["const_err"]
+            and card["majority_err"] == cpu["majority_err"],
+            "fig2 small: the constant or majority error differs")
+    log(f"[fig2] small run card vs CPU: swept values equal, f within "
+        f"{worst_f:.2e} relative (tolerance 1e-4), err within "
+        f"{worst_err:.4f} (one test example {one:.4f}); constant and "
+        "majority errors equal")
+    return launches
+
+
+def dense_phase(dev, sync) -> None:
+    """Theorem 5 on the card in f64: PrimalMethod and DualMethod from the
+    same α⁰ on DENSE_SHAPE equal-size clients, DENSE_ROUNDS rounds, the
+    iterates equal and w = (1/λn) X α of the dual's blocks every round;
+    DANERidge for 3 rounds; each held against the CPU's run of the same
+    inputs.  Then Proposition 1 on the card in f32: dane_svrg_round against
+    naive_fsvrg_round on a small sparse problem.  Counts set to 0 just
+    before the ridge runs and read just after: none of the port's kernels
+    runs there (the solves are torch.linalg.solve, as the reference's are
+    jnp.linalg.solve)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_logreg_config
+    from repro_torch.core import (DANERidge, DualMethod, PrimalMethod,
+                                  build_dense_problem, build_problem,
+                                  dane_svrg_round, naive_fsvrg_round)
+    from repro_torch.data import generate
+    from repro_torch.kernels import ops
+    from repro_torch.utils import threefry
+
+    K, m, d = DENSE_SHAPE
+    lam, sigma = 0.1, K / 4.0
+    rng = np.random.default_rng(SEED)
+    Xs = [rng.standard_normal((d, m)) for _ in range(K)]
+    ys = [rng.standard_normal(m) for _ in range(K)]
+    a0 = [rng.standard_normal(m) for _ in range(K)]
+    key = threefry.PRNGKey(SEED)
+    runs = []
+    ops.reset_launch_counts()
+    for device in (dev, torch.device("cpu")):
+        prob = build_dense_problem(Xs, ys, lam, device=device)
+        X = prob.buckets[0].val                               # (K, m, d)
+        primal = PrimalMethod(prob, sigma=sigma, alphas0=a0, device=device)
+        dual = DualMethod(prob, sigma=sigma, alphas0=a0, device=device)
+        sp, sd = primal.init(), dual.init()
+        gap, drift, secs = 0.0, 0.0, []
+        for _ in range(DENSE_ROUNDS):
+            sync()
+            t = time.perf_counter()
+            sp = primal.round(sp, key)
+            sd = dual.round(sd, key)
+            sync()
+            secs.append(time.perf_counter() - t)
+            scale = float(sd.w.abs().max())
+            gap = max(gap, float((sp.w - sd.w).abs().max()) / scale)
+            w_alpha = torch.einsum("kmd,km->d", X, sd.aux[0]) / (
+                lam * prob.flat.n)
+            drift = max(drift, float((sd.w - w_alpha).abs().max()) / scale)
+        ridge = DANERidge(prob, eta=1.0, mu=0.5, device=device)
+        sr = ridge.init(torch.zeros(d, dtype=torch.float64, device=device))
+        sync()
+        t = time.perf_counter()
+        for r in range(3):
+            sr = ridge.round(sr, key)
+        sync()
+        ridge_s = time.perf_counter() - t
+        runs.append(dict(primal=sp, dual=sd, ridge=sr))
+        log(f"[dense] {device.type}: K = {K}, m = {m}, d = {d}, f64, σ = "
+            f"{sigma:g}: primal + dual rounds "
+            + ", ".join(f"{x:.3f}" for x in secs) + f" s; |w_primal − "
+            f"w_dual| ≤ {gap:.2e} and |w − (1/λn)Xα| ≤ {drift:.2e} of max "
+            f"|w| over {DENSE_ROUNDS} rounds (tolerance 1e-9); DANERidge 3 "
+            f"rounds {ridge_s:.3f} s")
+        require(gap <= 1e-9 and drift <= 1e-9,
+                f"dense {device.type}: Theorem 5 does not hold")
+    launches = ops.launch_counts()
+    require(not any(launches.values()),
+            f"dense: the ridge methods launched {launches}")
+    worst = 0.0
+    for name in ("primal", "dual", "ridge"):
+        a, b = runs[0][name], runs[1][name]
+        pairs = [(a.w, b.w)] + list(zip(a.aux, b.aux))
+        for got, expect in pairs:
+            err = float((got.cpu() - expect).abs().max()) / float(
+                expect.abs().max())
+            worst = max(worst, err)
+            require(err <= 1e-9, f"dense {name}: card and CPU disagree "
+                    f"({err:.2e} of max |x|)")
+    log(f"[dense] card vs CPU (w, g_k and α_k): ≤ {worst:.2e} of max |x| "
+        "(tolerance 1e-9: cuSOLVER's and LAPACK's f64 solves)")
+    del runs
+    torch.cuda.empty_cache()
+
+    prob = build_problem(generate(get_logreg_config().scaled(0.002), SEED,
+                                  device=dev), device=dev)
+    w = 0.2 * torch.as_tensor(np.random.default_rng(7).standard_normal(
+        prob.d), dtype=torch.float32, device=dev)
+    for stepsize, steps in ((0.05, 10), (0.2, 25)):
+        w3 = naive_fsvrg_round(prob, w, threefry.PRNGKey(11), stepsize,
+                               steps)
+        wd = dane_svrg_round(prob, w, threefry.PRNGKey(11), stepsize, steps)
+        scale = float(w3.abs().max())
+        err = float((w3 - wd).abs().max())
+        log(f"[dense] Proposition 1 on the card (f32, scale 0.002, h = "
+            f"{stepsize}, m = {steps}): |DANE-SVRG − Algorithm 3| "
+            f"{err:.3e} of max |w| {scale:.3e} (tolerance 1e-5·max|w|)")
+        require(err <= 1e-5 * scale, "dense: Proposition 1 does not hold")
 
 
 def check_draws(dev) -> None:
@@ -1721,12 +1955,20 @@ def main() -> int:
         require(err <= 1e-4 * scale,
                 f"{name}: faulted card and CPU runs disagree")
 
-    # -- 6. serving rwkv6-3b at full width ----------------------------------- #
+    # -- 6. Fig. 2 from its command, and the dense ridge methods ----------- #
+    phase("fig2")
+    fig2_launches = fig2_phase(dev, sync, steps, len(prob.buckets))
+    torch.cuda.empty_cache()
+    phase("dense")
+    dense_phase(dev, sync)
+    torch.cuda.empty_cache()
+
+    # -- 7. serving rwkv6-3b at full width ----------------------------------- #
     phase("serving")
     served = serve_phase(dev, sync)
     torch.cuda.empty_cache()
 
-    # -- 7. timing ----------------------------------------------------------- #
+    # -- 8. timing ----------------------------------------------------------- #
     phase("timing")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1734,9 +1976,10 @@ def main() -> int:
     def row(name, kernel_fn, plain_fn, nbytes, flops, library_fn=None,
             launches=None):
         b_ms, b_by = bound(nbytes, flops)
-        if launches is None:     # over the four plain and the three faulted
-            launches = sum(r["launches"][name]                    # runs
-                           for r in (*runs.values(), *fault_runs.values()))
+        if launches is None:     # over the plain and the faulted runs and
+            launches = sum(r["launches"][name]                 # Fig. 2's
+                           for r in (*runs.values(), *fault_runs.values())
+                           ) + fig2_launches.get(name, 0)
         return dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=TPU_KERNELS[name], launches=launches,
@@ -1850,7 +2093,8 @@ def main() -> int:
         name="fused_aggregate", route="cuda", source=SOURCES["fused_aggregate"],
         replaces=TPU_KERNELS["fused_aggregate"],
         launches=sum(r_["launches"]["fused_aggregate"]
-                     for r_ in (*runs.values(), *fault_runs.values())),
+                     for r_ in (*runs.values(), *fault_runs.values()))
+        + fig2_launches.get("fused_aggregate", 0),
         max_abs_err=max_err["fused_aggregate"],
         ms=med["kernel"],
         plain_ms=cuda_ms(lambda: ref.fused_aggregate_ref(w, deltas, wts, a,
@@ -1979,7 +2223,8 @@ def main() -> int:
         name="cocoa_sdca_pass", route="cuda", source=SOURCES["cocoa_sdca_pass"],
         replaces=TPU_KERNELS["cocoa_sdca_pass"],
         launches=sum(r_["launches"]["cocoa_sdca_pass"]
-                     for r_ in (*runs.values(), *fault_runs.values())),
+                     for r_ in (*runs.values(), *fault_runs.values()))
+        + fig2_launches.get("cocoa_sdca_pass", 0),
         max_abs_err=max_err["cocoa_sdca_pass"], ms=pass_ms,
         plain_ms=plain_pass_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
@@ -2138,7 +2383,7 @@ def main() -> int:
         + (f"{1 - busy_s / wall_s:.1%}" if busy_s > 0 else "not measured")
         + f"; {n_kernels / DECODE_PROFILED:.0f} device kernels a step")
 
-    # -- 8. training rwkv6-3b at full width, the serving weights and the
+    # -- 9. training rwkv6-3b at full width, the serving weights and the
     #       logreg phases' tensors freed first
     del served, model, params, res, runs, fault_runs, prob, ds
     torch.cuda.empty_cache()
@@ -2149,7 +2394,7 @@ def main() -> int:
             "the kernels line misses a kernel")
     phase("done")
 
-    # -- 9. the result -------------------------------------------------------- #
+    # -- 10. the result ------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

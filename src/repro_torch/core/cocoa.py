@@ -18,13 +18,28 @@ clients are independent, so the whole bucket's pass is one
 client's chain of m_pad steps (a warp a client), in place of the
 reference's ``lax.scan`` of one β-solve launch a step.
 
-Not ported yet: ``PrimalMethod`` and ``DualMethod`` (they need
-``build_dense_problem``), and the streamed, cohort and virtual options.
+Appendix A's methods for ridge regression run on the same hook, on a
+:func:`~repro_torch.core.problem.build_dense_problem` layout with equal
+n_k (as the paper assumes "for simplicity"):
+
+  * :class:`PrimalMethod` — Algorithm 5: quadratic perturbation with
+    a_k^t = ∇F_k(w^t) − (η∇F_k(w^t) + g_k^t); the state is g_k, closed
+    after the round from the aggregated w^{t+1} (step 9);
+  * :class:`DualMethod` — Algorithm 6: dual block proximal ascent with
+    exact block solves (eq. 19); the state is α_k and the iterate tracks
+    w^t = (1/λn) X α^t through the summed deltas.
+
+Theorem 5: for ridge regression the two generate the same iterates under
+w = (1/λn) X α.  Their local solves are batched ``torch.linalg.solve``
+calls, one a bucket (the reference's ``jnp.linalg.solve``; no TPU kernel
+computes them).
+
+Not ported yet: the streamed, cohort and virtual options.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -35,6 +50,13 @@ from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.kernels import ops
 from repro_torch.utils import threefry
 from repro_torch.utils.device import DeviceLike
+
+
+def dual_to_primal(Xs: Sequence[torch.Tensor], alphas: Sequence[torch.Tensor],
+                   lam: float) -> torch.Tensor:
+    """w = (1/λn) Σ_k X_k α_k for per-client dual blocks (X_k: (d, m_k))."""
+    n = sum(int(a.shape[0]) for a in alphas)
+    return sum(X @ a for X, a in zip(Xs, alphas)) / (lam * n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +156,161 @@ class CoCoAPlus(FederatedSolver):
                                      round_index=state.round)
         return SolverState(w=w, aux=alphas, round=state.round + 1)
 
+    @property
+    def hyperparams(self):
+        hp = dataclasses.asdict(self.cfg)
+        hp["sigma"] = self.sigma          # the resolved σ′, not the None default
+        return hp
+
+
+# --------------------------------------------------------------------- #
+# Appendix A, ridge regression (equal n_k, dense buckets)
+# --------------------------------------------------------------------- #
+
+
+def _check_equal_sizes(problem: FederatedLogReg) -> None:
+    for b in problem.buckets:
+        if int(b.n_k.min()) != int(b.n_k.max()):
+            raise ValueError("Appendix-A methods assume equal n_k")
+    if len(problem.buckets) != 1:
+        raise ValueError("Appendix-A methods assume equal n_k (one bucket)")
+
+
+def _stack_alphas0(problem: FederatedLogReg,
+                   alphas0: Optional[Sequence[Any]]) -> torch.Tensor:
+    """(K, m) initial dual blocks from a per-client list (zeros default),
+    in the data's dtype on its device."""
+    b = problem.buckets[0]
+    if alphas0 is None:
+        return torch.zeros((b.num_clients, b.m_pad), dtype=b.val.dtype,
+                           device=b.val.device)
+    return torch.stack([torch.as_tensor(a, device=b.val.device)
+                        for a in alphas0]).to(b.val.dtype)
+
+
+class PrimalMethod(FederatedSolver):
+    """Algorithm 5 (Primal Method) with exact local solves, on the engine.
+
+    The per-client state g_k (steps 4 and 9) rides through
+    ``round_with_state``: the pass returns each exact subproblem solution
+    w_k as the bucket's new state (the old g_k stays as it was), the
+    engine's uniform weighting forms w^{t+1} = (1/K) Σ w_k, and step 9
+    (g_k ← g_k + λη(w_k − w^{t+1})) closes the round with the aggregate.
+
+    ``problem`` must be a :func:`~repro_torch.core.problem.build_dense_problem`
+    layout with equal n_k.  ``init()`` runs steps 3–5 (w⁰ and g⁰ follow
+    from ``alphas0``), so a custom ``w0`` is rejected."""
+
+    name = "primal"
+
+    def __init__(self, problem: FederatedLogReg, *,
+                 sigma: Optional[float] = None, alphas0=None,
+                 device: DeviceLike = None):
+        _check_equal_sizes(problem)
+        self._bind(problem, device)
+        K = problem.num_clients
+        self.lam = float(problem.flat.lam)
+        self.sigma = float(K if sigma is None else sigma)
+        self.eta = K / self.sigma
+        self.mu = self.lam * (self.eta - 1.0)
+        self._alpha0 = _stack_alphas0(problem, alphas0)
+        self.engine = RoundEngine(problem, EngineConfig(weighting="uniform"))
+        self._round_fast = self.engine.compile_with_state(self._primal_pass)
+
+    @property
+    def hyperparams(self):
+        return {"sigma": self.sigma, "eta": self.eta, "mu": self.mu}
+
+    def init(self, w0: Optional[torch.Tensor] = None) -> SolverState:
+        if w0 is not None:
+            raise ValueError("PrimalMethod's w0 is determined by alphas0 "
+                             "(steps 3-5 of Algorithm 5)")
+        b = self.problem.buckets[0]
+        n = self.problem.flat.n
+        K = self.problem.num_clients
+        # steps 3-5: w^0 = (1/λn) Σ X_k α_k;  g_k^0 = η((K/n) X_k α_k − λw^0)
+        xa = torch.einsum("kmd,km->kd", b.val, self._alpha0)     # X_k α_k
+        w = xa.sum(dim=0) / (self.lam * n)
+        gs = self.eta * ((K / n) * xa - self.lam * w)
+        return SolverState(w=w, aux=(gs,))
+
+    def _primal_pass(self, w, bi, bucket, gs, kb, out):
+        lam, eta, mu = self.lam, self.eta, self.mu
+        c = self.problem.num_clients / self.problem.flat.n      # K/n
+        X = bucket.val.transpose(1, 2)                          # (Kb, d, m)
+        # argmin F_k(w') − (∇F_k(w^t) − (η∇F_k(w^t) + g_k))ᵀw'
+        #        + µ/2||w'−w^t||²,  F_k as in eq. 12 ((K/n)-normalized)
+        resid = torch.einsum("kdm,d->km", X, w) - bucket.y
+        Fk = c * torch.einsum("kdm,km->kd", X, resid) + lam * w
+        b_k = (1.0 - eta) * Fk - gs
+        eye = torch.eye(w.shape[0], dtype=X.dtype, device=X.device)
+        H = c * (X @ bucket.val) + (lam + mu) * eye
+        rhs = c * torch.einsum("kdm,km->kd", X, bucket.y) + b_k + mu * w
+        wk = torch.linalg.solve(H, rhs)
+        torch.sub(wk, w, out=out)
+        return wk
+
+    def round(self, state: SolverState,
+              key: threefry.Key) -> SolverState:
+        # step 9's g update needs the aggregated w^{t+1}, so it closes the
+        # round after the engine's; the engine leaves state.aux as it was
+        w_next, wks = self._round_fast(state.w, state.aux, key)
+        gs = tuple(g + self.lam * self.eta * (wk - w_next)
+                   for g, wk in zip(state.aux, wks))
+        return SolverState(w=w_next, aux=gs, round=state.round + 1)
+
+
+class DualMethod(FederatedSolver):
+    """Algorithm 6 (Dual Method) with exact block solves, on the engine.
+
+    Block subproblem (19): h_k = argmin (σ/2λn)||X_k h||² + ½||h||²
+                                        − (y_k − X_kᵀw^t − α_k)ᵀ h
+    The state is the dual block α_k in ``state.aux``; the pass returns
+    X_k h_k/(λn) as the delta, so the engine's plain sum tracks
+    w^{t+1} = (1/λn) X α^{t+1}.  ``init()`` derives w⁰ from ``alphas0``,
+    so a custom ``w0`` is rejected."""
+
+    name = "dual"
+
+    def __init__(self, problem: FederatedLogReg, *,
+                 sigma: Optional[float] = None, alphas0=None,
+                 device: DeviceLike = None):
+        _check_equal_sizes(problem)
+        self._bind(problem, device)
+        self.lam = float(problem.flat.lam)
+        self.sigma = float(problem.num_clients if sigma is None else sigma)
+        self._alpha0 = _stack_alphas0(problem, alphas0)
+        self.engine = RoundEngine(problem, EngineConfig(weighting="sum"))
+        self._round_fast = self.engine.compile_with_state(self._dual_pass)
+
+    @property
+    def hyperparams(self):
+        return {"sigma": self.sigma}
+
+    def init(self, w0: Optional[torch.Tensor] = None) -> SolverState:
+        if w0 is not None:
+            raise ValueError("DualMethod's w0 is determined by alphas0 "
+                             "(w = (1/lambda n) X alpha)")
+        b = self.problem.buckets[0]
+        n = self.problem.flat.n
+        w = torch.einsum("kmd,km->d", b.val, self._alpha0) / (self.lam * n)
+        return SolverState(w=w, aux=(self._alpha0,))
+
+    def _dual_pass(self, w, bi, bucket, alpha, kb, out):
+        lam_n = self.lam * self.problem.flat.n
+        X = bucket.val.transpose(1, 2)                          # (Kb, d, m)
+        c = bucket.y - torch.einsum("kdm,d->km", X, w) - alpha
+        eye = torch.eye(alpha.shape[1], dtype=X.dtype, device=X.device)
+        M = (self.sigma / lam_n) * (bucket.val @ X) + eye
+        h = torch.linalg.solve(M, c)
+        torch.div(torch.einsum("kdm,km->kd", X, h), lam_n, out=out)
+        return alpha + h
+
+    def round(self, state: SolverState,
+              key: threefry.Key) -> SolverState:
+        w, alphas = self._round_fast(state.w, state.aux, key)
+        return SolverState(w=w, aux=alphas, round=state.round + 1)
+
 
 def _cocoa_defaults():
     from repro_torch.configs import get_cocoa_config
@@ -146,3 +323,17 @@ def _make_cocoa(problem: FederatedLogReg, *, device: DeviceLike = None,
                 sigma: Optional[float] = None, **kw) -> CoCoAPlus:
     return CoCoAPlus(problem, sigma=sigma, cfg=CoCoAConfig(**kw),
                      device=device)
+
+
+@register("primal", layout="dense",
+          description="Appendix-A Algorithm 5 (Primal Method, exact solves)")
+def _make_primal(problem: FederatedLogReg, *, device: DeviceLike = None,
+                 **kw) -> PrimalMethod:
+    return PrimalMethod(problem, device=device, **kw)
+
+
+@register("dual", layout="dense",
+          description="Appendix-A Algorithm 6 (Dual Method, exact solves)")
+def _make_dual(problem: FederatedLogReg, *, device: DeviceLike = None,
+               **kw) -> DualMethod:
+    return DualMethod(problem, device=device, **kw)

@@ -18,8 +18,13 @@ client of a bucket at once:
     client k of the bucket with key kb from ``randint(take(split(kb, Kb),
     k), (m,), 0, max(n_k, 1))``, the reference's samples, bit for bit.
 
-Not ported yet: ``DANERidge`` and ``dane_svrg_round`` (they need
-``build_dense_problem``), and the streamed, cohort and virtual options.
+:class:`DANERidge` is the exact solver for ridge regression on a
+:func:`~repro_torch.core.problem.build_dense_problem` layout: each
+client's d×d system, one batched ``torch.linalg.solve`` a bucket (the
+reference's ``jnp.linalg.solve``; no TPU kernel computes it).
+:func:`dane_svrg_round` is the one-call Proposition-1 round.
+
+Not ported yet: the streamed, cohort and virtual options.
 """
 from __future__ import annotations
 
@@ -67,6 +72,13 @@ class DANEConfig:
     def __post_init__(self):
         if self.local_solver not in _SOLVERS:
             raise ValueError(f"local_solver must be one of {_SOLVERS}")
+
+
+def ridge_grad(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+               lam: float) -> torch.Tensor:
+    """∇F(w) of F(w) = 1/(2m) ||Xᵀw − y||² + λ/2 ||w||², X: (d, m)."""
+    m = y.shape[0]
+    return X @ (X.T @ w - y) / m + lam * w
 
 
 def data_grad(wk: torch.Tensor, bucket: ClientBucket,
@@ -203,6 +215,73 @@ class DANE(FederatedSolver):
                              round=state.round + 1)
 
 
+def dane_svrg_round(problem: FederatedLogReg, w: torch.Tensor,
+                    key: threefry.Key, stepsize: float,
+                    m: int) -> torch.Tensor:
+    """One Proposition-1 round (DANE with η = 1, µ = 0 and one SVRG epoch
+    of ``m`` samples as the local solver) from ``w`` on ``key``, on the
+    problem's device."""
+    cfg = DANEConfig(eta=1.0, mu=0.0, local_solver="svrg",
+                     svrg_stepsize=stepsize, svrg_steps=m)
+    solver = DANE(problem, cfg, device=problem.device)
+    return solver.round(solver.init(w), key).w
+
+
+class DANERidge(FederatedSolver):
+    """Exact DANE for ridge regression (d×d local solves) on the engine.
+
+    F_k(w) = 1/(2 n_k)||X_kᵀw − y_k||² + (λ/2)||w||²; subproblem (10) is the
+    linear system (H_k + µI) w = c_k + a_k + µw^t with H_k = X_kX_kᵀ/n_k + λI
+    and c_k = X_k y_k / n_k, solved exactly for every client of a bucket at
+    once and averaged uniformly by the engine.  ``problem`` must be a
+    :func:`~repro_torch.core.problem.build_dense_problem` layout; λ is read
+    from ``problem.flat.lam``.  Deterministic: the round's key is unused."""
+
+    name = "dane_ridge"
+
+    def __init__(self, problem: FederatedLogReg, *, eta: float = 1.0,
+                 mu: float = 0.0, aggregator: str = "dense",
+                 device: DeviceLike = None):
+        self._bind(problem, device)
+        self.lam = float(problem.flat.lam)
+        self.eta, self.mu = float(eta), float(mu)
+        self.engine = RoundEngine(problem,
+                                  EngineConfig(weighting="uniform",
+                                               aggregator=aggregator))
+        self._round_fast = self.engine.compile(
+            self._ridge_pass, prelude=lambda w: (self.full_grad(w),))
+
+    @property
+    def hyperparams(self):
+        return {"eta": self.eta, "mu": self.mu}
+
+    def full_grad(self, w: torch.Tensor) -> torch.Tensor:
+        """∇f(w) = (1/n) Σ_k X_k (X_kᵀ w − y_k) + λw, from the buckets."""
+        n = self.problem.flat.n
+        g = self.lam * w
+        for b in self.problem.buckets:
+            resid = torch.einsum("kmd,d->km", b.val, w) - b.y
+            g = g + torch.einsum("kmd,km->d", b.val, resid) / n
+        return g
+
+    def _ridge_pass(self, w, bi, bucket, kb, out, fg):
+        lam, eta, mu = self.lam, self.eta, self.mu
+        X = bucket.val.transpose(1, 2)                       # (Kb, d, m)
+        m = bucket.n_k.clamp(min=1).to(X.dtype)[:, None]     # (Kb, 1)
+        resid = torch.einsum("kdm,d->km", X, w) - bucket.y
+        grad_k = torch.einsum("kdm,km->kd", X, resid) / m + lam * w
+        a_k = grad_k - eta * fg
+        eye = torch.eye(w.shape[0], dtype=X.dtype, device=X.device)
+        H = X @ bucket.val / m[..., None] + (lam + mu) * eye
+        rhs = torch.einsum("kdm,km->kd", X, bucket.y) / m + a_k + mu * w
+        torch.sub(torch.linalg.solve(H, rhs), w, out=out)
+
+    def round(self, state: SolverState,
+              key: threefry.Key) -> SolverState:
+        return state.replace(w=self._round_fast(state.w, key),
+                             round=state.round + 1)
+
+
 def _dane_defaults():
     from repro_torch.configs import get_dane_config
     c = get_dane_config()
@@ -215,3 +294,10 @@ def _dane_defaults():
 def _make_dane(problem: FederatedLogReg, *, device: DeviceLike = None,
                **kw) -> DANE:
     return DANE(problem, DANEConfig(**kw), device=device)
+
+
+@register("dane_ridge", layout="dense",
+          description="exact DANE for ridge regression (d×d local solves)")
+def _make_dane_ridge(problem: FederatedLogReg, *, device: DeviceLike = None,
+                     **kw) -> DANERidge:
+    return DANERidge(problem, device=device, **kw)

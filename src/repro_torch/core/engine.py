@@ -15,10 +15,13 @@ One round:
      fused aggregation kernel over the stacked deltas
      (``aggregator="pallas"``, the reference's name for its kernel path).
 
-Algorithms with per-client state across rounds (CoCoA+'s dual blocks) use
-:meth:`RoundEngine.round_with_state`: each bucket's pass also receives and
-returns its bucket's state, and under partial participation a client left
-out of the round keeps its old state.
+Algorithms with per-client state across rounds (CoCoA+'s dual blocks,
+Appendix A's g_k and α_k) use :meth:`RoundEngine.round_with_state`: each
+bucket's pass also receives its bucket's state and returns a new one (the
+old tensor is left as it was), and under partial participation a client
+left out of the round keeps its old state.  The weights and the reweight
+sums are formed in the iterate's dtype, so the dense ridge methods run in
+f64 as the reference's do under x64.
 
 Randomness: a round takes the reference's round key (a
 :mod:`repro_torch.utils.threefry` key, the Trainer's
@@ -45,9 +48,11 @@ Fault tolerance (the reference's fleet layer on the plain round):
     statistic over the returned, all-finite deltas (the
     ``robust_aggregate`` kernel) — no weights, no reweighting.
 
-Not ported yet: streamed (``client_chunk``), cohort and virtual rounds.
-``compile`` and ``compile_with_state`` are the same eager rounds as
-``reference`` and ``reference_with_state`` for now.
+Ported: the plain round and the state round, for every solver of the
+reference's registry (the sparse Fig. 2 solvers and the dense ridge
+ones).  Not ported yet: streamed (``client_chunk``), cohort and virtual
+rounds.  ``compile`` and ``compile_with_state`` are the same eager rounds
+as ``reference`` and ``reference_with_state`` for now.
 """
 from __future__ import annotations
 
@@ -242,14 +247,18 @@ class RoundEngine:
 
     # -- step 3: sampling & weighting ------------------------------------- #
 
-    def bucket_weights(self, wi: int, num_clients: int) -> torch.Tensor:
-        """Aggregation weights for the bucket whose first client is ``wi``."""
+    def bucket_weights(self, wi: int, num_clients: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Aggregation weights for the bucket whose first client is ``wi``,
+        in the iterate's ``dtype``: 1/K and 1 are formed in it (f64 for the
+        dense ridge methods, as the reference's under x64), while the n_k/n
+        weights keep their f32 values, as the reference's do."""
         if self.cfg.weighting == "uniform":
             return torch.full((num_clients,), 1.0 / self.problem.num_clients,
-                              device=self.device)
+                              dtype=dtype, device=self.device)
         if self.cfg.weighting == "sum":
-            return torch.ones((num_clients,), device=self.device)
-        return self.problem.client_weights[wi:wi + num_clients]
+            return torch.ones((num_clients,), dtype=dtype, device=self.device)
+        return self.problem.client_weights[wi:wi + num_clients].to(dtype)
 
     def participation_mask(self, bucket_key: threefry.Key,
                            num_clients: int) -> torch.Tensor:
@@ -315,10 +324,10 @@ class RoundEngine:
         reweight = masks is not None and cfg.weighting != "sum"
         agg = torch.zeros_like(w)
         wts_all: List[torch.Tensor] = []
-        total_mass = torch.zeros((), device=self.device)
-        expected_mass = torch.zeros((), device=self.device)
+        total_mass = torch.zeros((), dtype=w.dtype, device=self.device)
+        expected_mass = torch.zeros((), dtype=w.dtype, device=self.device)
         for i, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
-            wts = self.bucket_weights(wi, b.num_clients)
+            wts = self.bucket_weights(wi, b.num_clients, w.dtype)
             if masks is not None:
                 sel = masks[i]
                 if reweight:

@@ -214,6 +214,17 @@ class FSVRG(FederatedSolver):
                              round=state.round + 1)
 
 
+def naive_fsvrg_round(problem: FederatedLogReg, w: torch.Tensor,
+                      key: threefry.Key, stepsize: float,
+                      m: Optional[int] = None) -> torch.Tensor:
+    """One round of Algorithm 3 (S = I, A = I, h_k = h, m uniform samples,
+    1/K averaging) from ``w`` on ``key``, on the problem's device: a thin
+    wrapper over the ``svrg_naive`` solver."""
+    cfg = FSVRGConfig(stepsize=stepsize, naive=True, naive_steps=m or 0)
+    solver = FSVRG(problem, cfg, device=problem.device)
+    return solver.round(solver.init(w), key).w
+
+
 def _fsvrg_defaults():
     from repro_torch.configs import get_fsvrg_config
     return {"stepsize": get_fsvrg_config().stepsize}

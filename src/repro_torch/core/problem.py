@@ -192,6 +192,58 @@ def build_problem(ds, lam: Optional[float] = None, *,
     )
 
 
+def build_dense_problem(Xs, ys, lam: float, *,
+                        device: DeviceLike = None) -> FederatedLogReg:
+    """Dense per-client data (X_k: (d, m_k), y_k: (m_k,), numpy arrays or
+    tensors) as a bucketed :class:`FederatedLogReg` on ``device`` (default:
+    the CUDA card), so the ridge algorithms (DANERidge and the Appendix-A
+    primal and dual methods) run on the round engine's layout.
+
+    Each example row holds its dense feature vector (idx = arange(d),
+    val = x_i): the fixed-nnz format degenerates to dense, and idx is one
+    broadcast view, not d copies.  Clients are grouped into one bucket per
+    distinct m_k (stable, so equal-size clients keep their input order),
+    and every client of a bucket has exactly m_k rows — no padding.  The
+    data keeps its dtype (the ridge methods run in f64); ``client_weights``
+    stay f32, as the reference's do.  The flat view's loss and gradient are
+    logistic and mean nothing for ridge data: the ridge algorithms read
+    only the buckets, ``client_weights``, ``flat.n`` and ``flat.lam``."""
+    dev = resolve_device(device)
+    Xs = [torch.as_tensor(X, device=dev) for X in Xs]
+    ys = [torch.as_tensor(y, device=dev) for y in ys]
+    d = int(Xs[0].shape[0])
+    sizes = np.asarray([int(y.shape[0]) for y in ys], np.int64)
+    n = int(sizes.sum())
+    dtype = Xs[0].dtype
+    for X in Xs[1:]:
+        dtype = torch.promote_types(dtype, X.dtype)
+    cols = torch.arange(d, dtype=torch.int64, device=dev)
+
+    order = np.argsort(sizes, kind="stable")
+    buckets: List[ClientBucket] = []
+    weights: List[float] = []
+    for members in _equal_runs(order, sizes[order]):
+        m = int(sizes[members[0]])
+        buckets.append(ClientBucket(
+            idx=cols.expand(len(members), m, d),
+            val=torch.stack([Xs[k].to(dtype).T for k in members]),
+            y=torch.stack([ys[k].to(dtype) for k in members]),
+            n_k=torch.full((len(members),), m, dtype=torch.int64,
+                           device=dev)))
+        weights.extend(int(sizes[k]) / n for k in members)
+
+    flat = LogRegProblem(
+        idx=cols.expand(n, d),
+        val=torch.cat([X.to(dtype).T for X in Xs]),
+        y=torch.cat([y.to(dtype) for y in ys]),
+        lam=float(lam), num_features=d)
+    return FederatedLogReg(
+        flat=flat, buckets=buckets,
+        client_weights=torch.as_tensor(np.array(weights, np.float32),
+                                       device=dev),
+        num_clients=len(Xs))
+
+
 def build_test_problem(ds, lam: Optional[float] = None, *,
                        device: DeviceLike = None) -> LogRegProblem:
     dev = resolve_device(device)

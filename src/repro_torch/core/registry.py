@@ -1,8 +1,17 @@
 """String-keyed solver registry: ``make_solver("fsvrg", problem)`` — the
-port of the reference's ``core/registry.py``, with the solvers of Fig. 2
-(``fsvrg``, ``svrg_naive``, ``gd``, ``fedavg``, ``dane``, ``cocoa``).
-Defaults come from :mod:`repro_torch.configs`; ``make_solver``'s
-``device`` defaults to the CUDA card, as every entry point's does.
+port of the reference's ``core/registry.py``, with its nine names: the
+solvers of Fig. 2 (``fsvrg``, ``svrg_naive``, ``gd``, ``fedavg``,
+``dane``, ``cocoa``) and the dense ridge ones (``dane_ridge``, ``primal``,
+``dual``).  Defaults come from :mod:`repro_torch.configs`;
+``make_solver``'s ``device`` defaults to the CUDA card, as every entry
+point's does.
+
+``layout`` records which problem layout a factory expects:
+
+  * ``"sparse"`` — the bucketed sparse logreg problem of
+    :func:`repro_torch.core.problem.build_problem` (the paper's §4);
+  * ``"dense"``  — a :func:`repro_torch.core.problem.build_dense_problem`
+    ridge layout (equal n_k for the Appendix-A methods).
 """
 from __future__ import annotations
 
@@ -12,6 +21,8 @@ from typing import Any, Callable, Dict, Optional
 from repro_torch.core.problem import FederatedLogReg
 from repro_torch.core.solver import FederatedSolver
 from repro_torch.utils.device import DeviceLike
+
+_LAYOUTS = ("sparse", "dense")
 
 #: factory(problem, device=..., **kwargs) -> FederatedSolver
 SolverFactory = Callable[..., FederatedSolver]
@@ -24,6 +35,7 @@ DefaultsFn = Callable[[], Dict[str, Any]]
 class SolverSpec:
     name: str
     factory: SolverFactory
+    layout: str = "sparse"
     defaults: Optional[DefaultsFn] = None
     description: str = ""
 
@@ -31,15 +43,17 @@ class SolverSpec:
 _REGISTRY: Dict[str, SolverSpec] = {}
 
 
-def register(name: str, *, defaults: Optional[DefaultsFn] = None,
-             description: str = ""):
+def register(name: str, *, layout: str = "sparse",
+             defaults: Optional[DefaultsFn] = None, description: str = ""):
     """Decorator registering a solver factory under ``name``."""
+    if layout not in _LAYOUTS:
+        raise ValueError(f"layout must be one of {_LAYOUTS}")
 
     def deco(factory: SolverFactory) -> SolverFactory:
         if name in _REGISTRY:
             raise ValueError(f"solver {name!r} already registered")
         _REGISTRY[name] = SolverSpec(name=name, factory=factory,
-                                     defaults=defaults,
+                                     layout=layout, defaults=defaults,
                                      description=description)
         return factory
 
@@ -49,8 +63,8 @@ def register(name: str, *, defaults: Optional[DefaultsFn] = None,
 def _populate() -> None:
     """Import the algorithm modules so their ``register`` calls run."""
     import repro_torch.core.baselines  # noqa: F401  (gd)
-    import repro_torch.core.cocoa      # noqa: F401  (cocoa)
-    import repro_torch.core.dane       # noqa: F401  (dane)
+    import repro_torch.core.cocoa      # noqa: F401  (cocoa, primal, dual)
+    import repro_torch.core.dane       # noqa: F401  (dane, dane_ridge)
     import repro_torch.core.fedavg     # noqa: F401  (fedavg)
     import repro_torch.core.fsvrg      # noqa: F401  (fsvrg, svrg_naive)
 

@@ -7,14 +7,15 @@ algorithm, ported from the reference's ``core/solver.py``:
     drawing its randomness from the round's key (a
     :mod:`repro_torch.utils.threefry` key, the reference's round key);
     deterministic solvers ignore it;
-  * ``name`` — the registry name;
+  * ``name`` / ``hyperparams`` — the registry name and the knobs the
+    solver was built with;
   * ``fit(rounds, ...)`` — a wrapper over
     :class:`repro_torch.core.trainer.Trainer`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -70,9 +71,22 @@ class FederatedSolver:
               key: threefry.Key) -> SolverState:
         raise NotImplementedError
 
+    @property
+    def hyperparams(self) -> Dict[str, Any]:
+        """The knobs this solver was constructed with: its config's fields,
+        where it has one."""
+        cfg = getattr(self, "cfg", None)
+        if dataclasses.is_dataclass(cfg):
+            return dataclasses.asdict(cfg)
+        return {}
+
     def fit(self, rounds: int, *, seed: int = 0, w0=None, state=None,
             eval_fn=None, **trainer_kw):
         """Run ``rounds`` rounds through the shared Trainer driver."""
         from repro_torch.core.trainer import Trainer
         return Trainer(self, rounds=rounds, seed=seed, eval_fn=eval_fn,
                        **trainer_kw).fit(w0=w0, state=state)
+
+    def __repr__(self) -> str:
+        hp = ", ".join(f"{k}={v!r}" for k, v in self.hyperparams.items())
+        return f"{type(self).__name__}({self.name}: {hp})"

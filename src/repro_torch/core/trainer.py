@@ -41,10 +41,12 @@ class NonFiniteIterateError(RuntimeError):
 
 @dataclasses.dataclass
 class FitResult:
-    """Final state + per-round eval history."""
+    """Final state + per-round eval history (plus the solver that produced
+    it, for its hyperparams)."""
 
     state: SolverState
     history: List[Dict[str, float]]
+    solver: Optional[FederatedSolver] = None
 
     @property
     def w(self) -> torch.Tensor:
@@ -95,7 +97,7 @@ class Trainer:
                                 for k, v in self.eval_fn(state.w).items()})
             if self.callback is not None:
                 self.callback(state, r)
-        return FitResult(state=state, history=history)
+        return FitResult(state=state, history=history, solver=self.solver)
 
 
 def sweep(build_solver: Callable[[Any], FederatedSolver],

@@ -200,13 +200,15 @@ def test_fsvrg_options_match_reference_for_one_round(small_problem,
 
 
 def test_registry_names():
-    """The solvers of Fig. 2; the dense-layout ones wait for
-    build_dense_problem."""
+    """The reference's nine names: the solvers of Fig. 2 and the dense
+    ridge ones."""
+    from repro.core import available as ref_available
     from repro_torch.core import available
-    assert available() == ("cocoa", "dane", "fedavg", "fsvrg", "gd",
-                           "svrg_naive")
+    assert available() == ("cocoa", "dane", "dane_ridge", "dual", "fedavg",
+                           "fsvrg", "gd", "primal", "svrg_naive")
+    assert available() == ref_available()
     with pytest.raises(KeyError, match="unknown solver"):
-        make_solver("dane_ridge", None)
+        make_solver("no_such_solver", None)
 
 
 def test_trainer_eval_every_and_fail_fast(port_problem):

@@ -7,6 +7,7 @@ entry point raises without CUDA unless the caller passes ``device="cpu"``.
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,8 +16,10 @@ from repro_torch.configs import get_config, get_logreg_config  # noqa: E402
 from repro_torch.examples import federated_lm  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.core import available, build_problem, make_solver  # noqa: E402
+from repro_torch.core import (available, build_dense_problem,  # noqa: E402
+                              build_problem, get_spec, make_solver)
 from repro_torch.data import generate  # noqa: E402
+from repro_torch.experiments import fig2_convergence  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
@@ -61,7 +64,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch/configs/rwkv6_3b.py", "repro_torch/core/neural.py",
             "repro_torch/optim/optimizers.py", "repro_torch/launch/steps.py",
             "repro_torch/launch/train.py",
-            "repro_torch/examples/federated_lm.py"} <= names
+            "repro_torch/examples/federated_lm.py",
+            "repro_torch/core/svrg.py",
+            "repro_torch/experiments/fig2_convergence.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
@@ -69,18 +74,29 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
+    """Every registered solver, each on a problem of its spec's layout,
+    and the Fig. 2 command."""
     cfg = get_logreg_config().scaled(0.001)
     ds = generate(cfg, 0, device="cpu")
-    prob = build_problem(ds, device="cpu")
+    rng = np.random.default_rng(0)
+    Xs = [rng.standard_normal((5, 6)) for _ in range(3)]
+    ys = [rng.standard_normal(6) for _ in range(3)]
+    probs = {"sparse": build_problem(ds, device="cpu"),
+             "dense": build_dense_problem(Xs, ys, 0.1, device="cpu")}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate(cfg, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_problem(ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_dense_problem(Xs, ys, 0.1)
     for name in available():
+        prob = probs[get_spec(name).layout]
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_solver(name, prob)
         assert make_solver(name, prob, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fig2_convergence.main(["--scale", "0.001", "--rounds", "1"])
 
 
 def test_only_cpu_and_cuda_devices():
