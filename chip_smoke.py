@@ -58,9 +58,19 @@ Phases, in order (any failure raises and exits non-zero):
    first round again through the plain pass, which must agree; the same
    faults unguarded must stop FSVRG in round 0; then the three on a small
    problem on the card and on the CPU, which must agree;
-6. reproduce Fig. 2 at the paper's width from its command
+6. the engine's scale paths at the paper's width: FSVRG and FedAvg
+   streamed (``client_chunk`` 1,024) beside their plain rounds from the
+   same keys, with ``fused_accumulate`` once a chunk and ``fused_epilogue``
+   once a round counted and both runs' peak memory; FedAvg and FSVRG
+   cohorts at p = 0.1 against the masked rounds, FSVRG + trimmed mean on
+   the cohort (``robust_aggregate``'s m = the gathered valid rows), FedAvg's
+   cohort under the fleet trace, a forced overflow (``cohort=1``) card
+   against CPU; FedAvg over virtual data at K = 10⁴ (per-client deltas
+   bit-equal to the materialized data's), 10⁵ and 10⁶ (the peak's growth a
+   client against a client's materialized rows);
+7. reproduce Fig. 2 at the paper's width from its command
    (``repro_torch.experiments.fig2_convergence`` with FIG2_ARGS: OPT, every
-   curve's stepsize sweep for 2 rounds, FSVRGR, one-shot, the constant and
+   curve's stepsize sweep for 1 round, FSVRGR, one-shot, the constant and
    majority errors), counts set to 0 just before and read just after, each
    curve's launches against sweep size × rounds × batched steps, its wall
    seconds and the rounds-to-10 %-gap table; the command at scale 0.003 on
@@ -68,7 +78,7 @@ Phases, in order (any failure raises and exits non-zero):
    (Theorem 5: PrimalMethod against DualMethod at K = 1,000, m = 64,
    d = 256, and DANERidge, card against CPU) and Proposition 1 on the card
    in f32;
-7. serve rwkv6-3b at full width (32 layers, d 2,560, vocab 65,536, bf16,
+8. serve rwkv6-3b at full width (32 layers, d 2,560, vocab 65,536, bf16,
    seeded random weights): ``build_model`` → ``launch.serve.serve`` of 8
    prompts of 2,048 tokens and 32 greedy decode steps, counts set to 0
    just before and read just after (``wkv6`` once a layer in the prefill,
@@ -76,7 +86,7 @@ Phases, in order (any failure raises and exits non-zero):
    run; one prompt's prefill against 256 decode steps from an empty cache
    (kernel against the sequential WKV); the reduced config on the card
    against the CPU with the same weights;
-8. time each kernel, its plain version and a PyTorch yardstick with CUDA
+9. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
    card could take) — ``robust_aggregate``'s trimmed mean and median at
    the faulted cells' m and at m = K, ``cocoa_sdca_pass`` at every bucket
@@ -85,7 +95,7 @@ Phases, in order (any failure raises and exits non-zero):
    break one full-width round of each plain solver into its parts; trace
    one plain round of each solver for the device's idle share, and one
    full-width prefill for its busy share and top operations;
-9. train rwkv6-3b, the serving weights and the earlier phases' tensors
+10. train rwkv6-3b, the serving weights and the earlier phases' tensors
    freed first: ``wkv6_bwd`` against autograd through the plain forward
    (the training path's (2, 128, 40, 64) from zeros and from a given
    state with the final state's cotangent, the serving shape, the
@@ -105,7 +115,7 @@ Phases, in order (any failure raises and exits non-zero):
    its three launches (terms, scan, chunk backward) timed apart the same
    way, a call back to back from the host and the host's enqueue alone;
    ``wkv6``'s forward at the training shape;
-10. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
+11. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -133,6 +143,9 @@ F32_FLOP_PER_S = 67e12
 #: apart), and one for wkv6's backward
 TPU_KERNELS = {
     "fused_aggregate": "src/repro/kernels/scaled_aggregate.py:66",
+    # the same TPU kernel's entries the streamed and cohort rounds launch
+    "fused_accumulate": "src/repro/kernels/scaled_aggregate.py:100",
+    "fused_epilogue": "src/repro/kernels/scaled_aggregate.py:111",
     "fsvrg_update": "src/repro/kernels/fsvrg_update.py:36",
     "fedavg_update": "src/repro/kernels/fedavg_update.py:39",
     "dane_update": "src/repro/kernels/dane_update.py:51",
@@ -146,6 +159,8 @@ TPU_KERNELS = {
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "fused_aggregate": CSRC + "fused_aggregate.cu",
+    "fused_accumulate": CSRC + "fused_aggregate.cu",
+    "fused_epilogue": CSRC + "fused_aggregate.cu",
     "fsvrg_update": CSRC + "fsvrg_update.cu",
     "fedavg_update": CSRC + "fedavg_update.cu",
     "dane_update": CSRC + "dane_update.cu",
@@ -192,14 +207,24 @@ FSVRG_ROUNDS, ADAMW_STEPS = 2, 3
 #: (B, S, Hn, D) of wkv6_bwd on the training path, and at the serving shape
 TRAIN_WKV = (TRAIN_BATCH, TRAIN_SEQ, 40, 64)
 SERVE_WKV = (REQUESTS, PROMPT_LEN, 40, 64)
-#: Fig. 2 from its command at the paper's width, and a small run of it on
-#: the card and on the CPU
-FIG2_ARGS = ["--scale", "1.0", "--rounds", "2", "--opt-iters", "500",
+#: Fig. 2 from its command at the paper's width (one round of each curve,
+#: which keeps the whole script near half its time limit), and a small run
+#: of it on the card and on the CPU
+FIG2_ARGS = ["--scale", "1.0", "--rounds", "1", "--opt-iters", "500",
              "--algo", "all"]
 FIG2_SMALL = ["--scale", "0.003", "--rounds", "2"]
 #: Theorem 5 on the card: (K, m, d) equal-size dense clients, f64
 DENSE_SHAPE = (1_000, 64, 256)
 DENSE_ROUNDS = 5
+#: the engine's scale paths: the §4 problem streamed SCALE_CHUNK clients at
+#: a time for SCALE_ROUNDS rounds, a cohort at participation SCALE_P, and
+#: FedAvg over virtual data at VIRTUAL_KS clients in chunks of
+#: VIRTUAL_CHUNK (bit-equal deltas against the materialized data at
+#: VIRTUAL_SMALL_K).  The chunk is below the smallest bucket at K = 10⁵
+#: (16,077 clients), so both K run chunks of one shape and the peak's
+#: growth between them is what grows with K
+SCALE_CHUNK, SCALE_ROUNDS, SCALE_P = 1_024, 2, 0.1
+VIRTUAL_KS, VIRTUAL_CHUNK, VIRTUAL_SMALL_K = (100_000, 1_000_000), 8_192, 10_000
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1176,6 +1201,287 @@ def train_phase(dev, sync, compare, cuda_ms, bound) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def scale_phase(dev, sync, prob, trace) -> dict:
+    """The engine's scale paths on the card, at the §4 problem ``prob``:
+
+    * streamed: FSVRG and FedAvg (kernel aggregator) with ``client_chunk``
+      SCALE_CHUNK for SCALE_ROUNDS rounds, each round on
+      ``fold_in(PRNGKey(SEED), r)``, beside the plain rounds from the same
+      keys (iterates within 1e-5 of max |w|), the counts set to 0 just
+      before each streamed run and read just after (``fused_accumulate``
+      Σ_b ⌈K_b / chunk⌉ a round, ``fused_epilogue`` 1, ``fused_aggregate``
+      0), the peak device memory of each run (the streamed one lower);
+    * cohort: FedAvg and FSVRG at participation SCALE_P with
+      ``cohort = cohort_capacity(SCALE_P, max K_b)`` against the masked
+      round on the same key (1e-5 of max |w|), clients computed and
+      seconds; FSVRG + trimmed mean + cohort (one ``robust_aggregate`` a
+      round, m = the gathered valid rows); FedAvg's cohort under ``trace``;
+      a ``cohort=1`` run that overflows on a small problem, card against
+      CPU;
+    * virtual: FedAvg over ``get_virtual_k_config(K)`` with
+      ``virtual_data`` and ``client_chunk`` VIRTUAL_CHUNK, one round at
+      each of VIRTUAL_KS (finite, non-zero; the peak's growth per added
+      client under half a client's materialized train rows), and at
+      VIRTUAL_SMALL_K the per-client deltas bit-equal to the materialized
+      data's on the same path, the iterates within 1e-5.
+
+    Returns the streamed and robust runs' launches by kernel."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_logreg_config, get_virtual_k_config
+    from repro_torch.core import (build_problem, build_virtual_problem,
+                                  cohort_capacity, make_solver)
+    from repro_torch.data import generate, materialize_dataset, virtual_dataset
+    from repro_torch.fleet import TraceParticipation
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import robust_aggregate as ra_kernel
+    from repro_torch.utils import threefry
+
+    base = threefry.as_key(threefry.PRNGKey(SEED), dev)
+
+    def rounds(solver, n, on_round=None):
+        """n rounds from fold_in(PRNGKey(SEED), r): (state, seconds)."""
+        state, secs = solver.init(), []
+        for r in range(n):
+            sync()
+            t = time.perf_counter()
+            state = solver.round(state, threefry.fold_in(base, r))
+            sync()
+            secs.append(time.perf_counter() - t)
+            if on_round is not None:
+                on_round(state, r)
+        return state, secs
+
+    def measured(make, n, on_round=None):
+        """Build a solver and run it with the counts set to 0 just before
+        and read just after: (state, seconds, launches, peak GB over the
+        memory held before, the solver).  Solvers sit in reference cycles
+        (their rounds close over them), so garbage is collected first: a
+        solver freed in the middle of a run would hide its bytes."""
+        gc.collect()
+        sync()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        solver = make()
+        ops.reset_launch_counts()
+        state, secs = rounds(solver, n, on_round)
+        launches = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        return state, secs, launches, peak, solver
+
+    def agree(label, got, want, rtol=1e-5):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        log(f"[scale] {label}: max_abs_err {err:.3e}, max |w| {scale:.3e} "
+            f"(tolerance {rtol:g}·max|w|)")
+        require(bool(torch.isfinite(got).all()) and scale > 0,
+                f"{label}: a non-finite or zero iterate")
+        require(err <= rtol * scale, f"{label}: disagree")
+
+    sizes = [b.num_clients for b in prob.buckets]
+    chunks = sum(-(-k // min(SCALE_CHUNK, k)) for k in sizes)
+    launches = {}
+    # -- streamed ------------------------------------------------------------
+    for name in ("fsvrg", "fedavg"):
+        got, s_secs, s_launch, s_peak, solver = measured(
+            lambda: make_solver(name, prob, aggregator="pallas",
+                                client_chunk=SCALE_CHUNK), SCALE_ROUNDS)
+        del solver
+        want, p_secs, _, p_peak, solver = measured(
+            lambda: make_solver(name, prob, aggregator="pallas"),
+            SCALE_ROUNDS)
+        del solver
+        log(f"[scale] {name} streamed (chunk {SCALE_CHUNK}, {chunks} chunks "
+            f"a round): seconds a round " + ", ".join(f"{x:.3f}" for x in
+                                                      s_secs)
+            + "; plain " + ", ".join(f"{x:.3f}" for x in p_secs)
+            + f"; peak device memory {s_peak:.3f} GB streamed, {p_peak:.3f} "
+            "GB plain (over what was held); launches "
+            + str({k: v for k, v in s_launch.items() if v}))
+        agree(f"{name} streamed vs plain after {SCALE_ROUNDS} rounds",
+              got.w, want.w)
+        require(s_launch["fused_accumulate"] == SCALE_ROUNDS * chunks,
+                f"{name}: fused_accumulate launched "
+                f"{s_launch['fused_accumulate']} times, not "
+                f"{SCALE_ROUNDS * chunks}")
+        require(s_launch["fused_epilogue"] == SCALE_ROUNDS,
+                f"{name}: fused_epilogue not once a round")
+        require(s_launch["fused_aggregate"] == 0,
+                f"{name}: the streamed round launched fused_aggregate")
+        require(s_peak < p_peak, f"{name}: the streamed peak is not the "
+                "lower one")
+        for k, v in s_launch.items():
+            launches[k] = launches.get(k, 0) + v
+        del got, want
+        torch.cuda.empty_cache()
+
+    # -- cohort --------------------------------------------------------------
+    cohort = cohort_capacity(SCALE_P, max(sizes))
+
+    def computed(solver, masks):
+        """Clients whose pass ran: a bucket's cap, or all of it where the
+        draw overflowed (or cap ≥ K_b)."""
+        eng, n = solver.engine, 0
+        for k, m in zip(sizes, masks):
+            cap = eng._cohort_cap(k)
+            n += cap if (cap < k and int(m.sum()) <= cap) else k
+        return n
+
+    for name in ("fedavg", "fsvrg"):
+        got, c_secs, c_launch, c_peak, solver = measured(
+            lambda: make_solver(name, prob, aggregator="pallas",
+                                participation=SCALE_P, cohort=cohort), 1)
+        masks = solver.engine.participation_masks(threefry.fold_in(base, 0))
+        n_comp = computed(solver, masks)
+        del solver
+        want, m_secs, _, m_peak, solver = measured(
+            lambda: make_solver(name, prob, aggregator="pallas",
+                                participation=SCALE_P), 1)
+        del solver
+        log(f"[scale] {name} cohort (p = {SCALE_P}, cohort {cohort}): "
+            f"{n_comp} of {prob.num_clients} clients computed "
+            f"({int(sum(float(m.sum()) for m in masks))} drawn); "
+            f"{c_secs[0]:.3f} s a round against the masked round's "
+            f"{m_secs[0]:.3f} s; peak {c_peak:.3f} GB against {m_peak:.3f} "
+            "GB; launches " + str({k: v for k, v in c_launch.items() if v}))
+        agree(f"{name} cohort vs masked round", got.w, want.w)
+        require(c_launch["fused_epilogue"] == 1
+                and c_launch["fused_aggregate"] == 0,
+                f"{name}: the cohort round's aggregation launches")
+        torch.cuda.empty_cache()
+
+    # FSVRG + trimmed mean on the cohort: one robust_aggregate a round over
+    # the gathered stacks, m = the gathered valid rows
+    seen = []
+
+    def on_robust(state, r):
+        seen.append(ra_kernel.robust_aggregate.last_m)
+
+    got, r_secs, r_launch, _, solver = measured(
+        lambda: make_solver("fsvrg", prob, aggregator="pallas",
+                            participation=SCALE_P, cohort=cohort,
+                            aggregator_guard="trimmed_mean"), 1, on_robust)
+    masks = solver.engine.participation_masks(threefry.fold_in(base, 0))
+    gathered = sum(min(int(m.sum()), solver.engine._cohort_cap(k))
+                   for k, m in zip(sizes, masks))
+    log(f"[scale] fsvrg + trimmed_mean cohort: {r_secs[0]:.3f} s; robust m "
+        f"{seen[0]} (the gathered valid rows {gathered}); launches "
+        + str({k: v for k, v in r_launch.items() if v}))
+    require(r_launch["robust_aggregate"] == 1 and seen[0] == gathered,
+            "the robust cohort round's robust_aggregate")
+    require(bool(torch.isfinite(got.w).all()), "robust cohort: non-finite")
+    for k, v in r_launch.items():
+        launches[k] = launches.get(k, 0) + v
+    del solver, got
+    torch.cuda.empty_cache()
+
+    # FedAvg's cohort under the fleet trace of the faulted cells
+    model = TraceParticipation(trace)
+    t_cap = cohort_capacity(trace.max_rate(), max(sizes))
+    got, t_secs, t_launch, _, solver = measured(
+        lambda: make_solver("fedavg", prob, aggregator="pallas",
+                            participation=trace.max_rate(), cohort=t_cap,
+                            participation_model=model), 1)
+    masks = solver.engine.participation_masks(None, 0)
+    log(f"[scale] fedavg cohort under the fleet trace (cohort {t_cap}): "
+        f"{computed(solver, masks)} of {prob.num_clients} clients computed "
+        f"({int(sum(float(m.sum()) for m in masks))} returned); "
+        f"{t_secs[0]:.3f} s")
+    require(bool(torch.isfinite(got.w).all()), "trace cohort: non-finite")
+    require(t_launch["fused_epilogue"] == 1, "trace cohort: epilogue")
+    del solver, got
+    torch.cuda.empty_cache()
+
+    # cohort=1 overflows every bucket with two participants: the masked
+    # fallback, card against CPU on a small problem
+    small = generate(get_logreg_config().scaled(0.002), seed=SEED,
+                     device="cpu")
+    ws = []
+    for device in ("cpu", dev):
+        p = build_problem(small, device=device)
+        sv = make_solver("fedavg", p, device=device, aggregator="pallas",
+                         participation=0.5, cohort=1)
+        ws.append(rounds(sv, ROUNDS)[0].w.cpu())
+    agree(f"fedavg cohort=1 (overflow fallback) small problem card vs CPU "
+          f"after {ROUNDS} rounds", ws[1], ws[0], rtol=1e-4)
+
+    # -- virtual -------------------------------------------------------------
+    vds = virtual_dataset(get_virtual_k_config(VIRTUAL_SMALL_K), seed=SEED)
+    pv = build_virtual_problem(vds)
+    pm = build_problem(materialize_dataset(vds))
+    recorded = []
+    for p in (pv, pm):
+        sv = make_solver("fedavg", p, aggregator="pallas",
+                         client_chunk=VIRTUAL_CHUNK)
+        rec = []
+
+        def record(w, bi, cb, keys, out, sv=sv, rec=rec):
+            sv._chunk_pass(w, bi, cb, keys, out)
+            rec.append(out[:int((cb.n_k > 0).sum())].clone())
+
+        sv._round_fast = sv.engine.compile(sv._pass, chunk_pass=record)
+        recorded.append((rounds(sv, 1)[0].w, rec))
+    (w_v, rec_v), (w_m, rec_m) = recorded
+    require(len(rec_v) == len(rec_m) and all(
+        torch.equal(a, b) for a, b in zip(rec_v, rec_m)),
+        "virtual per-client deltas differ from the materialized data's")
+    log(f"[scale] fedavg virtual at K = {VIRTUAL_SMALL_K}: per-client deltas "
+        f"bit-equal to the materialized data's ({sum(len(x) for x in rec_v)}"
+        " clients)")
+    agree(f"fedavg virtual vs materialized at K = {VIRTUAL_SMALL_K}", w_v,
+          w_m)
+    del pv, pm, recorded, rec_v, rec_m
+    torch.cuda.empty_cache()
+
+    peaks = {}
+    for K in VIRTUAL_KS:
+        cfg = get_virtual_k_config(K)
+        gc.collect()
+        sync()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vds = virtual_dataset(cfg, seed=SEED)
+        pv = build_virtual_problem(vds)
+        sv = make_solver("fedavg", pv, aggregator="pallas",
+                         client_chunk=VIRTUAL_CHUNK)
+        sync()
+        t_build = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        state, secs = rounds(sv, 1)
+        v_launch = ops.launch_counts()
+        peaks[K] = torch.cuda.max_memory_allocated() - held
+        w = state.w
+        train_rows = float(vds.client_sizes.mean())
+        log(f"[scale] fedavg virtual K = {K} (d {cfg.num_features}, "
+            f"{len(pv.buckets)} buckets of "
+            + ", ".join(str(b.num_clients) for b in pv.buckets)
+            + f" clients): build {t_build:.2f} s, a round "
+            f"{secs[0]:.3f} s; peak {peaks[K] / 1e6:.1f} MB over what was "
+            f"held; {train_rows:.2f} train rows a client; launches "
+            + str({k: v for k, v in v_launch.items() if v}))
+        require(bool(torch.isfinite(w).all()) and float(w.abs().max()) > 0,
+                f"virtual K = {K}: the iterate is not finite and non-zero")
+        require(v_launch["fused_epilogue"] == 1 and v_launch[
+            "fused_accumulate"] == sum(-(-b.num_clients // min(
+                VIRTUAL_CHUNK, b.num_clients)) for b in pv.buckets),
+            f"virtual K = {K}: aggregation launches")
+        del vds, pv, sv, state, w
+        torch.cuda.empty_cache()
+    k0, k1 = VIRTUAL_KS
+    per_client = (peaks[k1] - peaks[k0]) / (k1 - k0)
+    width = cfg.nnz_per_example + 2
+    row_bytes = width * (8 + 4) + 4        # idx int64, val f32 and y f32
+    client_bytes = train_rows * row_bytes
+    log(f"[scale] virtual peak growth K = {k0} -> {k1}: {per_client:.1f} B "
+        f"a client; one client's materialized train rows {client_bytes:.1f} "
+        f"B ({train_rows:.2f} rows of {row_bytes} B), half {client_bytes / 2:.1f}")
+    require(per_client < client_bytes / 2,
+            "the virtual round's memory grows by half a client's rows or more")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1348,6 +1654,34 @@ def main() -> int:
                     ref.scaled_aggregate_ref(w_t, w_ks, wts, a), 1e-5, 1e-5)
             del w_ks
         del deltas
+    # the scale paths' shapes: one client, a streamed chunk, a bucket's
+    # last chunk (10,000 − 9·1,024 = 784 clients) and that chunk padded to
+    # a whole chunk with zero-weight rows of large finite values (they add
+    # nothing); the epilogue with a tensor scale
+    errs = []
+    for KK in (1, SCALE_CHUNK, K % SCALE_CHUNK):
+        deltas, acc = randn((KK, d), scale=0.01), randn(d)
+        wts = rand(KK) / KK
+        got = ops.fused_accumulate(acc, deltas, wts)
+        errs.append(compare("fused_accumulate", f"chunk K={KK} d={d}", got,
+                            ref.fused_accumulate_ref(acc, deltas, wts),
+                            1e-5, 1e-6))
+        if KK == K % SCALE_CHUNK:
+            pad = SCALE_CHUNK - KK
+            padded = torch.cat([deltas, torch.full((pad, d), 3e4,
+                                                   device=dev)])
+            pw = torch.cat([wts, torch.zeros(pad, device=dev)])
+            compare("fused_accumulate", f"chunk K={KK} padded to "
+                    f"{SCALE_CHUNK} with zero-weight rows",
+                    ops.fused_accumulate(acc, padded, pw), got, 1e-6, 1e-6)
+    max_err["fused_accumulate"] = max(errs)
+    w_t, a = randn(d), rand(d) * 3 + 1
+    s = torch.tensor(1.25, device=dev)
+    max_err["fused_epilogue"] = compare(
+        "fused_epilogue", f"d={d} tensor scale",
+        ops.fused_epilogue(w_t, acc, a, s),
+        ref.fused_epilogue_ref(w_t, acc, a, s), 1e-6, 1e-6)
+    del deltas, padded
     # FMA contraction in the kernels vs separate roundings in the plain
     # versions: a few ulp of the f32 operands (|S·diff| reaches ~20); bf16
     # outputs may round apart by one bf16 ulp (2^-8 relative)
@@ -1955,7 +2289,12 @@ def main() -> int:
         require(err <= 1e-4 * scale,
                 f"{name}: faulted card and CPU runs disagree")
 
-    # -- 6. Fig. 2 from its command, and the dense ridge methods ----------- #
+    # -- 6. the engine's scale paths: streamed, cohort, virtual ------------ #
+    phase("scale")
+    scale_launches = scale_phase(dev, sync, prob, trace)
+    torch.cuda.empty_cache()
+
+    # -- 7. Fig. 2 from its command, and the dense ridge methods ----------- #
     phase("fig2")
     fig2_launches = fig2_phase(dev, sync, steps, len(prob.buckets))
     torch.cuda.empty_cache()
@@ -2035,7 +2374,7 @@ def main() -> int:
             pass_s.append(time.perf_counter() - t)
             if faulted:
                 t = time.perf_counter()
-                eng._faulted(out, ROUNDS, bi, masks[bi])
+                eng._faulted(out, ROUNDS, eng._bucket_ids(bi), masks[bi])
                 sync()
                 fault_s += time.perf_counter() - t
         sync()
@@ -2118,36 +2457,39 @@ def main() -> int:
         return "not measured (the profiler saw no device time)" if x is None \
             else f"{x:.4f} ms"
 
-    # the three wrappers of the same kernel (not kernels of their own, so
-    # not in the kernels line): kernel, plain, yardstick and bound
+    # the scale paths' entries of the same kernel, at their shapes there:
+    # fused_accumulate on a streamed chunk of SCALE_CHUNK clients,
+    # fused_epilogue once a round (kernels line rows, launches from
+    # [scale]); the compatibility entry scaled_aggregate at (K, d) (a
+    # wrapper, on no path)
     acc = fg.clone()
+    chunk = deltas[:SCALE_CHUNK]
+    cwts = wts[:SCALE_CHUNK]
     for name, k_fn, p_fn, nb, lib_fn in [
             ("fused_accumulate",
-             lambda: ops.fused_accumulate(acc, deltas, wts),
-             lambda: ref.fused_accumulate_ref(acc, deltas, wts),
-             (K * d + 2 * d) * 4,
-             lambda: torch.addmv(acc, deltas.t(), wts)),
+             lambda: ops.fused_accumulate(acc, chunk, cwts),
+             lambda: ref.fused_accumulate_ref(acc, chunk, cwts),
+             (SCALE_CHUNK * d + SCALE_CHUNK + 2 * d) * 4,
+             lambda: torch.addmv(acc, chunk.t(), cwts)),
             ("fused_epilogue",
              lambda: ops.fused_epilogue(w, acc, a, 0.5),
              lambda: ref.fused_epilogue_ref(w, acc, a, 0.5),
              4 * d * 4,
-             lambda: torch.addcmul(w, a, acc, value=0.5)),
-            ("scaled_aggregate",
-             lambda: ops.scaled_aggregate(w, deltas, wts, a),
-             lambda: ref.scaled_aggregate_ref(w, deltas, wts, a),
-             (K * d + 3 * d) * 4, None)]:
-        b_ms, b_by = bound(nb, 0)
-        k_ms, p_ms = cuda_ms(k_fn, iters=10), cuda_ms(p_fn, iters=10)
-        l_ms = None if lib_fn is None else cuda_ms(lib_fn, iters=10)
-        log(f"[time] wrapper {name}: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, library "
-            + ("null (no single call)" if l_ms is None else f"{l_ms:.4f} ms")
-            + f", bound {b_ms:.6f} ms ({b_by}); {b_ms / k_ms:.1%} of the "
-            "bound" + (f"; by the profiler: kernel {show_ms(device_ms(k_fn))}"
-                       f" on the device, library "
-                       f"{show_ms(device_ms(lib_fn))}"
-                       if name == "fused_epilogue" else ""))
-    del deltas
+             lambda: torch.addcmul(w, a, acc, value=0.5))]:
+        rows.append(row(name, k_fn, p_fn, nb,
+                        2 * SCALE_CHUNK * d if name == "fused_accumulate"
+                        else 2 * d, lib_fn, launches=scale_launches[name]))
+        log(f"[time] {name} by the profiler: kernel "
+            f"{show_ms(device_ms(k_fn))} on the device, library "
+            f"{show_ms(device_ms(lib_fn))}")
+    b_ms, b_by = bound((K * d + 3 * d) * 4, 0)
+    k_ms = cuda_ms(lambda: ops.scaled_aggregate(w, deltas, wts, a), iters=10)
+    p_ms = cuda_ms(lambda: ref.scaled_aggregate_ref(w, deltas, wts, a),
+                   iters=10)
+    log(f"[time] wrapper scaled_aggregate: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, library null (no single call), bound {b_ms:.6f} ms "
+        f"({b_by}); {b_ms / k_ms:.1%} of the bound")
+    del deltas, chunk
     torch.cuda.empty_cache()
 
     # the local steps at the largest bucket's shape, in the main paths' form

@@ -1,6 +1,7 @@
-"""Run configurations of the port: the paper's §4 logistic-regression problem,
-the run settings of Fig. 2's solvers (FSVRG, GD, FedAvg, DANE, CoCoA+), and
-the model stack's architectures (``get_config('<arch-id>')``, ``ARCH_IDS``).
+"""Run configurations of the port: the paper's §4 logistic-regression problem
+and the scale paths' paper-K and virtual-K configs, the run settings of
+Fig. 2's solvers (FSVRG, GD, FedAvg, DANE, CoCoA+), and the model stack's
+architectures (``get_config('<arch-id>')``, ``ARCH_IDS``).
 
 These are copies of the reference package's ``configs/gplus_logreg.py``,
 ``fsvrg_gplus.py``, ``gd_gplus.py``, ``fedavg_gplus.py``, ``dane_gplus.py``,
@@ -60,6 +61,19 @@ def get_logreg_config() -> LogRegConfig:
     return gplus_logreg.CONFIG
 
 
+def get_paper_k_config() -> LogRegConfig:
+    """§4's K = 10,000 client count with d and n_k cut (see gplus_logreg)."""
+    from repro_torch.configs import gplus_logreg
+    return gplus_logreg.PAPER_K_CONFIG
+
+
+def get_virtual_k_config(num_clients: int) -> LogRegConfig:
+    """The virtual-data config at a chosen K — the §1.2 "as many nodes as
+    users" regime (see gplus_logreg)."""
+    from repro_torch.configs import gplus_logreg
+    return gplus_logreg.get_virtual_k_config(num_clients)
+
+
 def get_fsvrg_config() -> FSVRGRunConfig:
     from repro_torch.configs import fsvrg_gplus
     return fsvrg_gplus.CONFIG
@@ -88,6 +102,7 @@ def get_cocoa_config() -> CoCoARunConfig:
 __all__ = ["ArchConfig", "InputShape", "MoEConfig", "INPUT_SHAPES",
            "ARCH_IDS", "get_config", "LogRegConfig", "FSVRGRunConfig",
            "GDRunConfig", "FedAvgRunConfig", "DANERunConfig",
-           "CoCoARunConfig", "get_logreg_config", "get_fsvrg_config",
+           "CoCoARunConfig", "get_logreg_config", "get_paper_k_config",
+           "get_virtual_k_config", "get_fsvrg_config",
            "get_gd_config", "get_fedavg_config", "get_dane_config",
            "get_cocoa_config"]

@@ -2,9 +2,11 @@
 reference's algorithm layer.
 
   problem.py   — sparse logreg problem, flat view + ceil(log2 n_k) buckets;
+                 build_virtual_problem (rows regenerated on demand);
                  build_dense_problem for ridge data on the engine
   scaling.py   — S_k / A sparsity statistics (§3.6.1)
-  engine.py    — the round: masks, per-bucket client passes, aggregation
+  engine.py    — the round: masks, per-bucket client passes, aggregation;
+                 the streamed, cohort and virtual rounds
   solver.py    — the FederatedSolver protocol over a SolverState
   registry.py  — make_solver("fsvrg", prob), defaults from repro_torch.configs
   trainer.py   — the Trainer.fit round-loop driver and sweep
@@ -19,9 +21,12 @@ reference's algorithm layer.
                  and Appendix A's Algorithms 5 and 6 (Theorem 5)
 """
 from repro_torch.core.problem import (ClientBucket, FederatedLogReg,
-                                      LogRegProblem, build_dense_problem,
-                                      build_problem, build_test_problem)
-from repro_torch.core.engine import EngineConfig, RoundEngine
+                                      LogRegProblem, VirtualBucket,
+                                      VirtualFlat, VirtualLayout,
+                                      build_dense_problem, build_problem,
+                                      build_test_problem,
+                                      build_virtual_problem)
+from repro_torch.core.engine import EngineConfig, RoundEngine, cohort_capacity
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.core.registry import (available, get_spec, make_solver,
                                        register)
@@ -35,8 +40,10 @@ from repro_torch.core.cocoa import (CoCoAConfig, CoCoAPlus, DualMethod,
                                     PrimalMethod)
 
 __all__ = [
-    "ClientBucket", "FederatedLogReg", "LogRegProblem", "build_dense_problem",
-    "build_problem", "build_test_problem", "EngineConfig", "RoundEngine",
+    "ClientBucket", "FederatedLogReg", "LogRegProblem", "VirtualBucket",
+    "VirtualFlat", "VirtualLayout", "build_dense_problem", "build_problem",
+    "build_test_problem", "build_virtual_problem", "EngineConfig",
+    "RoundEngine", "cohort_capacity",
     "FederatedSolver", "SolverState", "available", "get_spec", "make_solver",
     "register", "FitResult", "NonFiniteIterateError", "Trainer", "sweep",
     "FSVRG", "FSVRGConfig", "naive_fsvrg_round", "DistributedGD", "FedAvg",

@@ -4,7 +4,8 @@ the reference's ``core/baselines.py``:
   * distributed GD — the "trivial benchmark" (teal diamonds in Fig. 2), on
     the shared :class:`~repro_torch.core.engine.RoundEngine` as the
     degenerate client pass ``delta_k = −h (∇f_k(w) + λw)``, whose
-    n_k/n-weighted aggregate is exactly ``−h ∇f(w)`` (Σ_k n_k/n = 1);
+    n_k/n-weighted aggregate is exactly ``−h ∇f(w)`` (Σ_k n_k/n = 1), on
+    every round path (streamed, cohort, virtual);
     :func:`run_gd` is the same loop on the flat view;
   * one-shot averaging [107] — each client optimizes locally for many
     epochs, the server averages once (:func:`one_shot_average`);
@@ -55,7 +56,10 @@ class DistributedGD(FederatedSolver):
 
     def __init__(self, problem: FederatedLogReg, stepsize: float = 2.0,
                  aggregator: str = "dense", *, device: DeviceLike = None,
+                 client_chunk: Optional[int] = None,
                  participation: float = 1.0,
+                 cohort: Optional[int] = None,
+                 virtual_data: bool = False,
                  participation_model: Optional[Any] = None,
                  fault_model: Optional[Any] = None,
                  aggregator_guard: Optional[str] = None,
@@ -66,7 +70,11 @@ class DistributedGD(FederatedSolver):
         self.engine = RoundEngine(
             problem,
             EngineConfig(aggregator=aggregator,
+                         client_chunk=client_chunk,
                          participation=participation,
+                         cohort=cohort,
+                         virtual_data=(virtual_data
+                                       or problem.virtual is not None),
                          aggregator_guard=aggregator_guard,
                          guard_clip_norm=guard_clip_norm,
                          guard_trim=guard_trim),
@@ -75,7 +83,11 @@ class DistributedGD(FederatedSolver):
         lam = problem.flat.lam
         gd_pass = lambda w, bi, b, kb, out: gd_client_pass(w, b, lam,
                                                            stepsize, out)
-        self._round_fast = self.engine.compile(gd_pass)
+        # deterministic: the keyed chunk pass leaves its clients' keys
+        gd_chunk_pass = lambda w, bi, cb, keys, out: gd_client_pass(
+            w, cb, lam, stepsize, out)
+        self._round_fast = self.engine.compile(gd_pass,
+                                               chunk_pass=gd_chunk_pass)
 
     @property
     def hyperparams(self):

@@ -34,7 +34,14 @@ w = (1/λn) X α.  Their local solves are batched ``torch.linalg.solve``
 calls, one a bucket (the reference's ``jnp.linalg.solve``; no TPU kernel
 computes them).
 
-Not ported yet: the streamed, cohort and virtual options.
+CoCoA+ runs the scale paths too (``client_chunk``, ``cohort``,
+``virtual_data``; see :mod:`repro_torch.core.engine`): its keyed chunk
+pass is one ``cocoa_sdca_pass`` over a chunk's (or a gathered cohort's)
+slice of the bucket and of α, with its clients' own keys; the engine puts
+the new α back in client order (a cohort's at its clients' slots only),
+and a client left out of the round keeps its α bit for bit.  α stays
+materialized on the virtual path: it is the algorithm's state, not the
+data.
 """
 from __future__ import annotations
 
@@ -67,6 +74,15 @@ class CoCoAConfig:
     participation: float = 1.0     # i.i.d. per-round client participation
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # None -> form each bucket's (Kb, d) delta stack; an int streams the
+    # client axis (and α) in chunks of this size (EngineConfig.client_chunk)
+    client_chunk: Optional[int] = None
+    # under partial participation, compute only the sampled cohort, its α
+    # gathered and put back (EngineConfig.cohort, engine.cohort_capacity)
+    cohort: Optional[int] = None
+    # rows regenerated on demand from a build_virtual_problem layout (see
+    # EngineConfig.virtual_data); set by itself for a virtual problem
+    virtual_data: bool = False
     # replace the Bernoulli draw with a repro_torch.fleet participation
     # model (trace-driven availability and stragglers)
     participation_model: Optional[Any] = None
@@ -117,13 +133,18 @@ class CoCoAPlus(FederatedSolver):
             problem,
             EngineConfig(weighting="sum", participation=cfg.participation,
                          aggregator=cfg.aggregator,
+                         client_chunk=cfg.client_chunk,
+                         cohort=cfg.cohort,
+                         virtual_data=(cfg.virtual_data
+                                       or problem.virtual is not None),
                          aggregator_guard=cfg.aggregator_guard,
                          guard_clip_norm=cfg.guard_clip_norm,
                          guard_trim=cfg.guard_trim),
             participation_model=cfg.participation_model,
             fault_model=cfg.fault_model,
         )
-        self._round_fast = self.engine.compile_with_state(self._pass)
+        self._round_fast = self.engine.compile_with_state(
+            self._pass, chunk_pass=self._chunk_pass)
 
     def init(self, w0: Optional[torch.Tensor] = None) -> SolverState:
         if w0 is not None and bool((w0 != 0).any()):
@@ -142,13 +163,22 @@ class CoCoAPlus(FederatedSolver):
         return threefry.permutation(
             self.engine.client_keys(kb, bucket.num_clients), bucket.m_pad)
 
-    def _pass(self, w, bi, bucket, alpha, kb, out):
+    def _run(self, w, bucket, alpha, perms, out):
         flat = self.problem.flat
         u = sdca_local_pass_keyed(w, alpha, bucket, flat.lam, flat.n,
-                                  self.sigma,
-                                  self.permutations(kb, bi, bucket), out)
+                                  self.sigma, perms, out)
         out.mul_(self._scale)
         return alpha + u
+
+    def _pass(self, w, bi, bucket, alpha, kb, out):
+        return self._run(w, bucket, alpha,
+                         self.permutations(kb, bi, bucket), out)
+
+    def _chunk_pass(self, w, bi, bucket, alpha, keys, out):
+        """The keyed chunk pass: a chunk's (or a gathered cohort's) slice
+        of a bucket and of its α, with its clients' own keys."""
+        return self._run(w, bucket, alpha,
+                         threefry.permutation(keys, bucket.m_pad), out)
 
     def round(self, state: SolverState,
               key: threefry.Key) -> SolverState:

@@ -24,7 +24,11 @@ client's d×d system, one batched ``torch.linalg.solve`` a bucket (the
 reference's ``jnp.linalg.solve``; no TPU kernel computes it).
 :func:`dane_svrg_round` is the one-call Proposition-1 round.
 
-Not ported yet: the streamed, cohort and virtual options.
+The scale paths (``client_chunk``, ``cohort``, ``virtual_data``; see
+:mod:`repro_torch.core.engine`) run the same local solvers over a chunk,
+a gathered cohort or a regenerated bucket with its clients' own keys (the
+GD solver draws nothing); the GD solver's scratches are sized to what one
+pass gets.
 """
 from __future__ import annotations
 
@@ -58,6 +62,15 @@ class DANEConfig:
     participation: float = 1.0     # i.i.d. per-round client participation
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # None -> form each bucket's (Kb, d) delta stack; an int streams the
+    # client axis in chunks of this size (see EngineConfig.client_chunk)
+    client_chunk: Optional[int] = None
+    # under partial participation, compute only the sampled cohort (see
+    # EngineConfig.cohort and engine.cohort_capacity)
+    cohort: Optional[int] = None
+    # rows regenerated on demand from a build_virtual_problem layout (see
+    # EngineConfig.virtual_data); set by itself for a virtual problem
+    virtual_data: bool = False
     # replace the Bernoulli draw with a repro_torch.fleet participation
     # model (trace-driven availability and stragglers)
     participation_model: Optional[Any] = None
@@ -172,41 +185,62 @@ class DANE(FederatedSolver):
                  device: DeviceLike = None):
         self._bind(problem, device)
         self.cfg = cfg
-        if cfg.local_solver == "gd":
-            # the steps' scratches (data gradient, a_k), shared by buckets
-            shape = (max(b.num_clients for b in problem.buckets), problem.d)
-            self._g = torch.empty(shape, device=problem.device)
-            self._a = torch.empty(shape, device=problem.device)
         self.engine = RoundEngine(
             problem,
             EngineConfig(participation=cfg.participation, weighting="uniform",
                          aggregator=cfg.aggregator,
+                         client_chunk=cfg.client_chunk,
+                         cohort=cfg.cohort,
+                         virtual_data=(cfg.virtual_data
+                                       or problem.virtual is not None),
                          aggregator_guard=cfg.aggregator_guard,
                          guard_clip_norm=cfg.guard_clip_norm,
                          guard_trim=cfg.guard_trim),
             participation_model=cfg.participation_model,
             fault_model=cfg.fault_model,
         )
+        if cfg.local_solver == "gd":
+            # the steps' scratches (data gradient, a_k), shared by passes
+            self._scratch("_g", self.engine.pass_rows())
+            self._scratch("_a", self.engine.pass_rows())
         prelude = lambda w: (self.problem.flat.grad(w),)
-        self._round_fast = self.engine.compile(self._pass, prelude=prelude)
+        self._round_fast = self.engine.compile(
+            self._pass, prelude=prelude, chunk_pass=self._chunk_pass)
 
     def samples(self, kb: threefry.Key, bucket_index: int,
                 bucket: ClientBucket) -> torch.Tensor:
         """The SVRG solver's sample indices, uniform over each client's
         rows with replacement, drawn batched from the bucket's key:
         (Kb, m) int64."""
-        return threefry.randint(
-            self.engine.client_keys(kb, bucket.num_clients),
-            (self.cfg.svrg_steps,), 0, bucket.n_k.clamp(min=1))
+        return self._samples(
+            self.engine.client_keys(kb, bucket.num_clients), bucket)
+
+    def _samples(self, keys: threefry.Key,
+                 bucket: ClientBucket) -> torch.Tensor:
+        return threefry.randint(keys, (self.cfg.svrg_steps,), 0,
+                                bucket.n_k.clamp(min=1))
+
+    def _gd(self, w, bucket, out, full_grad):
+        Kb = bucket.num_clients
+        dane_gd_pass(w, full_grad, bucket, self.problem.flat.lam, self.cfg,
+                     out, g=self._scratch("_g", Kb),
+                     a=self._scratch("_a", Kb))
 
     def _pass(self, w, bi, bucket, kb, out, full_grad):
-        lam = self.problem.flat.lam
         if self.cfg.local_solver == "gd":
-            dane_gd_pass(w, full_grad, bucket, lam, self.cfg, out, g=self._g,
-                         a=self._a)
+            self._gd(w, bucket, out, full_grad)
         else:
-            dane_svrg_pass_keyed(w, full_grad, bucket, lam, self.cfg,
-                                 self.samples(kb, bi, bucket), out)
+            dane_svrg_pass_keyed(w, full_grad, bucket, self.problem.flat.lam,
+                                 self.cfg, self.samples(kb, bi, bucket), out)
+
+    def _chunk_pass(self, w, bi, bucket, keys, out, full_grad):
+        """The keyed chunk pass: a chunk, a gathered cohort or a
+        regenerated bucket, with its clients' own keys."""
+        if self.cfg.local_solver == "gd":
+            self._gd(w, bucket, out, full_grad)
+        else:
+            dane_svrg_pass_keyed(w, full_grad, bucket, self.problem.flat.lam,
+                                 self.cfg, self._samples(keys, bucket), out)
 
     def round(self, state: SolverState,
               key: threefry.Key) -> SolverState:

@@ -48,20 +48,46 @@ Fault tolerance (the reference's fleet layer on the plain round):
     statistic over the returned, all-finite deltas (the
     ``robust_aggregate`` kernel) — no weights, no reweighting.
 
-Ported: the plain round and the state round, for every solver of the
-reference's registry (the sparse Fig. 2 solvers and the dense ridge
-ones).  Not ported yet: streamed (``client_chunk``), cohort and virtual
-rounds.  ``compile`` and ``compile_with_state`` are the same eager rounds
-as ``reference`` and ``reference_with_state`` for now.
+The scale paths (the reference's, for every solver that has them) run
+over a *keyed chunk pass* ``chunk_pass(w, bi, chunk_bucket, keys, out,
+*ctx)``, which receives a slice of a bucket and its clients' own keys —
+the matching entries of the whole bucket's ``split(kb, Kb)``, never a new
+split over the slice — so every client draws what it draws on the plain
+round, and per-client deltas are bit-equal:
+
+  * **streamed** (``client_chunk``, :meth:`RoundEngine.round_streamed`):
+    each bucket's clients run ``client_chunk`` at a time, the last chunk
+    padded with zero-weight, n_k = 0 clients, and the weighted delta sum
+    accumulates chunk by chunk (``fused_accumulate`` under
+    ``aggregator="pallas"``), so one (chunk, d) delta block is live, not
+    the (K, d) stack; the round ends with one ``fused_epilogue``;
+  * **cohort** (``cohort``, :meth:`RoundEngine.round_cohort`): under
+    partial participation each bucket gathers only its participants (at
+    most ``cap = min(cohort, Kb, cohort_capacity(p, Kb))``, in index
+    order, padded to ``cap``), runs their passes and scatters their state
+    back; a draw above ``cap`` falls back to the masked bucket, except
+    under an order-statistic guard, which drops the participants beyond
+    ``cap`` and takes the statistic over the gathered stacks;
+  * **virtual** (``virtual_data``, :meth:`RoundEngine.round_virtual`):
+    the problem has no rows (:func:`~repro_torch.core.problem.
+    build_virtual_problem`), and every path regenerates the rows it is
+    about to consume — a chunk, a gathered cohort or one bucket.
+
+Streamed and cohort iterates match the plain round's to float tolerance
+(the summation order differs).  ``compile`` dispatches as the reference's
+does — cohort, then streamed, then virtual, then plain — and is the eager
+round: the CUDA-graph capture is later work.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.problem import FederatedLogReg
+from repro_torch.core.problem import (ClientBucket, FederatedLogReg,
+                                      VirtualBucket)
 from repro_torch.kernels import ops
 from repro_torch.utils import threefry
 
@@ -74,6 +100,14 @@ ClientPassFn = Callable[..., None]
 #: whose leading axis is the bucket's client axis (CoCoA+'s α, (Kb, m_pad));
 #: the old state is left as it was
 StateClientPassFn = Callable[..., torch.Tensor]
+
+#: chunk_pass(w, bucket_index, chunk_bucket, keys, out, *ctx) writes the
+#: chunk's (C, d) deltas into ``out``; keys are its C clients' own keys
+ChunkClientPassFn = Callable[..., None]
+
+#: state chunk_pass(w, bucket_index, chunk_bucket, state, keys, out, *ctx)
+#: also returns the chunk's new state (C, ...)
+StateChunkClientPassFn = Callable[..., torch.Tensor]
 
 _WEIGHTINGS = ("nk", "uniform", "sum")
 _SCALINGS = ("none", "diag")
@@ -90,15 +124,37 @@ class EngineConfig:
     weighting: str = "nk"          # "nk" (n_k/n) | "uniform" (1/K) | "sum" (1)
     server_scaling: str = "none"   # "none" | "diag" (apply a_diag coordinatewise)
     aggregator: str = "dense"      # "dense" | "pallas" (fused_aggregate kernel)
+    # None -> each bucket's (Kb, d) delta stack is formed whole.  An int
+    # streams the client axis in chunks of this size: one (chunk, d)
+    # delta block live, the weighted sum accumulated chunk by chunk
+    client_chunk: Optional[int] = None
+    # None -> under partial participation every client's pass runs and
+    # the draw zeroes the others' weights.  An int caps the computed
+    # cohort: each bucket gathers its participants, up to
+    # min(cohort, Kb, cohort_capacity(participation, Kb)); a larger draw
+    # falls back to the masked bucket
+    cohort: Optional[int] = None
+    # True -> the problem was built by build_virtual_problem and every
+    # round path regenerates the rows it consumes
+    virtual_data: bool = False
     # the server's defence against corrupted deltas: None | "clip" (reject
     # non-finite deltas, optionally cap norms at guard_clip_norm) |
     # "trimmed_mean" | "median" (coordinate-wise order statistics over the
-    # returned, all-finite deltas; robust_aggregate kernel)
+    # returned, all-finite deltas; robust_aggregate kernel — they need the
+    # delta stacks, so not with client_chunk or virtual_data)
     aggregator_guard: Optional[str] = None
     # L2 norm cap per client delta; requires aggregator_guard="clip"
     guard_clip_norm: Optional[float] = None
     # per-side trim fraction for aggregator_guard="trimmed_mean"
     guard_trim: float = 0.1
+
+    @staticmethod
+    def _check_optional_count(value, name: str):
+        # bool is a subclass of int: cohort=True must not mean cohort=1
+        if value is not None and (
+                isinstance(value, bool) or not isinstance(value, int)
+                or value < 1):
+            raise ValueError(f"{name} must be a positive int or None")
 
     def __post_init__(self):
         if self.weighting not in _WEIGHTINGS:
@@ -109,18 +165,36 @@ class EngineConfig:
             raise ValueError(f"aggregator must be one of {_AGGREGATORS}")
         if not 0.0 < self.participation <= 1.0:
             raise ValueError("participation must be in (0, 1]")
+        self._check_optional_count(self.client_chunk, "client_chunk")
+        self._check_optional_count(self.cohort, "cohort")
+        if not isinstance(self.virtual_data, bool):
+            raise ValueError("virtual_data must be a bool")
         if (self.aggregator_guard is not None
                 and self.aggregator_guard not in _GUARDS):
             raise ValueError(f"aggregator_guard must be one of {_GUARDS} "
                              "or None")
-        if (self.aggregator_guard in _ORDER_STAT_GUARDS
-                and self.weighting == "sum"):
-            raise ValueError(
-                "order-statistic guards replace the weighted sum with "
-                "an unweighted coordinate-wise statistic; "
-                "weighting='sum' (dual methods tracking frozen dual "
-                "blocks) requires the exact plain sum — use "
-                "aggregator_guard='clip'")
+        if self.aggregator_guard in _ORDER_STAT_GUARDS:
+            if self.client_chunk is not None:
+                raise ValueError(
+                    f"aggregator_guard='{self.aggregator_guard}' needs the "
+                    "materialized (K, d) delta stacks; the streamed path "
+                    "(client_chunk) only ever holds one chunk and a running "
+                    "sum, and order statistics cannot be folded "
+                    "chunk-by-chunk — use the plain or cohort path, or "
+                    "aggregator_guard='clip'")
+            if self.virtual_data:
+                raise ValueError(
+                    f"aggregator_guard='{self.aggregator_guard}' is not "
+                    "available with virtual_data (virtual rounds never "
+                    "materialize the full delta stacks) — use "
+                    "aggregator_guard='clip'")
+            if self.weighting == "sum":
+                raise ValueError(
+                    "order-statistic guards replace the weighted sum with "
+                    "an unweighted coordinate-wise statistic; "
+                    "weighting='sum' (dual methods tracking frozen dual "
+                    "blocks) requires the exact plain sum — use "
+                    "aggregator_guard='clip'")
         if not 0.0 <= self.guard_trim < 0.5:
             raise ValueError("guard_trim must be in [0, 0.5)")
         if self.guard_clip_norm is not None:
@@ -134,9 +208,47 @@ class EngineConfig:
                     "guard_clip_norm requires aggregator_guard='clip'")
 
 
+def cohort_capacity(participation: float, num_clients: int, *,
+                    z: float = 6.0) -> int:
+    """The static per-bucket cohort capacity for ``EngineConfig.cohort``
+    (a copy of the reference's): the draw is Binomial(Kb, participation),
+    and mean + z·σ (+1) covers it but with odds of about 1e-9 at z = 6.
+    Pass the largest bucket's client count; each bucket sizes its own
+    gather to ``min(cohort, Kb, cohort_capacity(participation, Kb))``."""
+    if not 0.0 < participation <= 1.0:
+        raise ValueError("participation must be in (0, 1]")
+    if num_clients < 1:
+        raise ValueError("num_clients must be >= 1")
+    mean = participation * num_clients
+    sd = math.sqrt(participation * (1.0 - participation) * num_clients)
+    return max(1, min(num_clients, int(math.ceil(mean + z * sd)) + 1))
+
+
+def _pad_clients(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` with ``pad`` zero rows appended along the client axis."""
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+
+def _pad_keys(keys: threefry.Key, pad: int, first: threefry.Key
+              ) -> threefry.Key:
+    """Per-client keys with ``pad`` copies of the key ``first`` appended
+    (a pad client's key is never used in a way that matters)."""
+    if pad == 0:
+        return keys
+    return tuple(torch.cat([k, f.reshape(1).expand(pad)])
+                 for k, f in zip(keys, first))
+
+
+def _take_keys(keys: threefry.Key, rows) -> threefry.Key:
+    return tuple(k[rows] for k in keys)
+
+
 class RoundEngine:
     """Owns client sampling, the per-bucket client passes and server
-    aggregation.  Algorithms provide a :data:`ClientPassFn`."""
+    aggregation.  Algorithms provide a :data:`ClientPassFn` and, for the
+    scale paths, a :data:`ChunkClientPassFn`."""
 
     def __init__(self, problem: FederatedLogReg,
                  cfg: EngineConfig = EngineConfig(), *,
@@ -160,6 +272,17 @@ class RoundEngine:
         self.fault_model = fault_model
         if cfg.server_scaling == "diag" and a_diag is None:
             raise ValueError("server_scaling='diag' requires an a_diag")
+        layout = getattr(problem, "virtual", None)
+        if cfg.virtual_data and layout is None:
+            raise ValueError(
+                "virtual_data=True requires a problem built by "
+                "build_virtual_problem (problem.virtual is the layout)")
+        if layout is not None and not cfg.virtual_data:
+            raise ValueError(
+                "the problem carries a virtual layout (no materialized "
+                "rows); set EngineConfig(virtual_data=True) to run rounds "
+                "on it")
+        self._virtual = layout if cfg.virtual_data else None
         self.device = problem.device
         self.a_diag = (torch.ones((problem.d,), device=self.device)
                        if a_diag is None else a_diag)
@@ -191,6 +314,20 @@ class RoundEngine:
             return 0
         return int(round_index)
 
+    def _fault_round(self, round_index: Optional[int]) -> Optional[int]:
+        """The round fault draws are a function of; None without a fault
+        model."""
+        if self.fault_model is None:
+            return None
+        return self._round_index_arg(round_index)
+
+    def _realize(self, bucket):
+        """A virtual bucket's rows, regenerated; a materialized bucket as
+        it is."""
+        if self._virtual is not None and isinstance(bucket, VirtualBucket):
+            return self._virtual.realize(bucket)
+        return bucket
+
     # -- fault injection & guards ------------------------------------------ #
 
     def _bucket_ids(self, bi: int) -> torch.Tensor:
@@ -200,14 +337,16 @@ class RoundEngine:
         return torch.arange(wi, wi + self._sizes[bi], dtype=torch.int64,
                             device=self.device)
 
-    def _faulted(self, deltas: torch.Tensor, r: int, bi: int,
+    def _faulted(self, deltas: torch.Tensor, r: int, ids: torch.Tensor,
                  live: Optional[torch.Tensor]) -> None:
-        """Corrupt, in place, the *returned* clients' deltas of bucket
-        ``bi`` through the fault model.  A client left out of the round
-        keeps its honest delta: a NaN on a zero-weight row would still
-        poison the weighted sum (0·NaN = NaN), so the rows are selected,
-        not cancelled by their weight."""
-        bad = self.fault_model.apply(deltas, r, self._bucket_ids(bi))
+        """Corrupt, in place, the *returned* clients' deltas through the
+        fault model; ``ids`` are their global ids (a bucket's, a chunk's or
+        a gathered cohort's), so every path corrupts the same clients the
+        same way.  A client left out of the round (``live`` 0: weight,
+        mask or validity) keeps its honest delta: a NaN on a zero-weight
+        row would still poison the weighted sum (0·NaN = NaN), so the rows
+        are selected, not cancelled by their weight."""
+        bad = self.fault_model.apply(deltas, r, ids)
         if live is not None:
             bad = torch.where(live.reshape(-1, 1) > 0, bad, deltas)
         deltas.copy_(bad)
@@ -235,10 +374,10 @@ class RoundEngine:
 
     def _robust_apply(self, w: torch.Tensor, deltas: torch.Tensor,
                       valid: torch.Tensor) -> torch.Tensor:
-        """The order-statistic server update over the stacked (K, d)
-        deltas: rows that are not returned, or carry any non-finite
-        coordinate, are left out, and the coordinate-wise trimmed mean or
-        median of the rest updates the iterate."""
+        """The order-statistic server update over the stacked deltas:
+        rows that are not returned, or carry any non-finite coordinate,
+        are left out, and the coordinate-wise trimmed mean or median of
+        the rest updates the iterate."""
         valid = valid & torch.isfinite(deltas).all(dim=1)
         a = (self.a_diag if self.cfg.server_scaling == "diag"
              else torch.ones_like(w))
@@ -286,17 +425,43 @@ class RoundEngine:
                                         b.num_clients)
                 for wi, b in zip(self._offsets, self.problem.buckets)]
 
-    def client_keys(self, bucket_key: threefry.Key,
-                    num_clients: int) -> threefry.Key:
+    def client_keys(self, bucket_key: threefry.Key, num_clients: int, *,
+                    start: int = 0) -> threefry.Key:
         """The bucket's per-client keys, ``split(kb, Kb)``, on the engine's
-        device: client k's key is ``threefry.take(keys, k)``."""
-        return threefry.split(threefry.as_key(bucket_key, self.device),
-                              num_clients)
+        device: client k's key is ``threefry.take(keys, k)``.  With
+        ``start``, the keys of clients ``[start, start + num_clients)`` —
+        the same entries of the whole bucket's split (key k of a split is
+        ``fold_in(kb, k)``), drawn without the rest."""
+        kb = threefry.as_key(bucket_key, self.device)
+        if start == 0:
+            return threefry.split(kb, num_clients)
+        return self.gathered_keys(kb, torch.arange(
+            start, start + num_clients, device=self.device))
+
+    def gathered_keys(self, bucket_key: threefry.Key,
+                      rows: torch.Tensor) -> threefry.Key:
+        """The keys of the bucket's clients at positions ``rows``: entries
+        ``rows`` of ``split(kb, Kb)``."""
+        return threefry.fold_in(threefry.as_key(bucket_key, self.device),
+                                rows)
 
     @staticmethod
     def _reweight_scale(total_mass, expected_mass):
         """The unbiased-participation reweight scalar."""
         return expected_mass / total_mass.clamp(min=1e-9)
+
+    def _finish(self, w: torch.Tensor, acc: torch.Tensor,
+                scale: Optional[torch.Tensor]) -> torch.Tensor:
+        """w + A ⊙ (s · acc) over the round's accumulated weighted sum:
+        one ``fused_epilogue`` under ``aggregator="pallas"``."""
+        diag = self.cfg.server_scaling == "diag"
+        if self.cfg.aggregator == "pallas":
+            a = self.a_diag if diag else torch.ones_like(w)
+            return ops.fused_epilogue(
+                w, acc, a, 1.0 if scale is None else scale).to(w.dtype)
+        if scale is not None:
+            acc = acc * scale
+        return w + (self.a_diag if diag else 1.0) * acc
 
     # -- step 4: aggregation ----------------------------------------------- #
 
@@ -366,15 +531,14 @@ class RoundEngine:
         feeds round-dependent participation models and the fault draws."""
         key = threefry.as_key(key, self.device)
         masks = self.participation_masks(key, round_index)
-        r = (self._round_index_arg(round_index)
-             if self.fault_model is not None else None)
+        r = self._fault_round(round_index)
         deltas = torch.empty((self.problem.num_clients, self.problem.d),
                              dtype=w.dtype, device=w.device)
         for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
             out = deltas[wi:wi + b.num_clients]
             client_pass(w, bi, b, threefry.fold_in(key, wi), out, *ctx)
             if r is not None:
-                self._faulted(out, r, bi,
+                self._faulted(out, r, self._bucket_ids(bi),
                               masks[bi] if masks is not None else None)
         return self.aggregate(w, deltas, masks)
 
@@ -392,8 +556,7 @@ class RoundEngine:
         delta only, never the state."""
         key = threefry.as_key(key, self.device)
         masks = self.participation_masks(key, round_index)
-        r = (self._round_index_arg(round_index)
-             if self.fault_model is not None else None)
+        r = self._fault_round(round_index)
         deltas = torch.empty((self.problem.num_clients, self.problem.d),
                              dtype=w.dtype, device=w.device)
         new_states: List[torch.Tensor] = []
@@ -403,53 +566,530 @@ class RoundEngine:
             new = client_pass(w, bi, b, old, threefry.fold_in(key, wi), out,
                               *ctx)
             if r is not None:
-                self._faulted(out, r, bi,
+                self._faulted(out, r, self._bucket_ids(bi),
                               masks[bi] if masks is not None else None)
             if masks is not None:
-                sel = masks[bi].reshape((b.num_clients,)
-                                        + (1,) * (new.dim() - 1))
-                new = torch.where(sel > 0, new, old)
+                new = self._freeze(new, old, masks[bi])
             new_states.append(new)
         return self.aggregate(w, deltas, masks), new_states
 
-    def reference(self, client_pass: ClientPassFn, *,
-                  prelude: Optional[Callable] = None) -> Callable:
-        """``round(w, key, round_index=None) -> w_next``: the prelude's
-        results are appended to the client pass's arguments."""
+    @staticmethod
+    def _freeze(new: torch.Tensor, old: torch.Tensor,
+                sel: torch.Tensor) -> torch.Tensor:
+        """The new state where ``sel`` is 1, the old one, bit for bit,
+        where it is 0."""
+        keep = sel.reshape((sel.shape[0],) + (1,) * (new.dim() - 1)) > 0
+        return torch.where(keep, new, old)
 
-        def reference_round(w: torch.Tensor, key: threefry.Key, *,
-                            round_index: Optional[int] = None):
+    # -- the streamed round: one (chunk, d) delta block live ---------------- #
+
+    def _accumulate(self, acc: torch.Tensor, deltas: torch.Tensor,
+                    wts: torch.Tensor) -> torch.Tensor:
+        """acc + Σ_k wts_k δ_k: ``fused_accumulate`` under
+        ``aggregator="pallas"``, the plain weighted sum otherwise."""
+        if self.cfg.aggregator == "pallas":
+            return ops.fused_accumulate(acc, deltas, wts).to(acc.dtype)
+        return acc + (wts[:, None] * deltas).sum(dim=0)
+
+    def _stream_bucket(self, w, bi: int, bucket, kb, wts, chunk_pass, ctx,
+                       *, state_b=None, sel=None, keys=None, ids=None,
+                       r=None):
+        """One bucket's weighted delta sum, a (d,) vector, with its clients
+        run ``client_chunk`` at a time, and — for state passes — the
+        bucket's new state.
+
+        The last chunk is padded to the chunk size with zero-weight,
+        n_k = 0 clients (their rows are padding, their key is the
+        bucket's first, their id 0, their state zeros), so every chunk
+        has one shape; one (chunk, d) delta buffer is reused chunk after
+        chunk.  ``keys`` are the bucket's per-client keys when they are
+        not the bucket's own split (a gathered cohort's); by default each
+        chunk draws its slice of ``split(kb, Kb)``.  A virtual bucket's
+        chunk rows are regenerated right before its pass."""
+        Kb = bucket.num_clients
+        chunk = min(self.cfg.client_chunk, Kb)
+        virtual = (self._virtual is not None
+                   and isinstance(bucket, VirtualBucket))
+        if keys is None:
+            first = self.client_keys(kb, 1)
+        else:
+            first = _take_keys(keys, slice(0, 1))
+        out = torch.empty((chunk, w.shape[0]), dtype=w.dtype,
+                          device=w.device)
+        acc = torch.zeros_like(w)
+        new_state = None if state_b is None else state_b.clone()
+        for c0 in range(0, Kb, chunk):
+            c1 = min(c0 + chunk, Kb)
+            pad = chunk - (c1 - c0)
+
+            def part(x):
+                return _pad_clients(x[c0:c1], pad)
+
+            if virtual:
+                cb = self._virtual.materialize(part(bucket.client_ids),
+                                               part(bucket.n_k),
+                                               bucket.m_pad)
+            else:
+                cb = ClientBucket(part(bucket.idx), part(bucket.val),
+                                  part(bucket.y), part(bucket.n_k))
+            ck = (self.client_keys(kb, c1 - c0, start=c0) if keys is None
+                  else _take_keys(keys, slice(c0, c1)))
+            ck = _pad_keys(ck, pad, first)
+            wts_c = part(wts)
+            if state_b is None:
+                chunk_pass(w, bi, cb, ck, out, *ctx)
+            else:
+                old = part(state_b)
+                s_new = chunk_pass(w, bi, cb, old, ck, out, *ctx)
+                if sel is not None:
+                    s_new = self._freeze(s_new, old, part(sel))
+                new_state[c0:c1] = s_new[:c1 - c0]
+            if r is not None:
+                # live = the chunk's (already mask-zeroed) weights: only
+                # clients that add to the sum can be faulted
+                self._faulted(out, r, part(ids), wts_c)
+            acc = self._accumulate(acc, self._guard_clip(out), wts_c)
+        return acc, new_state
+
+    def _keyed_pass(self, w, bi: int, bucket, keys, chunk_pass, ctx,
+                    state=None):
+        """The keyed pass over one whole block of clients (a bucket or a
+        gathered cohort, regenerated if virtual): (its (C, d) deltas, its
+        new state or None)."""
+        cb = self._realize(bucket)
+        out = torch.empty((cb.num_clients, w.shape[0]), dtype=w.dtype,
+                          device=w.device)
+        if state is None:
+            chunk_pass(w, bi, cb, keys, out, *ctx)
+            return out, None
+        return out, chunk_pass(w, bi, cb, state, keys, out, *ctx)
+
+    def _masked_bucket(self, w, bi: int, bucket, kb, wtsz, sel, chunk_pass,
+                       ctx, *, state_b=None, keys=None, ids=None, r=None):
+        """The masked body over the keyed chunk pass: every client's pass
+        runs, zero-weighted non-participants drop out of the sum, and state
+        freezes where ``sel`` is 0 — streamed when ``client_chunk`` is set,
+        else one block over the (regenerated) bucket.  ``keys`` are the
+        clients' keys when they are not the bucket's own split (a gathered
+        cohort's).  It is the streamed and virtual rounds' bucket body, and
+        the cohort round's body over its gathered bucket and its
+        fallback."""
+        if self.cfg.client_chunk is not None:
+            return self._stream_bucket(w, bi, bucket, kb, wtsz, chunk_pass,
+                                       ctx, state_b=state_b, sel=sel,
+                                       keys=keys, ids=ids, r=r)
+        if keys is None:
+            keys = self.client_keys(kb, bucket.num_clients)
+        out, s_new = self._keyed_pass(w, bi, bucket, keys, chunk_pass, ctx,
+                                      state_b)
+        if s_new is not None and sel is not None:
+            s_new = self._freeze(s_new, state_b, sel)
+        if r is not None:
+            self._faulted(out, r, ids, wtsz)
+        return (self._accumulate(torch.zeros_like(w), self._guard_clip(out),
+                                 wtsz), s_new)
+
+    def _streamed_round(self, w, key, chunk_pass, ctx, states, round_index):
+        """The keyed round body of :meth:`round_streamed` and
+        :meth:`round_virtual`: the masks, each bucket's weighted sum
+        through :meth:`_masked_bucket`, the reweight, one epilogue."""
+        key = threefry.as_key(key, self.device)
+        masks = self.participation_masks(key, round_index)
+        r = self._fault_round(round_index)
+        reweight = masks is not None and self.cfg.weighting != "sum"
+        acc = torch.zeros_like(w)
+        total_mass = torch.zeros((), dtype=w.dtype, device=self.device)
+        expected_mass = torch.zeros((), dtype=w.dtype, device=self.device)
+        new_states: Optional[List[torch.Tensor]] = (
+            [] if states is not None else None)
+        for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
+            wts = self.bucket_weights(wi, b.num_clients, w.dtype)
+            sel = masks[bi] if masks is not None else None
+            if sel is not None:
+                if reweight:
+                    total_mass = total_mass + (wts * sel).sum()
+                    expected_mass = expected_mass + wts.sum()
+                wts = wts * sel
+            acc_b, s_b = self._masked_bucket(
+                w, bi, b, threefry.fold_in(key, wi), wts, sel, chunk_pass,
+                ctx, state_b=states[bi] if states is not None else None,
+                ids=self._bucket_ids(bi) if r is not None else None, r=r)
+            acc = acc + acc_b
+            if new_states is not None:
+                new_states.append(s_b)
+        scale = (self._reweight_scale(total_mass, expected_mass)
+                 if reweight else None)
+        return self._finish(w, acc, scale), new_states
+
+    def round_streamed(self, w: torch.Tensor, key: threefry.Key,
+                       chunk_pass: ChunkClientPassFn, *ctx,
+                       round_index: Optional[int] = None) -> torch.Tensor:
+        """:meth:`round` with the client axis streamed in ``client_chunk``
+        chunks: the weighted delta sum accumulates chunk by chunk and the
+        (K, d) stack is never formed.  The same weighting, participation,
+        scaling and per-client keys as :meth:`round`; the iterate agrees
+        to float tolerance (summation order)."""
+        if self.cfg.client_chunk is None:
+            raise ValueError("round_streamed requires cfg.client_chunk")
+        return self._streamed_round(w, key, chunk_pass, ctx, None,
+                                    round_index)[0]
+
+    def round_streamed_with_state(self, w: torch.Tensor,
+                                  states: Sequence[torch.Tensor],
+                                  key: threefry.Key,
+                                  chunk_pass: StateChunkClientPassFn, *ctx,
+                                  round_index: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor,
+                                             List[torch.Tensor]]:
+        """:meth:`round_with_state`, streamed: the pass receives each
+        chunk's slice of the state, frozen per chunk by the round's
+        masks, and the bucket's new state is put back in client order."""
+        if self.cfg.client_chunk is None:
+            raise ValueError("round_streamed_with_state requires "
+                             "cfg.client_chunk")
+        return self._streamed_round(w, key, chunk_pass, ctx, list(states),
+                                    round_index)
+
+    # -- the virtual round: rows regenerated as they are consumed ----------- #
+
+    def round_virtual(self, w: torch.Tensor, key: threefry.Key,
+                      chunk_pass: ChunkClientPassFn, *ctx,
+                      round_index: Optional[int] = None) -> torch.Tensor:
+        """:meth:`round` over a virtual problem: each bucket's rows are
+        regenerated right before its pass — a chunk at a time when
+        ``client_chunk`` is set (O(chunk·m_pad·nnz) rows live whatever K),
+        a whole bucket otherwise.  Per-client deltas are bit-equal to the
+        materialized problem's (regenerated rows are its rows); iterates
+        agree to float tolerance."""
+        if not self.cfg.virtual_data:
+            raise ValueError("round_virtual requires cfg.virtual_data")
+        return self._streamed_round(w, key, chunk_pass, ctx, None,
+                                    round_index)[0]
+
+    def round_virtual_with_state(self, w: torch.Tensor,
+                                 states: Sequence[torch.Tensor],
+                                 key: threefry.Key,
+                                 chunk_pass: StateChunkClientPassFn, *ctx,
+                                 round_index: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor,
+                                            List[torch.Tensor]]:
+        """:meth:`round_with_state` over a virtual problem; the state
+        stays materialized (it is the algorithm's, O(K·m_pad))."""
+        if not self.cfg.virtual_data:
+            raise ValueError("round_virtual_with_state requires "
+                             "cfg.virtual_data")
+        return self._streamed_round(w, key, chunk_pass, ctx, list(states),
+                                    round_index)
+
+    # -- the cohort round: only the sampled clients' passes ----------------- #
+
+    def _cohort_cap(self, num_clients: int) -> int:
+        """The bucket's own gather capacity: ``cfg.cohort`` is a ceiling,
+        and a bucket never gathers more than its Binomial draw needs."""
+        return min(self.cfg.cohort, num_clients,
+                   cohort_capacity(self.cfg.participation, num_clients)
+                   if self.cfg.participation < 1.0 else num_clients)
+
+    def _gather(self, bucket, gidx: torch.Tensor, valid: torch.Tensor):
+        """The clients at ``gidx`` of a bucket as a bucket of their own;
+        slots where ``valid`` is False get n_k = 0 (padding).  A virtual
+        bucket gathers identities only — rows are made for the cohort
+        alone."""
+        n_k = torch.where(valid, bucket.n_k[gidx], 0)
+        if self._virtual is not None and isinstance(bucket, VirtualBucket):
+            return VirtualBucket(bucket.client_ids[gidx], n_k, bucket.m_pad)
+        return ClientBucket(bucket.idx[gidx], bucket.val[gidx],
+                            bucket.y[gidx], n_k)
+
+    def _cohort_bucket(self, w, bi: int, bucket, kb, wts, sel, chunk_pass,
+                       ctx, *, state_b=None, ids=None, r=None):
+        """One bucket's weighted sum with only its participants computed.
+
+        The draw ``sel`` becomes a gather of the first participants in
+        index order into a bucket of ``cap`` slots (pad slots: weight 0,
+        n_k = 0, the bucket's first client's rows and id), their own keys
+        (entries of ``split(kb, Kb)``) and state; after the pass their
+        state is put back at their slots, distinct indices only, so every
+        other client's state stays as it was, bit for bit.  A draw with
+        more than ``cap`` participants takes the masked bucket instead."""
+        Kb = bucket.num_clients
+        cap = self._cohort_cap(Kb)
+        wtsz = wts * sel if sel is not None else wts
+        if sel is None or cap >= Kb:
+            return self._masked_bucket(w, bi, bucket, kb, wtsz, sel,
+                                       chunk_pass, ctx, state_b=state_b,
+                                       ids=ids, r=r)
+        picked = (sel > 0).nonzero().flatten()
+        count = int(picked.shape[0])
+        if count > cap:
+            return self._masked_bucket(w, bi, bucket, kb, wtsz, sel,
+                                       chunk_pass, ctx, state_b=state_b,
+                                       ids=ids, r=r)
+        gidx = _pad_clients(picked, cap - count)
+        valid = torch.arange(cap, device=gidx.device) < count
+        acc_b, s_new = self._masked_bucket(
+            w, bi, self._gather(bucket, gidx, valid), kb,
+            torch.where(valid, wtsz[gidx], 0.0), None, chunk_pass, ctx,
+            state_b=None if state_b is None else state_b[gidx],
+            keys=self.gathered_keys(kb, gidx),
+            ids=ids[gidx] if ids is not None else None, r=r)
+        if state_b is None:
+            return acc_b, None
+        new_state = state_b.clone()
+        new_state[picked] = s_new[:count]
+        return acc_b, new_state
+
+    def _cohort_round(self, w, key, chunk_pass, ctx, states, round_index):
+        """The cohort twin of :meth:`_streamed_round`: the same mass
+        reductions over the complete weight and mask vectors (the
+        reweighting never sees the gather), each bucket's sum from
+        :meth:`_cohort_bucket`."""
+        if self._order_stat():
+            return self._cohort_round_robust(w, key, chunk_pass, ctx, states,
+                                             round_index)
+        key = threefry.as_key(key, self.device)
+        masks = self.participation_masks(key, round_index)
+        r = self._fault_round(round_index)
+        reweight = masks is not None and self.cfg.weighting != "sum"
+        acc = torch.zeros_like(w)
+        total_mass = torch.zeros((), dtype=w.dtype, device=self.device)
+        expected_mass = torch.zeros((), dtype=w.dtype, device=self.device)
+        new_states: Optional[List[torch.Tensor]] = (
+            [] if states is not None else None)
+        for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
+            wts = self.bucket_weights(wi, b.num_clients, w.dtype)
+            sel = masks[bi] if masks is not None else None
+            if sel is not None and reweight:
+                total_mass = total_mass + (wts * sel).sum()
+                expected_mass = expected_mass + wts.sum()
+            acc_b, s_b = self._cohort_bucket(
+                w, bi, b, threefry.fold_in(key, wi), wts, sel, chunk_pass,
+                ctx, state_b=states[bi] if states is not None else None,
+                ids=self._bucket_ids(bi) if r is not None else None, r=r)
+            acc = acc + acc_b
+            if new_states is not None:
+                new_states.append(s_b)
+        scale = (self._reweight_scale(total_mass, expected_mass)
+                 if reweight else None)
+        return self._finish(w, acc, scale), new_states
+
+    def _cohort_round_robust(self, w, key, chunk_pass, ctx, states,
+                             round_index):
+        """The cohort body under an order-statistic guard: every bucket
+        gives its gathered (cap, d) delta stack and a validity flag a row,
+        and one ``robust_aggregate`` takes the statistic over all buckets'
+        valid rows — no weights, no reweighting.
+
+        There is no overflow fallback: a draw above ``cap`` drops the
+        participants beyond the first ``cap`` (in index order) from the
+        round — left out of the statistic, their state frozen — as the
+        reference does."""
+        key = threefry.as_key(key, self.device)
+        masks = self.participation_masks(key, round_index)
+        r = self._fault_round(round_index)
+        stacks: List[torch.Tensor] = []
+        valids: List[torch.Tensor] = []
+        new_states: Optional[List[torch.Tensor]] = (
+            [] if states is not None else None)
+        for bi, (wi, b) in enumerate(zip(self._offsets, self.problem.buckets)):
+            kb = threefry.fold_in(key, wi)
+            Kb = b.num_clients
+            sel = masks[bi] if masks is not None else None
+            ids = self._bucket_ids(bi) if r is not None else None
+            state_b = states[bi] if states is not None else None
+            cap = self._cohort_cap(Kb)
+            if sel is None or cap >= Kb:
+                # the whole bucket's keyed pass and stack
+                out, s_new = self._keyed_pass(w, bi, b,
+                                              self.client_keys(kb, Kb),
+                                              chunk_pass, ctx, state_b)
+                if s_new is not None:
+                    if sel is not None:
+                        s_new = self._freeze(s_new, state_b, sel)
+                    new_states.append(s_new)
+                if r is not None:
+                    self._faulted(out, r, ids, sel)
+                stacks.append(out)
+                valids.append(sel > 0 if sel is not None else
+                              torch.ones((Kb,), dtype=torch.bool,
+                                         device=out.device))
+                continue
+            picked = (sel > 0).nonzero().flatten()[:cap]
+            count = int(picked.shape[0])
+            gidx = _pad_clients(picked, cap - count)
+            valid = torch.arange(cap, device=gidx.device) < count
+            out, s_new = self._keyed_pass(
+                w, bi, self._gather(b, gidx, valid),
+                self.gathered_keys(kb, gidx), chunk_pass, ctx,
+                None if state_b is None else state_b[gidx])
+            if s_new is not None:
+                new_state = state_b.clone()
+                new_state[picked] = s_new[:count]
+                new_states.append(new_state)
+            if r is not None:
+                self._faulted(out, r, ids[gidx], valid.to(out.dtype))
+            stacks.append(out)
+            valids.append(valid)
+        w_next = self._robust_apply(w, torch.cat(stacks), torch.cat(valids))
+        return w_next, new_states
+
+    def round_cohort(self, w: torch.Tensor, key: threefry.Key,
+                     chunk_pass: ChunkClientPassFn, *ctx,
+                     round_index: Optional[int] = None) -> torch.Tensor:
+        """:meth:`round` computing only the sampled cohort: the same single
+        draw, weighting, reweighting, scaling and per-client keys; the
+        iterate agrees with the masked round to float tolerance.  At
+        participation 1.0 (or cap ≥ Kb) it is the keyed full-bucket
+        pass."""
+        if self.cfg.cohort is None:
+            raise ValueError("round_cohort requires cfg.cohort")
+        return self._cohort_round(w, key, chunk_pass, ctx, None,
+                                  round_index)[0]
+
+    def round_cohort_with_state(self, w: torch.Tensor,
+                                states: Sequence[torch.Tensor],
+                                key: threefry.Key,
+                                chunk_pass: StateChunkClientPassFn, *ctx,
+                                round_index: Optional[int] = None
+                                ) -> Tuple[torch.Tensor,
+                                           List[torch.Tensor]]:
+        """:meth:`round_with_state` computing only the sampled cohort: the
+        cohort's state is gathered with it and put back after its pass;
+        the other clients' state is not touched, which is the masked
+        round's freezing, bit for bit."""
+        if self.cfg.cohort is None:
+            raise ValueError("round_cohort_with_state requires cfg.cohort")
+        return self._cohort_round(w, key, chunk_pass, ctx, list(states),
+                                  round_index)
+
+    # -- dispatch ----------------------------------------------------------- #
+
+    def _require_chunk_pass(self, chunk_pass):
+        if chunk_pass is None:
+            raise ValueError(
+                "cfg.client_chunk/cfg.cohort/cfg.virtual_data is set but no "
+                "chunk_pass was supplied — streamed, cohort, and virtual "
+                "rounds need the per-client-keyed chunk pass "
+                "(chunk_pass(w, bi, chunk_bucket, keys, out, *ctx))")
+        return chunk_pass
+
+    def _use_cohort(self) -> bool:
+        """The gather pays only when the draw drops clients: at
+        participation 1.0 ``cohort`` is a no-op, but a participation model
+        always counts as partial (``cfg.participation`` is then the
+        capacity's rate, not the draw's)."""
+        return self.cfg.cohort is not None and (
+            self.cfg.participation < 1.0
+            or self.participation_model is not None)
+
+    def round_path(self, compiled: bool = True) -> str:
+        """The round :meth:`compile` (or, ``compiled=False``,
+        :meth:`reference`) runs, in the reference's order: ``"cohort"``,
+        ``"streamed"``, ``"virtual"`` (``reference``'s only keyed one) or
+        ``"plain"``."""
+        if compiled and self._use_cohort():
+            return "cohort"
+        if compiled and self.cfg.client_chunk is not None:
+            return "streamed"
+        if self.cfg.virtual_data:
+            return "virtual"
+        return "plain"
+
+    def pass_rows(self) -> int:
+        """The most clients one pass of the compiled round gets: the
+        largest bucket on the plain and unchunked virtual rounds, the
+        largest gathered cohort on the cohort round, at most a chunk when
+        ``client_chunk`` is set.  (The cohort round's rare overflow
+        fallback runs a whole bucket.)"""
+        rows = max(self._sizes)
+        if self.round_path() == "cohort":
+            rows = max(self._cohort_cap(k) for k in self._sizes)
+        if self.cfg.client_chunk is not None:
+            rows = min(rows, self.cfg.client_chunk)
+        return rows
+
+    def _dispatch(self, chunk_pass, compiled: bool) -> Optional[str]:
+        path = self.round_path(compiled)
+        if path == "plain":
+            return None
+        self._require_chunk_pass(chunk_pass)
+        return path
+
+    def _stateless_round(self, client_pass, prelude, chunk_pass,
+                         compiled: bool) -> Callable:
+        path = self._dispatch(chunk_pass, compiled)
+        keyed = {"cohort": self.round_cohort,
+                 "streamed": self.round_streamed,
+                 "virtual": self.round_virtual}.get(path)
+
+        def one_round(w: torch.Tensor, key: threefry.Key, *,
+                      round_index: Optional[int] = None):
             ctx = tuple(prelude(w)) if prelude is not None else ()
-            return self.round(w, key, client_pass, *ctx,
-                              round_index=round_index)
+            if keyed is None:
+                return self.round(w, key, client_pass, *ctx,
+                                  round_index=round_index)
+            return keyed(w, key, chunk_pass, *ctx, round_index=round_index)
 
-        return reference_round
+        return one_round
 
-    def compile(self, client_pass: ClientPassFn, *,
-                prelude: Optional[Callable] = None) -> Callable:
-        """The round solvers dispatch.  For now the same eager round as
-        :meth:`reference`; capturing it in a CUDA graph is later work."""
-        return self.reference(client_pass, prelude=prelude)
+    def _state_round(self, client_pass, prelude, chunk_pass,
+                     compiled: bool) -> Callable:
+        path = self._dispatch(chunk_pass, compiled)
+        keyed = {"cohort": self.round_cohort_with_state,
+                 "streamed": self.round_streamed_with_state,
+                 "virtual": self.round_virtual_with_state}.get(path)
 
-    def reference_with_state(self, client_pass: StateClientPassFn, *,
-                             prelude: Optional[Callable] = None) -> Callable:
-        """``round(w, states, key, round_index=None) -> (w_next,
-        new_states)`` over
-        :meth:`round_with_state`, the prelude's results appended to the
-        client pass's arguments as in :meth:`reference`."""
-
-        def reference_round(w: torch.Tensor, states, key: threefry.Key, *,
-                            round_index: Optional[int] = None):
+        def one_round(w: torch.Tensor, states, key: threefry.Key, *,
+                      round_index: Optional[int] = None):
             ctx = tuple(prelude(w)) if prelude is not None else ()
-            w2, new_states = self.round_with_state(
-                w, list(states), key, client_pass, *ctx,
-                round_index=round_index)
+            if keyed is None:
+                w2, new_states = self.round_with_state(
+                    w, list(states), key, client_pass, *ctx,
+                    round_index=round_index)
+            else:
+                w2, new_states = keyed(w, list(states), key, chunk_pass,
+                                       *ctx, round_index=round_index)
             return w2, tuple(new_states)
 
-        return reference_round
+        return one_round
+
+    def reference(self, client_pass: ClientPassFn, *,
+                  prelude: Optional[Callable] = None,
+                  chunk_pass: Optional[ChunkClientPassFn] = None
+                  ) -> Callable:
+        """``round(w, key, round_index=None) -> w_next``: the plain
+        :meth:`round` (under ``virtual_data`` :meth:`round_virtual`, the
+        only round a virtual problem has), the prelude's results appended
+        to the pass's arguments."""
+        return self._stateless_round(client_pass, prelude, chunk_pass,
+                                     compiled=False)
+
+    def compile(self, client_pass: ClientPassFn, *,
+                prelude: Optional[Callable] = None,
+                chunk_pass: Optional[ChunkClientPassFn] = None
+                ) -> Callable:
+        """The round solvers dispatch, in the reference's order: the cohort
+        round when ``cohort`` is set under partial participation, else the
+        streamed round when ``client_chunk`` is set, else the virtual
+        round under ``virtual_data``, else the plain round.  For now every
+        one is eager; capturing it in a CUDA graph is later work."""
+        return self._stateless_round(client_pass, prelude, chunk_pass,
+                                     compiled=True)
+
+    def reference_with_state(self, client_pass: StateClientPassFn, *,
+                             prelude: Optional[Callable] = None,
+                             chunk_pass: Optional[StateChunkClientPassFn]
+                             = None) -> Callable:
+        """``round(w, states, key, round_index=None) -> (w_next,
+        new_states)``: :meth:`reference` for state rounds."""
+        return self._state_round(client_pass, prelude, chunk_pass,
+                                 compiled=False)
 
     def compile_with_state(self, client_pass: StateClientPassFn, *,
-                           prelude: Optional[Callable] = None) -> Callable:
-        """The state round solvers dispatch: for now the same eager round
-        as :meth:`reference_with_state`, as :meth:`compile` is."""
-        return self.reference_with_state(client_pass, prelude=prelude)
+                           prelude: Optional[Callable] = None,
+                           chunk_pass: Optional[StateChunkClientPassFn]
+                           = None) -> Callable:
+        """The state round solvers dispatch: :meth:`compile`'s order over
+        the ``_with_state`` rounds."""
+        return self._state_round(client_pass, prelude, chunk_pass,
+                                 compiled=True)

@@ -15,7 +15,10 @@ h_eff = valid·h = 0).  Client k of the bucket with key kb runs epoch e over
 ``permutation(take(split(take(split(kb, Kb), k), E), e), m_pad)``, the
 reference's permutation, bit for bit.
 
-Not ported yet: the streamed, cohort and virtual options.
+The scale paths (``client_chunk``, ``cohort``, ``virtual_data``; see
+:mod:`repro_torch.core.engine`) run the same pass over a chunk, a gathered
+cohort or a regenerated bucket with its clients' own keys; the gradient
+scratch is sized to what one pass gets.
 """
 from __future__ import annotations
 
@@ -41,6 +44,15 @@ class FedAvgConfig:
     use_weighted_agg: bool = True  # n_k/n (True) vs uniform 1/K averaging
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # None -> form each bucket's (Kb, d) delta stack; an int streams the
+    # client axis in chunks of this size (see EngineConfig.client_chunk)
+    client_chunk: Optional[int] = None
+    # under partial participation, compute only the sampled cohort (see
+    # EngineConfig.cohort and engine.cohort_capacity)
+    cohort: Optional[int] = None
+    # rows regenerated on demand from a build_virtual_problem layout (see
+    # EngineConfig.virtual_data); set by itself for a virtual problem
+    virtual_data: bool = False
     # replace the Bernoulli draw with a repro_torch.fleet participation
     # model (trace-driven availability and stragglers)
     participation_model: Optional[Any] = None
@@ -102,16 +114,15 @@ class FedAvg(FederatedSolver):
                  device: DeviceLike = None):
         self._bind(problem, device)
         self.cfg = cfg
-        # the step's gradient scratch, shared by every bucket's pass
-        self._g = torch.zeros(
-            (max(b.num_clients for b in problem.buckets), problem.d),
-            device=problem.device)
         self.engine = RoundEngine(
             problem,
             EngineConfig(
                 participation=cfg.participation,
                 weighting="nk" if cfg.use_weighted_agg else "uniform",
                 aggregator=cfg.aggregator,
+                client_chunk=cfg.client_chunk,
+                cohort=cfg.cohort,
+                virtual_data=cfg.virtual_data or problem.virtual is not None,
                 aggregator_guard=cfg.aggregator_guard,
                 guard_clip_norm=cfg.guard_clip_norm,
                 guard_trim=cfg.guard_trim,
@@ -119,7 +130,10 @@ class FedAvg(FederatedSolver):
             participation_model=cfg.participation_model,
             fault_model=cfg.fault_model,
         )
-        self._round_fast = self.engine.compile(self._pass)
+        # the step's gradient scratch of zeros, shared by every pass
+        self._scratch("_g", self.engine.pass_rows(), zeros=True)
+        self._round_fast = self.engine.compile(self._pass,
+                                               chunk_pass=self._chunk_pass)
 
     def permutations(self, kb: threefry.Key, bucket_index: int,
                      bucket: ClientBucket) -> torch.Tensor:
@@ -127,15 +141,26 @@ class FedAvg(FederatedSolver):
         E epochs, drawn batched from the bucket's key: client k's keys are
         ``split(take(split(kb, Kb), k), E)``, one permutation each:
         (Kb, E, m_pad) int64."""
-        keys = self.engine.client_keys(kb, bucket.num_clients)
+        return self._permutations(
+            self.engine.client_keys(kb, bucket.num_clients), bucket)
+
+    def _permutations(self, keys: threefry.Key,
+                      bucket: ClientBucket) -> torch.Tensor:
         return threefry.permutation(
             threefry.split(keys, self.cfg.local_epochs), bucket.m_pad)
 
+    def _run(self, w, bucket, perms, out):
+        local_sgd_pass_keyed(
+            w, bucket, self.problem.flat.lam, self.cfg.stepsize, perms, out,
+            g=self._scratch("_g", bucket.num_clients, zeros=True))
+
     def _pass(self, w, bi, bucket, kb, out):
-        local_sgd_pass_keyed(w, bucket, self.problem.flat.lam,
-                             self.cfg.stepsize,
-                             self.permutations(kb, bi, bucket), out,
-                             g=self._g)
+        self._run(w, bucket, self.permutations(kb, bi, bucket), out)
+
+    def _chunk_pass(self, w, bi, bucket, keys, out):
+        """The keyed chunk pass: a chunk, a gathered cohort or a
+        regenerated bucket, with its clients' own keys."""
+        self._run(w, bucket, self._permutations(keys, bucket), out)
 
     def round(self, state: SolverState,
               key: threefry.Key) -> SolverState:

@@ -20,7 +20,12 @@ the same pass with S = I, a fixed h, m samples drawn with replacement
 k of the bucket with key kb draws from ``take(split(kb, Kb), k)``: its
 permutation or its samples are the reference's, bit for bit.
 
-Not ported yet: the streamed, cohort and virtual options.
+The scale paths (``client_chunk``, ``cohort``, ``virtual_data``; see
+:mod:`repro_torch.core.engine`) run the keyed chunk pass, which takes its
+clients' keys and forms their S_k and h_k from their own rows, as the
+reference's ``_client_pass_keyed`` does: only the plain round caches S_k
+for every client (K·d floats), and the step's scratch is sized to what
+one pass gets (a chunk, a cohort or the largest bucket).
 """
 from __future__ import annotations
 
@@ -53,6 +58,15 @@ class FSVRGConfig:
     participation: float = 1.0
     # "dense" (plain tensor code) | "pallas" (the fused_aggregate kernel)
     aggregator: str = "dense"
+    # None -> form each bucket's (Kb, d) delta stack; an int streams the
+    # client axis in chunks of this size (see EngineConfig.client_chunk)
+    client_chunk: Optional[int] = None
+    # under partial participation, compute only the sampled cohort (see
+    # EngineConfig.cohort and engine.cohort_capacity)
+    cohort: Optional[int] = None
+    # rows regenerated on demand from a build_virtual_problem layout (see
+    # EngineConfig.virtual_data); set by itself for a virtual problem
+    virtual_data: bool = False
     # replace the Bernoulli draw with a repro_torch.fleet participation
     # model (trace-driven availability and stragglers)
     participation_model: Optional[Any] = None
@@ -140,24 +154,6 @@ class FSVRG(FederatedSolver):
         self.phi = scaling.global_feature_counts(flat) / flat.n
         self.a_diag = (scaling.aggregation_diag(problem) if cfg.use_A
                        else torch.ones((d,), device=dev))
-        # S_k depends only on the data, so it is cached once per solver
-        # (K·d floats) instead of being recomputed every round as in the
-        # reference; without use_S one shared row of ones stands for it
-        ones = torch.ones((d,), device=dev)
-        self.s_diags = [scaling.s_k_diag(self.phi, b.idx, b.val, b.n_k)
-                        if cfg.use_S and not plain else ones
-                        for b in problem.buckets]
-        # h_k = h / n_k as a tensor division (torch computes `h / tensor` as
-        # reciprocal(tensor) · h, which rounds differently)
-        self.h_k = []
-        for b in problem.buckets:
-            h = torch.full((b.num_clients,), float(cfg.stepsize), device=dev)
-            if cfg.use_local_stepsize and not plain:
-                h = h / b.n_k.to(torch.float32).clamp(min=1.0)
-            self.h_k.append(h)
-        # the step's scratch, shared by every bucket's pass
-        self._diff = torch.empty(
-            (max(b.num_clients for b in problem.buckets), d), device=dev)
         self.engine = RoundEngine(
             problem,
             EngineConfig(
@@ -166,6 +162,9 @@ class FSVRG(FederatedSolver):
                            else "nk"),
                 server_scaling="diag" if cfg.use_A and not plain else "none",
                 aggregator=cfg.aggregator,
+                client_chunk=cfg.client_chunk,
+                cohort=cfg.cohort,
+                virtual_data=cfg.virtual_data or problem.virtual is not None,
                 aggregator_guard=cfg.aggregator_guard,
                 guard_clip_norm=cfg.guard_clip_norm,
                 guard_trim=cfg.guard_trim,
@@ -174,9 +173,37 @@ class FSVRG(FederatedSolver):
             participation_model=cfg.participation_model,
             fault_model=cfg.fault_model,
         )
+        # the plain round caches S_k (K·d floats) and h_k once per solver
+        # instead of recomputing them every round as the reference does;
+        # the keyed chunk pass forms them from each chunk's rows
+        self.s_diags = self.h_k = None
+        if self.engine.round_path() == "plain":
+            self.s_diags = [self._s_diag(b) for b in problem.buckets]
+            self.h_k = [self._h(b) for b in problem.buckets]
+        # the step's scratch, shared by every pass
+        self._scratch("_diff", self.engine.pass_rows())
         # the full gradient is the round's own communication (Alg. 4 line 3)
         prelude = lambda w: (self.problem.flat.grad(w),)
-        self._round_fast = self.engine.compile(self._pass, prelude=prelude)
+        self._round_fast = self.engine.compile(
+            self._pass, prelude=prelude, chunk_pass=self._chunk_pass)
+
+    def _s_diag(self, bucket: ClientBucket) -> torch.Tensor:
+        """S_k of the bucket's clients, (Kb, d) from their rows; without
+        use_S (or under Algorithm 3) one shared row of ones."""
+        if self.cfg.use_S and not self.cfg.naive:
+            return scaling.s_k_diag(self.phi, bucket.idx, bucket.val,
+                                    bucket.n_k)
+        return torch.ones((self.problem.d,), device=self.problem.device)
+
+    def _h(self, bucket: ClientBucket) -> torch.Tensor:
+        """h_k = h / n_k as a tensor division (torch computes `h / tensor`
+        as reciprocal(tensor) · h, which rounds differently); a fixed h
+        without use_local_stepsize or under Algorithm 3."""
+        h = torch.full((bucket.num_clients,), float(self.cfg.stepsize),
+                       device=self.problem.device)
+        if self.cfg.use_local_stepsize and not self.cfg.naive:
+            h = h / bucket.n_k.to(torch.float32).clamp(min=1.0)
+        return h
 
     def permutations(self, kb: threefry.Key, bucket_index: int,
                      bucket: ClientBucket) -> torch.Tensor:
@@ -191,21 +218,36 @@ class FSVRG(FederatedSolver):
         """Algorithm 3's m uniform samples with replacement from each
         client's n_k rows (Alg. 3 line 7): ``randint(take(split(kb, Kb),
         k), (m,), 0, max(n_k, 1))`` for client k: (Kb, m) int64."""
+        return self._samples(
+            self.engine.client_keys(kb, bucket.num_clients), bucket)
+
+    def _samples(self, keys: threefry.Key,
+                 bucket: ClientBucket) -> torch.Tensor:
         m = self.cfg.naive_steps if self.cfg.naive_steps > 0 else bucket.m_pad
-        return threefry.randint(
-            self.engine.client_keys(kb, bucket.num_clients), (m,), 0,
-            bucket.n_k.clamp(min=1))
+        return threefry.randint(keys, (m,), 0, bucket.n_k.clamp(min=1))
+
+    def _run(self, w, full_grad, bucket, s_diag, h_k, rows, out):
+        valid = None
+        if self.cfg.naive:                                  # every step
+            valid = torch.ones(rows.shape, device=w.device)
+        client_pass_keyed(w, full_grad, bucket, self.problem.flat.lam,
+                          s_diag, h_k, rows, out,
+                          diff=self._scratch("_diff", bucket.num_clients),
+                          valid=valid)
 
     def _pass(self, w, bi, bucket, kb, out, full_grad):
-        valid = None
-        if self.cfg.naive:
-            rows = self.samples(kb, bi, bucket)
-            valid = torch.ones(rows.shape, device=w.device)  # every step
-        else:
-            rows = self.permutations(kb, bi, bucket)
-        client_pass_keyed(w, full_grad, bucket, self.problem.flat.lam,
-                          self.s_diags[bi], self.h_k[bi], rows, out,
-                          diff=self._diff, valid=valid)
+        rows = (self.samples(kb, bi, bucket) if self.cfg.naive
+                else self.permutations(kb, bi, bucket))
+        self._run(w, full_grad, bucket, self.s_diags[bi], self.h_k[bi],
+                  rows, out)
+
+    def _chunk_pass(self, w, bi, bucket, keys, out, full_grad):
+        """The keyed chunk pass: a chunk, a gathered cohort or a
+        regenerated bucket, with its clients' own keys."""
+        rows = (self._samples(keys, bucket) if self.cfg.naive
+                else threefry.permutation(keys, bucket.m_pad))
+        self._run(w, full_grad, bucket, self._s_diag(bucket),
+                  self._h(bucket), rows, out)
 
     def round(self, state: SolverState,
               key: threefry.Key) -> SolverState:

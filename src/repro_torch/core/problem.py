@@ -14,7 +14,7 @@ same order.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,13 +84,154 @@ class ClientBucket:
 
 
 @dataclasses.dataclass(frozen=True)
+class VirtualBucket:
+    """A bucket of *virtual* clients: who they are and how many train rows
+    they have, but no rows — those regenerate on demand from the client
+    ids (:class:`VirtualLayout`).  It has :class:`ClientBucket`'s
+    ``num_clients``, ``m_pad`` and ``n_k``, so the engine's bookkeeping
+    (weights, offsets, masks) does not depend on the layout."""
+
+    client_ids: torch.Tensor    # (Kb,) int64 global client ids
+    n_k: torch.Tensor           # (Kb,) int64 train sizes
+    m_pad: int
+
+    @property
+    def num_clients(self) -> int:
+        return int(self.n_k.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class VirtualLayout:
+    """From virtual buckets to the rows the client passes eat: wraps the
+    :class:`~repro_torch.data.synthetic.VirtualDataset`, so the engine can
+    regenerate one chunk's (or one gathered cohort's) rows right before
+    its pass."""
+
+    vds: Any    # repro_torch.data.synthetic.VirtualDataset
+
+    def materialize(self, client_ids: torch.Tensor, n_k: torch.Tensor,
+                    m_pad: int) -> ClientBucket:
+        idx, val, y = self.vds.client_rows_padded(client_ids, n_k, m_pad)
+        return ClientBucket(idx, val, y, n_k.to(idx.device, torch.int64))
+
+    def realize(self, vb: VirtualBucket) -> ClientBucket:
+        return self.materialize(vb.client_ids, vb.n_k, vb.m_pad)
+
+
+class VirtualFlat:
+    """The flat view over virtual data, streamed in client chunks.
+
+    It gives what the solvers and :mod:`~repro_torch.core.scaling` read of
+    a :class:`LogRegProblem` — ``lam``, ``n``, ``num_features``, ``grad``,
+    ``loss``, ``error_rate`` — and the exact ``feature_counts`` and
+    ``omega``, each by regenerating ``eval_chunk`` clients at a time (one
+    (chunk, m_pad, nnz) block of rows live, never the (n, nnz) arrays).
+    Per-row quantities use :class:`LogRegProblem`'s expressions
+    (``g_scalar = −y·σ(−z)/n`` before the scatter), so only the summation
+    order across rows differs from the materialized view; the counts are
+    integer sums and exact."""
+
+    def __init__(self, layout: VirtualLayout, buckets: List[VirtualBucket],
+                 lam: float, num_features: int, n: int,
+                 eval_chunk: int = 256):
+        self.layout = layout
+        self.buckets = buckets
+        self.lam = float(lam)
+        self.num_features = int(num_features)
+        self._n = int(n)
+        self.eval_chunk = int(eval_chunk)
+
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.vds.device
+
+    def margins(self, w: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(
+            "VirtualFlat has no materialized row axis; use loss/grad/"
+            "error_rate, which stream over regenerated client chunks.")
+
+    def _chunks(self):
+        """Each bucket's clients, ``eval_chunk`` at a time, regenerated:
+        (rows, valid-row mask (C, m_pad) f32)."""
+        for vb in self.buckets:
+            chunk = min(self.eval_chunk, vb.num_clients)
+            for c0 in range(0, vb.num_clients, chunk):
+                nk = vb.n_k[c0:c0 + chunk]
+                cb = self.layout.materialize(vb.client_ids[c0:c0 + chunk],
+                                             nk, vb.m_pad)
+                mask = (torch.arange(vb.m_pad, device=nk.device)[None, :]
+                        < nk[:, None]).to(torch.float32)
+                yield cb, mask
+
+    def _stats(self, w: torch.Tensor):
+        g = torch.zeros((self.num_features,), dtype=w.dtype,
+                        device=w.device)
+        ls = torch.zeros((), dtype=torch.float32, device=w.device)
+        err = torch.zeros((), dtype=torch.float32, device=w.device)
+        for cb, mask in self._chunks():
+            margins = (cb.val * w[cb.idx]).sum(dim=-1)
+            z = cb.y * margins
+            g_scalar = -cb.y * torch.sigmoid(-z) / self._n
+            g.index_add_(0, cb.idx.reshape(-1),
+                         ((g_scalar * mask)[..., None] * cb.val).reshape(-1))
+            ls = ls + (F.softplus(-z) * mask).sum()
+            preds = torch.where(margins >= 0, 1.0, -1.0)
+            err = err + ((preds != cb.y).to(torch.float32) * mask).sum()
+        return g, ls, err
+
+    def grad(self, w: torch.Tensor) -> torch.Tensor:
+        return self._stats(w)[0] + self.lam * w
+
+    def loss(self, w: torch.Tensor) -> torch.Tensor:
+        return (self._stats(w)[1] / self._n
+                + 0.5 * self.lam * torch.dot(w, w))
+
+    def error_rate(self, w: torch.Tensor) -> torch.Tensor:
+        return self._stats(w)[2] / self._n
+
+    def _counts(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        d = self.num_features
+        cnt = torch.zeros((d,), dtype=torch.float32, device=self.device)
+        om = torch.zeros((d,), dtype=torch.float32, device=self.device)
+        for cb, _ in self._chunks():
+            nz = (cb.val != 0).to(torch.float32)
+            cnt.index_add_(0, cb.idx.reshape(-1), nz.reshape(-1))
+            C = cb.num_clients
+            pres = torch.zeros((C, d), dtype=torch.float32,
+                               device=self.device).scatter_add_(
+                1, cb.idx.reshape(C, -1), nz.reshape(C, -1))
+            om += (pres > 0).sum(dim=0).to(torch.float32)
+        return cnt, om
+
+    def feature_counts(self) -> torch.Tensor:
+        """#examples with feature j: ``scaling.global_feature_counts`` of
+        the materialized view, streamed (exact)."""
+        return self._counts()[0]
+
+    def omega(self) -> torch.Tensor:
+        """#clients with feature j: ``scaling.omega`` of the materialized
+        view, streamed (exact)."""
+        return self._counts()[1]
+
+
+@dataclasses.dataclass(frozen=True)
 class FederatedLogReg:
-    """The problem as the algorithms see it: flat view + client buckets."""
+    """The problem as the algorithms see it: flat view + client buckets.
+
+    With ``virtual`` set (:func:`build_virtual_problem`), ``flat`` is a
+    :class:`VirtualFlat` and ``buckets`` hold :class:`VirtualBucket` specs;
+    the engine regenerates rows through ``virtual`` under
+    ``EngineConfig.virtual_data``."""
 
     flat: LogRegProblem
     buckets: List[ClientBucket]
     client_weights: torch.Tensor    # (K,) n_k / n, bucket-concatenated order
     num_clients: int
+    virtual: Optional[VirtualLayout] = None
 
     @property
     def d(self) -> int:
@@ -190,6 +331,42 @@ def build_problem(ds, lam: Optional[float] = None, *,
             np.concatenate(weights).astype(np.float32), device=dev),
         num_clients=int(ds.num_clients),
     )
+
+
+def build_virtual_problem(vds, lam: Optional[float] = None, *,
+                          max_bucket_rows: Optional[int] = None,
+                          eval_chunk: int = 256) -> FederatedLogReg:
+    """vds: a ``repro_torch.data.VirtualDataset``; the problem lives on its
+    device.
+
+    The virtual twin of :func:`build_problem`: the same grouping
+    (:func:`_level_groups` over the train sizes), the same weights and the
+    same default λ, but the buckets carry only (client ids, n_k, m_pad)
+    and the flat view streams (:class:`VirtualFlat`), so the build is
+    O(K) whatever Σ n_k.  Rounds on it need
+    ``EngineConfig(virtual_data=True)``."""
+    dev = vds.device
+    sizes = np.asarray(vds.client_sizes, np.int64)
+    n = int(sizes.sum())
+    lam = (1.0 / n) if lam is None else lam
+    layout = VirtualLayout(vds)
+    buckets: List[VirtualBucket] = []
+    weights: List[np.ndarray] = []
+    for members in _level_groups(sizes, max_bucket_rows):
+        mem = np.asarray(members, np.int64)
+        buckets.append(VirtualBucket(
+            client_ids=torch.as_tensor(mem, device=dev),
+            n_k=torch.as_tensor(sizes[mem], device=dev),
+            m_pad=int(sizes[mem].max())))
+        weights.append(sizes[mem] / n)
+    flat = VirtualFlat(layout, buckets, lam=float(lam),
+                       num_features=vds.num_features, n=n,
+                       eval_chunk=eval_chunk)
+    return FederatedLogReg(
+        flat=flat, buckets=buckets,
+        client_weights=torch.as_tensor(
+            np.concatenate(weights).astype(np.float32), device=dev),
+        num_clients=int(vds.num_clients), virtual=layout)
 
 
 def build_dense_problem(Xs, ys, lam: float, *,

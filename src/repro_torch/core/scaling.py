@@ -10,15 +10,23 @@ the port of the reference's ``core/scaling.py``:
 
 Counts are integer sums in float32, so they match the reference exactly.
 :func:`client_feature_counts` and :func:`s_k_diag` take one client's
-(m, nnz) rows or a whole bucket's (Kb, m, nnz) rows.
+(m, nnz) rows or a whole bucket's (Kb, m, nnz) rows — materialized or
+regenerated, so S_k of a chunk of virtual clients is formed the same way.
+On a virtual problem n^j and ω^j stream over regenerated client chunks
+(:class:`~repro_torch.core.problem.VirtualFlat`), the same integer sums.
 """
 from __future__ import annotations
 
 import torch
 
+#: clients a block when ω counts a materialized bucket
+_OMEGA_CHUNK = 1024
+
 
 def global_feature_counts(flat) -> torch.Tensor:
-    """n^j for a LogRegProblem."""
+    """n^j for a LogRegProblem, or streamed by a VirtualFlat."""
+    if hasattr(flat, "feature_counts"):
+        return flat.feature_counts()
     present = (flat.val != 0).to(torch.float32)
     return torch.zeros((flat.num_features,), dtype=torch.float32,
                        device=flat.device).index_add_(
@@ -40,11 +48,17 @@ def client_feature_counts(idx: torch.Tensor, val: torch.Tensor,
 
 def omega(problem) -> torch.Tensor:
     """ω^j — #clients whose data touches coordinate j."""
+    if getattr(problem, "virtual", None) is not None:
+        return problem.flat.omega()
     d = problem.d
     om = torch.zeros((d,), dtype=torch.float32, device=problem.device)
     for b in problem.buckets:
-        cc = client_feature_counts(b.idx, b.val, d)
-        om = om + (cc > 0).sum(dim=0).to(torch.float32)
+        # _OMEGA_CHUNK clients at a time: a (chunk, d) block of counts, not
+        # the bucket's (Kb, d); integer sums, so the result is the same
+        for c0 in range(0, b.num_clients, _OMEGA_CHUNK):
+            cc = client_feature_counts(b.idx[c0:c0 + _OMEGA_CHUNK],
+                                       b.val[c0:c0 + _OMEGA_CHUNK], d)
+            om = om + (cc > 0).sum(dim=0).to(torch.float32)
     return om
 
 

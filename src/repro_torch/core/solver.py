@@ -61,6 +61,21 @@ class FederatedSolver:
             raise ValueError(f"the problem lives on {problem.device}, the "
                              f"solver was asked for {self.device}")
 
+    def _scratch(self, name: str, rows: int, *,
+                 zeros: bool = False) -> torch.Tensor:
+        """A (≥ rows, d) scratch of the client passes kept on the solver
+        under ``name``, grown when a pass needs more rows (the cohort
+        round's overflow fallback); ``zeros`` makes a new one all zeros.
+        A solver sizes it once to :meth:`RoundEngine.pass_rows`: the
+        largest bucket on the plain round, a chunk or a cohort on the
+        scale paths."""
+        buf = getattr(self, name, None)
+        if buf is None or buf.shape[0] < rows:
+            make = torch.zeros if zeros else torch.empty
+            buf = make((rows, self.problem.d), device=self.problem.device)
+            setattr(self, name, buf)
+        return buf
+
     def init(self, w0: Optional[torch.Tensor] = None) -> SolverState:
         """Fresh solver state at iterate ``w0`` (zeros by default)."""
         if w0 is None:

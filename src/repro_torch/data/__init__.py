@@ -1,6 +1,10 @@
 """Synthetic federated data (see :mod:`.synthetic`)."""
-from repro_torch.data.synthetic import (DataSpec, FederatedDataset, data_spec,
-                                        generate, train_split_sizes)
+from repro_torch.data.synthetic import (DataSpec, FederatedDataset,
+                                        VirtualDataset, data_spec, generate,
+                                        make_client_batch,
+                                        materialize_dataset,
+                                        train_split_sizes, virtual_dataset)
 
-__all__ = ["DataSpec", "FederatedDataset", "data_spec", "generate",
-           "train_split_sizes"]
+__all__ = ["DataSpec", "FederatedDataset", "VirtualDataset", "data_spec",
+           "generate", "make_client_batch", "materialize_dataset",
+           "train_split_sizes", "virtual_dataset"]

@@ -28,14 +28,22 @@ The uniforms are the reference's bits.  The logs, the power and the
 sigmoid are :mod:`repro_torch.utils.floatmath`'s, the same bits on the CPU
 and on the card, and within an ulp or two of XLA's, so the integer arrays
 equal the reference's except where a near tie of two Gumbel scores or a
-uniform within an ulp of an edge of the mixture falls the other way.  Not
-ported yet: ``VirtualDataset``, ``make_client_batch`` and
-``drifted_dataset``.
+uniform within an ulp of an edge of the mixture falls the other way.
+
+Because every draw is keyed by (client, row position), any client's rows
+regenerate on their own: :class:`VirtualDataset` is the O(K + d) spec
+(:func:`data_spec`'s draws plus the base key ``PRNGKey(seed)``) and
+:meth:`VirtualDataset.client_rows_padded` regenerates a batch of clients'
+rows into the round engine's padded bucket layout, bit-equal to the same
+rows of :func:`generate` — which is ``materialize_dataset(virtual_dataset(
+cfg, seed))``, as in the reference.  Not ported yet: ``drifted_dataset``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 
@@ -237,55 +245,162 @@ def _rows(rows_key: threefry.Key, pos: torch.Tensor, vocab, cdf, bias,
     return idx, val, y
 
 
+@dataclasses.dataclass(frozen=True)
+class VirtualDataset:
+    """The O(K + d) spec from which any client's rows regenerate on demand:
+    the reference's ``VirtualDataset``, i.e. :func:`data_spec`'s draws plus
+    the base key ``PRNGKey(seed)``, with the d-sized tables as tensors on
+    one device (where every regenerated row is drawn).  ``client_sizes``
+    are the train sizes; a client's test rows are the chronological tail
+    ``[client_sizes[k], full_sizes[k])``."""
+
+    base_key: threefry.Key     # PRNGKey(seed), words on the device
+    full_sizes: np.ndarray     # (K,) int64, train + test rows per client
+    client_sizes: np.ndarray   # (K,) int32, train rows per client
+    w_true: torch.Tensor       # (d,) f32 ground-truth weights
+    log_pop: torch.Tensor      # (d-2,) f32 log zipf popularity
+    global_cdf: torch.Tensor   # (d-2,) f32 zipf CDF
+    num_features: int
+    nnz: int
+    vocab_size: int
+    n_own: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.w_true.device
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.client_sizes)
+
+    @property
+    def num_examples(self) -> int:
+        """Train examples (``FederatedDataset.num_examples``)."""
+        return int(self.client_sizes.sum())
+
+    def params(self, client_ids: torch.Tensor):
+        """(vocab, cdf, bias, rows-key words) of a batch of clients, in
+        blocks of ``_PARAM_BLOCK`` (the (block, d) Gumbel scores bound the
+        memory)."""
+        parts = [client_params(self.base_key,
+                               client_ids[k0:k0 + _PARAM_BLOCK],
+                               self.log_pop, self.vocab_size)
+                 for k0 in range(0, client_ids.shape[0], _PARAM_BLOCK)]
+        return tuple(torch.cat(p) for p in zip(
+            *[(v, c, b, rk[0], rk[1]) for v, c, b, rk in parts]))
+
+    def rows(self, params, client: torch.Tensor, pos: torch.Tensor):
+        """Rows ``pos[i]`` of the clients at ``params`` index ``client[i]``
+        (``params`` from :meth:`params`), in blocks of ``_ROW_BLOCK``:
+        (idx (m, nnz + 2) int64, val f32, y (m,) f32)."""
+        vocab, cdf, bias, rk0, rk1 = params
+        n, dev = pos.shape[0], pos.device
+        width = self.nnz + 2
+        idx = torch.empty((n, width), dtype=torch.int64, device=dev)
+        val = torch.empty((n, width), dtype=torch.float32, device=dev)
+        y = torch.empty((n,), dtype=torch.float32, device=dev)
+        for i0 in range(0, n, _ROW_BLOCK):
+            i1 = min(i0 + _ROW_BLOCK, n)
+            c = client[i0:i1]
+            idx[i0:i1], val[i0:i1], y[i0:i1] = _rows(
+                (rk0[c], rk1[c]), pos[i0:i1], vocab[c], cdf[c], bias[c],
+                self.w_true, self.global_cdf, self.nnz, self.n_own)
+        return idx, val, y
+
+    def client_rows_padded(self, client_ids: torch.Tensor,
+                           n_k: torch.Tensor, m_pad: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        """A batch of C clients' first ``n_k`` rows in the engine's padded
+        bucket layout: (C, m_pad, nnz + 2) idx int64 and val f32, (C,
+        m_pad) y f32; positions >= n_k hold the padding (idx 0, val 0,
+        y 1).  Only the C·n_k real rows are drawn: a row's draws depend on
+        its (client, position) alone, so they are the same bits as in
+        :func:`generate`."""
+        dev = self.device
+        cids = client_ids.to(dev, torch.int64)
+        nk = n_k.to(dev, torch.int64)
+        C, width = cids.shape[0], self.nnz + 2
+        idx = torch.zeros((C, m_pad, width), dtype=torch.int64, device=dev)
+        val = torch.zeros((C, m_pad, width), dtype=torch.float32, device=dev)
+        y = torch.ones((C, m_pad), dtype=torch.float32, device=dev)
+        keep = (torch.arange(m_pad, device=dev)[None, :] < nk[:, None])
+        client, pos = keep.nonzero(as_tuple=True)
+        if client.numel():
+            live = (nk > 0).nonzero().flatten()
+            slot = torch.full((C,), -1, dtype=torch.int64, device=dev)
+            slot[live] = torch.arange(live.shape[0], device=dev)
+            idx[client, pos], val[client, pos], y[client, pos] = self.rows(
+                self.params(cids[live]), slot[client], pos)
+        return idx, val, y
+
+
+def virtual_dataset(cfg, seed: int = 0, *,
+                    device: DeviceLike = None) -> VirtualDataset:
+    """The virtual twin of :func:`generate`: the same cfg and seed give the
+    same data, in O(K + d) memory on ``device`` (default: the CUDA card) —
+    :func:`data_spec`'s numpy draws and the base key ``PRNGKey(seed)``."""
+    dev = resolve_device(device)
+    spec = data_spec(cfg, seed)
+    return VirtualDataset(
+        base_key=threefry.as_key(threefry.PRNGKey(seed), dev),
+        full_sizes=spec.full_sizes, client_sizes=spec.client_sizes,
+        w_true=torch.as_tensor(spec.w_true, device=dev),
+        log_pop=torch.as_tensor(spec.log_pop, device=dev),
+        global_cdf=torch.as_tensor(spec.global_cdf, device=dev),
+        num_features=spec.num_features, nnz=spec.nnz,
+        vocab_size=spec.vocab_size, n_own=spec.n_own)
+
+
+def make_client_batch(vds: VirtualDataset, k: int,
+                      num_rows: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Client ``k``'s first ``num_rows`` chronological rows (default: all
+    of them, train + test) regenerated from its key on the dataset's
+    device — bit-equal to client ``k``'s rows of :func:`generate` on the
+    same config and seed."""
+    if num_rows is None:
+        num_rows = int(vds.full_sizes[k])
+    dev = vds.device
+    params = vds.params(torch.tensor([int(k)], device=dev))
+    return vds.rows(params, torch.zeros(num_rows, dtype=torch.int64,
+                                        device=dev),
+                    torch.arange(num_rows, device=dev))
+
+
 def generate(cfg, seed: int = 0, *,
              device: DeviceLike = None) -> FederatedDataset:
     """cfg: a ``repro_torch.configs.LogRegConfig`` (possibly ``.scaled()``).
 
     The reference's ``generate(cfg, seed)``, drawn on ``device`` (default:
-    the CUDA card): :func:`data_spec`'s numpy draws, then the keyed sampler
-    from ``PRNGKey(seed)`` — client parameters in blocks of
-    ``_PARAM_BLOCK`` clients, rows in blocks of ``_ROW_BLOCK``."""
-    dev = resolve_device(device)
-    spec = data_spec(cfg, seed)
-    base = threefry.as_key(threefry.PRNGKey(seed), dev)
-    K = len(spec.full_sizes)
-    log_pop = torch.as_tensor(spec.log_pop, device=dev)
-    gcdf = torch.as_tensor(spec.global_cdf, device=dev)
-    w_true = torch.as_tensor(spec.w_true, device=dev)
+    the CUDA card): ``materialize_dataset(virtual_dataset(cfg, seed))``."""
+    return materialize_dataset(virtual_dataset(cfg, seed, device=device))
 
-    parts = [client_params(base, torch.arange(k0, min(k0 + _PARAM_BLOCK, K),
-                                              device=dev),
-                           log_pop, spec.vocab_size)
-             for k0 in range(0, K, _PARAM_BLOCK)]
-    vocab, cdf, bias, rows_k0, rows_k1 = (
-        torch.cat(p) for p in zip(*[(v, c, b, rk[0], rk[1])
-                                    for v, c, b, rk in parts]))
 
-    sizes = torch.as_tensor(spec.full_sizes, dtype=torch.int64, device=dev)
-    n = int(spec.full_sizes.sum())
+def materialize_dataset(vds: VirtualDataset) -> FederatedDataset:
+    """Every client's rows from a virtual spec, on its device: client
+    parameters in blocks of ``_PARAM_BLOCK`` clients, rows in blocks of
+    ``_ROW_BLOCK`` — the keyed draws make the batching invisible — then the
+    chronological 75/25 split (:func:`train_split_sizes`)."""
+    dev = vds.device
+    K = vds.num_clients
+    params = vds.params(torch.arange(K, device=dev))
+    sizes = torch.as_tensor(vds.full_sizes, dtype=torch.int64, device=dev)
+    n = int(vds.full_sizes.sum())
     client_of = torch.repeat_interleave(
         torch.arange(K, dtype=torch.int64, device=dev), sizes)
     starts = torch.cumsum(sizes, 0) - sizes
     pos = torch.arange(n, device=dev) - starts[client_of]
-    width = spec.nnz + 2
-    idx = torch.empty((n, width), dtype=torch.int64, device=dev)
-    val = torch.empty((n, width), dtype=torch.float32, device=dev)
-    y = torch.empty((n,), dtype=torch.float32, device=dev)
-    for i0 in range(0, n, _ROW_BLOCK):
-        i1 = min(i0 + _ROW_BLOCK, n)
-        c = client_of[i0:i1]
-        idx[i0:i1], val[i0:i1], y[i0:i1] = _rows(
-            (rows_k0[c], rows_k1[c]), pos[i0:i1], vocab[c], cdf[c], bias[c],
-            w_true, gcdf, spec.nnz, spec.n_own)
+    idx, val, y = vds.rows(params, client_of, pos)
 
     # chronological split: a client's first client_sizes[k] rows train
-    tr_sizes = torch.as_tensor(spec.client_sizes, dtype=torch.int64,
+    tr_sizes = torch.as_tensor(vds.client_sizes, dtype=torch.int64,
                                device=dev)
     tr = pos < tr_sizes[client_of]
     te = ~tr
     return FederatedDataset(
         idx=idx[tr], val=val[tr], y=y[tr], client_of=client_of[tr],
-        client_sizes=spec.client_sizes, num_features=spec.num_features,
+        client_sizes=vds.client_sizes, num_features=vds.num_features,
         test_idx=idx[te], test_val=val[te], test_y=y[te],
         test_client_of=client_of[te],
     )

@@ -26,6 +26,8 @@ Scalar = Union[float, torch.Tensor]
 #: kernel name -> the CUDA wrapper that carries its ``launches`` count
 KERNELS = {
     "fused_aggregate": _sa.fused_aggregate,
+    "fused_accumulate": _sa.fused_accumulate,
+    "fused_epilogue": _sa.fused_epilogue,
     "fsvrg_update": _fu.fsvrg_update,
     "fedavg_update": _fa.fedavg_update,
     "dane_update": _du.dane_update,

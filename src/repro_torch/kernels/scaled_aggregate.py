@@ -6,9 +6,11 @@
 
 :func:`fused_aggregate` launches the kernel on CUDA tensors and counts its
 launches in ``fused_aggregate.launches``.  :func:`fused_accumulate` is the
-same kernel with an identity epilogue, :func:`fused_epilogue` the
-epilogue's own one-launch entry, and :func:`scaled_aggregate` the
-iterate-consuming compatibility entry; each counts its launch there too.
+same kernel with an identity epilogue (the streamed and cohort rounds'
+per-chunk entry) and :func:`fused_epilogue` the epilogue's own one-launch
+entry (their rounds' last launch); each counts in its own ``launches``.
+:func:`scaled_aggregate`, the iterate-consuming compatibility entry, counts
+as the ``fused_aggregate`` launch it makes.
 Callers go through :mod:`repro_torch.kernels.ops`, which sends CPU tensors
 to the plain versions in ``ref.py``.
 """
@@ -129,7 +131,6 @@ def _aggregate(w_t: torch.Tensor, deltas: torch.Tensor, weights: torch.Tensor,
                      out.data_ptr(), K, d, p.strips, p.splits, p.rows,
                      _args.stream(deltas))
     _build.check(err, "fused_aggregate")
-    fused_aggregate.launches += 1
     return out
 
 
@@ -140,7 +141,9 @@ def fused_aggregate(w_t: torch.Tensor, deltas: torch.Tensor,
     weights: (K,) f32; scale: a float or a 0-d f32 tensor on the device.
     Returns a new (d,) f32 tensor."""
     _require(a_diag is not None, "a_diag must be a tensor")
-    return _aggregate(w_t, deltas, weights, a_diag, scale)
+    out = _aggregate(w_t, deltas, weights, a_diag, scale)
+    fused_aggregate.launches += 1
+    return out
 
 
 fused_aggregate.launches = 0
@@ -149,7 +152,12 @@ fused_aggregate.launches = 0
 def fused_accumulate(acc: torch.Tensor, deltas: torch.Tensor,
                      weights: torch.Tensor) -> torch.Tensor:
     """acc + Σ_k weights_k δ_k: the kernel with an identity epilogue."""
-    return _aggregate(acc, deltas, weights, None, 1.0)
+    out = _aggregate(acc, deltas, weights, None, 1.0)
+    fused_accumulate.launches += 1
+    return out
+
+
+fused_accumulate.launches = 0
 
 
 def fused_epilogue(w_t: torch.Tensor, acc: torch.Tensor, a_diag: torch.Tensor,
@@ -169,8 +177,11 @@ def fused_epilogue(w_t: torch.Tensor, acc: torch.Tensor, a_diag: torch.Tensor,
                      scale_ptr, scale_value, out.data_ptr(), d,
                      _args.stream(acc))
     _build.check(err, "fused_epilogue")
-    fused_aggregate.launches += 1
+    fused_epilogue.launches += 1
     return out
+
+
+fused_epilogue.launches = 0
 
 
 def scaled_aggregate(w_t: torch.Tensor, w_ks: torch.Tensor,

@@ -95,11 +95,59 @@ def test_fused_aggregate_is_bit_equal_from_call_to_call(cuda, K, d, dtype):
     assert torch.equal(ops.fused_aggregate(wt, deltas, wts, a, s), first)
     assert torch.equal(ops.fused_accumulate(acc, deltas, wts),
                        ops.fused_accumulate(acc, deltas, wts))
-    before = ops.launch_counts()["fused_aggregate"]
+    before = ops.launch_counts()
     out = ops.fused_epilogue(wt, acc, a, s)
-    assert ops.launch_counts()["fused_aggregate"] == before + 1
+    after = ops.launch_counts()
+    assert after["fused_epilogue"] == before["fused_epilogue"] + 1
+    assert after["fused_aggregate"] == before["fused_aggregate"]
     torch.testing.assert_close(out, ref.fused_epilogue_ref(wt, acc, a, s),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("K,d", [(1, 20_002), (1_024, 20_002),
+                                 (784, 20_002), (1, 999)])
+def test_fused_accumulate_at_the_streamed_chunk_shapes(cuda, K, d):
+    """The streamed round's per-chunk entry at its shapes — one client, a
+    full chunk of 1,024 at the §4 width, the last chunk of a bucket
+    (10,000 − 9·1,024 = 784 clients) — and the same last chunk padded to
+    1,024 with zero-weight rows of large finite values, which add nothing;
+    each call counts one fused_accumulate launch and no fused_aggregate."""
+    g = _gen(cuda, 11)
+    acc = torch.randn(d, device=cuda, generator=g)
+    deltas = torch.randn((K, d), device=cuda, generator=g) * 0.01
+    wts = torch.rand(K, device=cuda, generator=g) / K
+    before = ops.launch_counts()
+    out = ops.fused_accumulate(acc, deltas, wts)
+    after = ops.launch_counts()
+    assert after["fused_accumulate"] == before["fused_accumulate"] + 1
+    assert after["fused_aggregate"] == before["fused_aggregate"]
+    torch.testing.assert_close(out, ref.fused_accumulate_ref(acc, deltas,
+                                                             wts),
+                               rtol=1e-5, atol=1e-6)
+    if K < 1_024 and d == 20_002:
+        pad = 1_024 - K
+        padded = torch.cat([deltas, torch.full((pad, d), 3e4, device=cuda)])
+        pw = torch.cat([wts, torch.zeros(pad, device=cuda)])
+        torch.testing.assert_close(ops.fused_accumulate(acc, padded, pw), out,
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["trimmed_mean", "median"])
+def test_robust_aggregate_at_a_cohorts_shape(cuda, mode):
+    """The robust cohort round's stack: the buckets' gathered (cap, d)
+    blocks, here cap = 1,104 rows at d = 20,002 with m = 1,000 valid rows
+    (the pad slots are invalid)."""
+    g = _gen(cuda, 12)
+    cap, d, m = 1_104, 20_002, 1_000
+    wt = torch.randn(d, device=cuda, generator=g)
+    a = torch.rand(d, device=cuda, generator=g) * 3 + 1
+    deltas = torch.randn((cap, d), device=cuda, generator=g) * 0.01
+    valid = torch.arange(cap, device=cuda) < m
+    out = ops.robust_aggregate(wt, deltas, valid, a, 0.1, mode)
+    assert ra_kernel.robust_aggregate.last_m == m
+    torch.testing.assert_close(
+        out, ref.robust_aggregate_ref(wt, deltas, valid, a, 0.1, mode),
+        rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -366,6 +414,48 @@ def test_new_solvers_small_runs_on_the_card(cuda, name):
     assert counts[expected[0]] == expected[1]
     assert counts["cocoa_sdca_update"] == 0
     assert counts["fused_aggregate"] == 3
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("fedavg", dict(client_chunk=3)),
+    ("fsvrg", dict(participation=0.5, cohort=4)),
+    ("cocoa", dict(participation=0.5, cohort=2, client_chunk=2)),
+    ("fsvrg", dict(participation=0.5, cohort=3,
+                   aggregator_guard="trimmed_mean"))],
+    ids=["fedavg-streamed", "fsvrg-cohort", "cocoa-cohort-streamed",
+         "fsvrg-robust-cohort"])
+def test_scale_paths_small_runs_on_the_card(cuda, name, kw):
+    """Streamed and cohort rounds (each device drawing for itself from the
+    same seed) on the card and on the CPU agree to rtol 1e-4 of max |w|
+    over 3 rounds; on the card the weighted sum goes through
+    fused_accumulate (once a chunk or a cohort bucket) and one
+    fused_epilogue a round, never fused_aggregate, and the robust cohort
+    through one robust_aggregate a round."""
+    ds = generate(get_logreg_config().scaled(0.002), 0, device="cpu")
+    ws, counts = [], None
+    for dev in ("cpu", cuda):
+        prob = build_problem(ds, device=dev)
+        solver = make_solver(name, prob, device=dev, aggregator="pallas",
+                             **kw)
+        before = ops.launch_counts()
+        ws.append(Trainer(solver, rounds=3).fit().w.cpu())
+        after = ops.launch_counts()
+        counts = {k: after[k] - before[k] for k in after}
+    torch.testing.assert_close(ws[1], ws[0], rtol=1e-4,
+                               atol=1e-4 * float(ws[0].abs().max()))
+    assert counts["fused_aggregate"] == 0
+    if "aggregator_guard" in kw:
+        assert counts["robust_aggregate"] == 3
+        assert counts["fused_accumulate"] == counts["fused_epilogue"] == 0
+        return
+    assert counts["fused_epilogue"] == 3
+    if "cohort" not in kw:
+        chunk = kw["client_chunk"]
+        assert counts["fused_accumulate"] == 3 * sum(
+            -(-b.num_clients // min(chunk, b.num_clients))
+            for b in prob.buckets)
+    else:
+        assert counts["fused_accumulate"] >= 3 * len(prob.buckets)
 
 
 def _robust_inputs(dev, K, d, dtype, rate, seed=0):

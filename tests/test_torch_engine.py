@@ -1,11 +1,11 @@
 """The port's round engine against the reference's.
 
-The validation cases of ``tests/test_engine.py`` that involve only the four
-ported knobs (participation, weighting, server_scaling, aggregator) must
-raise the same exception with the same message, and ``aggregate`` given the
-same deltas and the same participation masks must agree with the
-reference's — masks zero weights, and the reweight scalar restores the
-expected mass.
+Every validation case of ``tests/test_engine.py`` (its 30 invalid
+configurations and 7 valid ones, the scale paths' knobs included) must
+raise the same exception with the same message in both packages, and
+``aggregate`` given the same deltas and the same participation masks must
+agree with the reference's — masks zero weights, and the reweight scalar
+restores the expected mass.
 """
 import jax
 import jax.numpy as jnp
@@ -21,7 +21,7 @@ from repro_torch.core import build_problem  # noqa: E402
 from repro_torch.core.engine import EngineConfig, RoundEngine  # noqa: E402
 from repro_torch.utils import threefry  # noqa: E402
 
-#: tests/test_engine.py's _INVALID_CONFIGS restricted to the ported knobs
+#: tests/test_engine.py's _INVALID_CONFIGS, all 30, in its order
 _INVALID = [
     (dict(weighting="bogus"), "weighting must be one of"),
     (dict(server_scaling="block"), "server_scaling must be one of"),
@@ -29,6 +29,35 @@ _INVALID = [
     (dict(participation=0.0), r"participation must be in \(0, 1\]"),
     (dict(participation=1.5), r"participation must be in \(0, 1\]"),
     (dict(participation=-0.25), r"participation must be in \(0, 1\]"),
+    # bool is a subclass of int: client_chunk=True must not mean chunk=1
+    (dict(client_chunk=True), "client_chunk must be a positive int"),
+    (dict(client_chunk=0), "client_chunk must be a positive int"),
+    (dict(client_chunk=-4), "client_chunk must be a positive int"),
+    (dict(client_chunk=2.5), "client_chunk must be a positive int"),
+    (dict(cohort=True), "cohort must be a positive int"),
+    (dict(cohort=0), "cohort must be a positive int"),
+    (dict(cohort=-1), "cohort must be a positive int"),
+    (dict(virtual_data=1), "virtual_data must be a bool"),
+    (dict(virtual_data=None), "virtual_data must be a bool"),
+    (dict(aggregator_guard="huber"), "aggregator_guard must be one of"),
+    # order-statistic guards need the materialized (K, d) stacks
+    (dict(aggregator_guard="trimmed_mean", client_chunk=8), "materialized"),
+    (dict(aggregator_guard="median", client_chunk=8), "materialized"),
+    (dict(aggregator_guard="trimmed_mean", virtual_data=True), "virtual"),
+    (dict(aggregator_guard="median", virtual_data=True), "virtual"),
+    # ... and replace the weighted sum dual methods rely on
+    (dict(aggregator_guard="trimmed_mean", weighting="sum"),
+     "exact plain sum"),
+    (dict(aggregator_guard="median", weighting="sum"), "exact plain sum"),
+    (dict(guard_trim=-0.1), r"guard_trim must be in \[0, 0.5\)"),
+    (dict(guard_trim=0.5), r"guard_trim must be in \[0, 0.5\)"),
+    (dict(guard_trim=0.7), r"guard_trim must be in \[0, 0.5\)"),
+    (dict(guard_clip_norm=0.0), "guard_clip_norm must be a positive number"),
+    (dict(guard_clip_norm=-1.0), "guard_clip_norm must be a positive number"),
+    (dict(guard_clip_norm=True), "guard_clip_norm must be a positive number"),
+    (dict(guard_clip_norm=1.0), "requires aggregator_guard='clip'"),
+    (dict(guard_clip_norm=1.0, aggregator_guard="median"),
+     "requires aggregator_guard='clip'"),
 ]
 
 
@@ -43,13 +72,42 @@ def test_engine_config_rejects_what_the_reference_rejects(kwargs, match):
     assert str(port_err.value) == str(ref_err.value)
 
 
+def test_the_matrix_is_the_references_whole():
+    from test_engine import _INVALID_CONFIGS
+    assert len(_INVALID) == len(_INVALID_CONFIGS) == 30
+    assert _INVALID == _INVALID_CONFIGS
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(), dict(participation=0.5), dict(weighting="sum"),
     dict(server_scaling="diag", aggregator="pallas", weighting="uniform"),
+    # tests/test_engine.py's valid combinations
+    dict(participation=0.5, cohort=4),
+    dict(client_chunk=8, virtual_data=True),
+    dict(aggregator_guard="trimmed_mean", guard_trim=0.2),
+    dict(aggregator_guard="median", participation=0.3),
+    dict(aggregator_guard="clip", guard_clip_norm=5.0, client_chunk=8),
+    dict(aggregator_guard="clip", virtual_data=True),
 ])
 def test_engine_config_valid_combinations(kwargs):
     EngineConfig(**kwargs)
     RefEngineConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(client_chunk=True), dict(cohort=True), dict(cohort=0),
+    dict(client_chunk=False)])
+def test_engine_config_rejects_bool_counts(kwargs):
+    """isinstance(True, int) holds, so a bool count must be refused
+    explicitly — as the reference's test_engine_config_rejects_bool_counts
+    holds it; real ints pass."""
+    with pytest.raises(ValueError) as ref_err:
+        RefEngineConfig(**kwargs)
+    with pytest.raises(ValueError) as port_err:
+        EngineConfig(**kwargs)
+    assert str(port_err.value) == str(ref_err.value)
+    cfg = EngineConfig(client_chunk=1, cohort=1)
+    assert cfg.client_chunk == 1 and cfg.cohort == 1
 
 
 @pytest.fixture(scope="module")

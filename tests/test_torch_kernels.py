@@ -288,6 +288,10 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     assert torch.equal(ops.fused_aggregate(x[0][0], x[1], wts, x[2][0], 0.5),
                        ref.fused_aggregate_ref(x[0][0], x[1], wts, x[2][0],
                                                0.5))
+    assert torch.equal(ops.fused_accumulate(x[0][0], x[1], wts),
+                       ref.fused_accumulate_ref(x[0][0], x[1], wts))
+    assert torch.equal(ops.fused_epilogue(x[0][0], x[1][0], x[2][0], 0.5),
+                       ref.fused_epilogue_ref(x[0][0], x[1][0], x[2][0], 0.5))
     assert torch.equal(
         ops.fsvrg_update(x[0], x[1], x[2], x[0][0], x[1][0], wts),
         ref.fsvrg_update_ref(x[0], x[1], x[2], x[0][0], x[1][0], wts))
@@ -327,7 +331,8 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     assert got[-1] is None and all(torch.equal(a, b) for a, b in zip(
         got[:-1], ref.wkv6_bwd_ref(r, k, v, w, u, g, 11)[:-1]))
     assert ops.launch_counts() == before
-    assert set(before) == {"fused_aggregate", "fsvrg_update", "fedavg_update",
+    assert set(before) == {"fused_aggregate", "fused_accumulate",
+                           "fused_epilogue", "fsvrg_update", "fedavg_update",
                            "dane_update", "cocoa_sdca_update",
                            "cocoa_sdca_pass", "robust_aggregate", "wkv6",
                            "wkv6_bwd"}
