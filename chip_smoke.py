@@ -67,7 +67,15 @@ Phases, in order (any failure raises and exits non-zero):
    cohort under the fleet trace, a forced overflow (``cohort=1``) card
    against CPU; FedAvg over virtual data at K = 10⁴ (per-client deltas
    bit-equal to the materialized data's), 10⁵ and 10⁶ (the peak's growth a
-   client against a client's materialized rows);
+   client against a client's materialized rows); then the fleet campaign
+   (``repro_torch.fleet.run_campaign``) at the same width (``[campaign]``):
+   FSVRG and GD under the fleet trace killed after 3 rounds and resumed
+   (final iterates ``torch.equal``, deterministic events identical; the
+   checkpoint's bytes and seconds), GD under NaN faults with the rollback
+   rail (round 1 quarantined), FedAvg under them with the trimmed mean
+   (``robust_aggregate`` a round, no rollback), GD with an epoch of drift
+   a round (and epoch 2's rows at scale 0.002 card against CPU), and the
+   reduced rwkv6-3b's bf16 parameters saved and restored on the card;
 7. reproduce Fig. 2 at the paper's width from its command
    (``repro_torch.experiments.fig2_convergence`` with FIG2_ARGS: OPT, every
    curve's stepsize sweep for 1 round, FSVRGR, one-shot, the constant and
@@ -121,6 +129,7 @@ Phases, in order (any failure raises and exits non-zero):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -225,6 +234,16 @@ DENSE_ROUNDS = 5
 #: growth between them is what grows with K
 SCALE_CHUNK, SCALE_ROUNDS, SCALE_P = 1_024, 2, 0.1
 VIRTUAL_KS, VIRTUAL_CHUNK, VIRTUAL_SMALL_K = (100_000, 1_000_000), 8_192, 10_000
+#: the fleet campaign at the §4 width (``CampaignSpec.scale`` 1.0: K =
+#: 10,000, d = 20,002): kill and resume over CAMPAIGN_ROUNDS rounds, the
+#: rollback rail and the engine's trimmed mean under CAMPAIGN_FAULTS (NaN
+#: poisoning in round 1), drift epochs, and the drift rows at DRIFT_SMALL
+#: card against CPU; its files go to CAMPAIGN_DIR (gitignored) and are
+#: removed after
+CAMPAIGN_SCALE, CAMPAIGN_ROUNDS = 1.0, 4
+CAMPAIGN_FAULTS = "nan=0.4,seed=1,start=1,stop=2"
+DRIFT_SMALL = 0.002
+CAMPAIGN_DIR = ROOT / "build" / "campaign"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1482,6 +1501,225 @@ def scale_phase(dev, sync, prob, trace) -> dict:
     return launches
 
 
+def campaign_phase(dev, sync) -> dict:
+    """The fleet campaign (``repro_torch.fleet.run_campaign``) on the card
+    at the §4 width, each check timed, the counts set to 0 just before each
+    campaign and read just after:
+
+    1. kill and resume: FSVRG and GD under ``FleetTrace(seed=0)`` for
+       CAMPAIGN_ROUNDS rounds (checkpoints and evaluations every 2); an
+       uninterrupted run, a run stopped after 3 rounds (FSVRG after its
+       round-2 checkpoint) and its resume — final iterates ``torch.equal``
+       and the deterministic event views identical; the checkpoint's
+       bytes and its save and restore seconds;
+    2. the rollback rail: GD with full participation under
+       CAMPAIGN_FAULTS, ``guard="rollback"``, a checkpoint every round — at
+       least one rollback, ``guard.json`` quarantining round 1, a finite
+       final f;
+    3. the engine's guard: FedAvg under the same faults with
+       ``guard="trimmed_mean"`` for 2 rounds — no rollback, poisoned
+       clients rejected, ``robust_aggregate`` launched;
+    4. drift: GD with a new epoch every round (w_true × 0.8 a round,
+       clients resampled) for 3 rounds — finite; epoch 2's rows at scale
+       DRIFT_SMALL equal on the card and on the CPU;
+    5. checkpoints: the reduced rwkv6-3b's bf16 parameter tree saved and
+       restored on the card, and saved from the CPU and restored onto the
+       card, leaf for leaf ``torch.equal``.
+
+    Returns the launches by kernel over the phase's campaigns."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.bridge import tensor_tree_from_params
+    from repro_torch.configs import get_config, get_logreg_config
+    from repro_torch.core import Trainer
+    from repro_torch.data import (drifted_dataset, materialize_dataset,
+                                  virtual_dataset)
+    from repro_torch.fleet import (CampaignSpec, DeltaFaults, EventLog,
+                                   FleetTrace, deterministic_view,
+                                   run_campaign)
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    launches = {}
+
+    def campaign(label, spec, out, **kw):
+        """``run_campaign`` into CAMPAIGN_DIR/out on the card: (result,
+        its launches, seconds)."""
+        gc.collect()
+        sync()
+        t = time.perf_counter()
+        ops.reset_launch_counts()
+        res = run_campaign(spec, str(CAMPAIGN_DIR / out), verbose=False,
+                           device=dev, **kw)
+        sync()
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        secs = time.perf_counter() - t
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"[campaign] {label}: {secs:.2f} s; launches {got}")
+        return res, got, secs
+
+    def events(out):
+        return [deterministic_view(e) for e in
+                EventLog(str(CAMPAIGN_DIR / out / "events.jsonl")).load()]
+
+    def cells(summary):
+        return "; ".join(
+            f"{a} drawn {c['drawn_total']} realized {c['realized_total']} "
+            f"stragglers {c['straggler_total']} faults "
+            f"{c['faults_injected_total']} rejected "
+            f"{c['clients_rejected_total']} rollbacks {c['rollbacks']} "
+            f"final f {c.get('final_f')} err {c.get('final_err')}"
+            for a, c in summary["cells"].items())
+
+    def finite(summary, label):
+        for a, c in summary["cells"].items():
+            f = c.get("final_f")
+            require(f is not None and math.isfinite(f),
+                    f"{label}: {a}'s final f is not finite")
+
+    faults = DeltaFaults.from_spec(CAMPAIGN_FAULTS)
+    # -- 1. kill and resume ---------------------------------------------------
+    t0 = time.perf_counter()
+    spec = CampaignSpec(algos=("fsvrg", "gd"), rounds=CAMPAIGN_ROUNDS,
+                        seed=SEED, scale=CAMPAIGN_SCALE, model="trace",
+                        trace=FleetTrace(seed=0), eval_every=2,
+                        checkpoint_every=2)
+    full, got, _ = campaign("kill and resume: uninterrupted", spec, "ref")
+    require(got.get("fsvrg_update", 0) > 0,
+            "the campaign's FSVRG cell launched no fsvrg_update")
+    log(f"[campaign] uninterrupted cells: {cells(full)}")
+    finite(full, "kill and resume")
+    part, _, _ = campaign("kill and resume: stopped after 3 rounds", spec,
+                          "run", stop_after=3)
+    require(part.get("interrupted") and part["rounds_done"] == 3,
+            "the stopped campaign was not interrupted after 3 rounds")
+    ck = CAMPAIGN_DIR / "run" / "cells" / "fsvrg"
+    with open(ck / "manifest.json") as f:
+        require(json.load(f)["step"] == 2,
+                "FSVRG's checkpoint is not the one of round 2")
+    nbytes = sum(p.stat().st_size for p in ck.iterdir())
+    sync()
+    t = time.perf_counter()
+    state = Trainer.restore(str(ck), dev)
+    sync()
+    t_restore = time.perf_counter() - t
+    probe = CAMPAIGN_DIR / "save_probe"
+    t = time.perf_counter()
+    checkpoint.save(str(probe), {"w": state.w, "aux": state.aux,
+                                 "round": torch.tensor(state.round,
+                                                       dtype=torch.int32)},
+                    step=state.round)
+    t_save = time.perf_counter() - t
+    log(f"[campaign] FSVRG's round-2 checkpoint (d = {state.w.numel()}): "
+        f"{nbytes} B on disk, restore {t_restore:.4f} s, save "
+        f"{t_save:.4f} s")
+    resumed, got, _ = campaign("kill and resume: resumed", spec, "run")
+    for a in spec.algos:
+        require(torch.equal(full["finals"][a]["w"], resumed["finals"][a]["w"]),
+                f"kill and resume: {a}'s final iterate differs")
+    ev_ref, ev_run = events("ref"), events("run")
+    require(ev_ref == ev_run and len(ev_ref) == 2 * CAMPAIGN_ROUNDS,
+            "kill and resume: the deterministic event views differ")
+    log(f"[campaign] kill and resume: final iterates torch.equal, "
+        f"{len(ev_ref)} deterministic events identical; "
+        f"{time.perf_counter() - t0:.2f} s in all")
+    del full, part, resumed, state
+    # -- 2. the rollback rail -------------------------------------------------
+    t0 = time.perf_counter()
+    spec = CampaignSpec(algos=("gd",), rounds=CAMPAIGN_ROUNDS, seed=SEED,
+                        scale=CAMPAIGN_SCALE, model="full", faults=faults,
+                        guard="rollback", checkpoint_every=1)
+    s, _, _ = campaign("rollback rail", spec, "rollback")
+    with open(CAMPAIGN_DIR / "rollback" / "cells" / "gd" / "guard.json") as f:
+        guard = json.load(f)
+    cell = s["cells"]["gd"]
+    log(f"[campaign] rollback rail: {cells(s)}; guard.json {guard}")
+    require(cell["rollbacks"] >= 1, "the rail rolled nothing back")
+    require(guard["quarantined"] == [1], "guard.json does not quarantine "
+            "round 1")
+    finite(s, "rollback rail")
+    log(f"[campaign] rollback rail: {time.perf_counter() - t0:.2f} s")
+    # -- 3. the engine's guard ------------------------------------------------
+    spec = dataclasses.replace(spec, algos=("fedavg",), rounds=2,
+                               guard="trimmed_mean")
+    s, got, secs = campaign("engine guard (trimmed mean)", spec, "engine")
+    cell = s["cells"]["fedavg"]
+    log(f"[campaign] engine guard: {cells(s)}")
+    require(cell["rollbacks"] == 0, "the trimmed mean still rolled back")
+    require(cell["clients_rejected_total"] > 0, "no poisoned client was "
+            "rejected")
+    require(got.get("robust_aggregate", 0) == 2 and got.get(
+        "fedavg_update", 0) > 0, "the guarded FedAvg cell did not launch "
+        "robust_aggregate once a round and fedavg_update")
+    finite(s, "engine guard")
+    # -- 4. drift -------------------------------------------------------------
+    t0 = time.perf_counter()
+    spec = CampaignSpec(algos=("gd",), rounds=3, seed=SEED,
+                        scale=CAMPAIGN_SCALE, model="trace",
+                        trace=FleetTrace(seed=0), drift_every=1,
+                        drift_w_scale=0.8, drift_resample=True)
+    s, _, _ = campaign("drift (an epoch a round)", spec, "drift")
+    log(f"[campaign] drift: {cells(s)}")
+    finite(s, "drift")
+    cfg = get_logreg_config().scaled(DRIFT_SMALL)
+    card, host = (materialize_dataset(drifted_dataset(
+        virtual_dataset(cfg, SEED, device=where), 2, w_true_scale=0.8,
+        resample_clients=True)) for where in (dev, torch.device("cpu")))
+    for name in ("idx", "val", "y", "client_of", "test_idx", "test_val",
+                 "test_y", "test_client_of"):
+        require(torch.equal(getattr(card, name).cpu(), getattr(host, name)),
+                f"drift epoch 2 at scale {DRIFT_SMALL}: {name} differs on "
+                "the card")
+    log(f"[campaign] drift epoch 2 at scale {DRIFT_SMALL} (K = "
+        f"{cfg.num_clients}, {host.num_examples} train rows): card vs CPU, "
+        f"every array equal; {time.perf_counter() - t0:.2f} s in all")
+    del card, host
+    # -- 5. checkpoints of a bf16 parameter tree ------------------------------
+    t0 = time.perf_counter()
+    model = build_model(get_config(ARCH).reduced(), torch.bfloat16, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    tree = tensor_tree_from_params(params)
+    leaves = checkpoint.checkpoint._flatten(tree)
+
+    def same(restored, label):
+        got = checkpoint.checkpoint._flatten(restored)
+        require([p for p, _ in got] == [p for p, _ in leaves]
+                and all(b.device.type == dev.type and b.dtype == a.dtype
+                        and torch.equal(a, b)
+                        for (_, a), (_, b) in zip(leaves, got)),
+                f"the bf16 parameter tree {label} differs")
+
+    t = time.perf_counter()
+    checkpoint.save(str(CAMPAIGN_DIR / "bf16"), tree, step=1)
+    t_save = time.perf_counter() - t
+    t = time.perf_counter()
+    restored, _ = checkpoint.restore(str(CAMPAIGN_DIR / "bf16"), dev)
+    sync()
+    t_restore = time.perf_counter() - t
+    same(restored, "saved and restored on the card")
+    cpu_tree = tensor_tree_from_params({k: v.cpu() for k, v in
+                                        params.named_parameters()})
+    checkpoint.save(str(CAMPAIGN_DIR / "bf16_cpu"), cpu_tree, step=1)
+    restored, _ = checkpoint.restore(str(CAMPAIGN_DIR / "bf16_cpu"), dev)
+    same(restored, "saved from the CPU and restored onto the card")
+    nbytes = sum(p.stat().st_size for p in (CAMPAIGN_DIR / "bf16").iterdir())
+    dtypes = sorted({str(v.dtype) for _, v in leaves})
+    log(f"[campaign] reduced {ARCH} parameter tree ({len(leaves)} leaves, "
+        f"{dtypes}): {nbytes} B, save {t_save:.4f} s, restore "
+        f"{t_restore:.4f} s on the card; saved from the CPU and restored "
+        f"onto the card, every leaf torch.equal; "
+        f"{time.perf_counter() - t0:.2f} s")
+    require("torch.bfloat16" in dtypes, "the reduced tree holds no bf16 leaf")
+    del model, params, tree, restored, cpu_tree, leaves
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2294,6 +2532,11 @@ def main() -> int:
     scale_launches = scale_phase(dev, sync, prob, trace)
     torch.cuda.empty_cache()
 
+    # -- 6b. the fleet campaign at the §4 width, and checkpoints ------------ #
+    phase("campaign")
+    campaign_launches = campaign_phase(dev, sync)
+    torch.cuda.empty_cache()
+
     # -- 7. Fig. 2 from its command, and the dense ridge methods ----------- #
     phase("fig2")
     fig2_launches = fig2_phase(dev, sync, steps, len(prob.buckets))
@@ -2315,10 +2558,11 @@ def main() -> int:
     def row(name, kernel_fn, plain_fn, nbytes, flops, library_fn=None,
             launches=None):
         b_ms, b_by = bound(nbytes, flops)
-        if launches is None:     # over the plain and the faulted runs and
-            launches = sum(r["launches"][name]                 # Fig. 2's
+        if launches is None:     # over the plain and the faulted runs,
+            launches = sum(r["launches"][name]    # Fig. 2's and the campaign's
                            for r in (*runs.values(), *fault_runs.values())
-                           ) + fig2_launches.get(name, 0)
+                           ) + fig2_launches.get(name, 0) + (
+                               campaign_launches.get(name, 0))
         return dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=TPU_KERNELS[name], launches=launches,
@@ -2607,6 +2851,34 @@ def main() -> int:
     rows.append({k: v for k, v in robust_rows[0].items()
                  if k not in ("m", "mode")})
     del deltas
+    # the full gradient's sum into d slots: utils.scatter's fixed order
+    # (what LogRegProblem.grad runs on the card) against CUDA's atomic
+    # index_add_ on the same terms, and whether each repeats bit for bit
+    from repro_torch.utils import scatter
+    flat = prob.flat
+    w_g = torch.randn(d, device=dev, generator=g) * 0.01
+    terms = ((-flat.y * torch.sigmoid(-flat.y * flat.margins(w_g))
+              / flat.n)[:, None] * flat.val).reshape(-1)
+    slots = flat.idx.reshape(-1)
+
+    def fixed_sum():
+        return scatter.index_add(torch.zeros(d, device=dev), slots, terms)
+
+    def atomic_sum():
+        return torch.zeros(d, device=dev).index_add_(0, slots, terms)
+
+    same = []
+    for fn in (fixed_sum, atomic_sum):
+        first = fn()
+        same.append(all(torch.equal(first, fn()) for _ in range(2)))
+    log(f"[time] the full gradient's sum of {terms.numel()} terms into d = "
+        f"{d}: fixed order (utils.scatter) {cuda_ms(fixed_sum):.3f} ms, "
+        f"three calls bit-equal {same[0]}; atomic index_add_ "
+        f"{cuda_ms(atomic_sum):.3f} ms, three calls bit-equal {same[1]}; "
+        f"the whole LogRegProblem.grad {cuda_ms(lambda: flat.grad(w_g)):.3f} "
+        "ms")
+    require(same[0], "the fixed-order gradient sum differs from call to call")
+    del terms, slots, first, flat, w_g
     # wkv6 at the serving prefill's shape, in the entry the model calls:
     # (B, S, Hn, D) = (8, 2,048, 40, 64) f32, chunk 32, with RWKV-like
     # decays; launches from the serving run; bound from wkv6_cost

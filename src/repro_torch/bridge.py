@@ -14,8 +14,10 @@ same attribute names or keys works: nothing here imports the reference.
 
 Port → numpy, for the comparisons of training: :func:`tree_from_params`
 turns parameters, or gradients keyed as ``named_parameters()`` keys them,
-back into the reference's stacked pytree, and :func:`batch_from_arrays`
-turns a token batch of numpy arrays into the port's tensors.
+back into the reference's stacked pytree (:func:`tensor_tree_from_params`:
+the same tree of tensors in their own dtype, which checkpoints save), and
+:func:`batch_from_arrays` turns a token batch of numpy arrays into the
+port's tensors.
 """
 from __future__ import annotations
 
@@ -91,9 +93,12 @@ def faults_from_config(faults) -> DeltaFaults:
 
 def tensor_like_array(a, device: DeviceLike = None) -> torch.Tensor:
     """A copy of array ``a`` with its own dtype (bfloat16 included, which
-    numpy holds as an extension type) as a tensor on ``device``."""
-    a = np.asarray(a)
+    numpy holds as an extension type) as a tensor on ``device``; a tensor
+    is copied to ``device`` as it is."""
     dev = resolve_device(device)
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(dev, copy=True)
+    a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
         return bits.view(torch.bfloat16).to(dev)
@@ -104,7 +109,9 @@ def params_from_tree(tree: Mapping, model: Model) -> LMParams:
     """The port's parameters of ``model`` from the reference's decoder-only
     pytree: ``embed``, ``out_norm``, ``unembed`` and ``layers/pos{j}/...``
     with a leading (num_layers // P) axis; layer i = rep · P + j becomes
-    the i-th :class:`Layer`.  Each leaf keeps its dtype."""
+    the i-th :class:`Layer`.  Each leaf keeps its dtype.  Leaves may be
+    numpy arrays or tensors (a tree from :func:`repro_torch.checkpoint
+    .restore`)."""
     dev = model.device
     emb = {k: tensor_like_array(v, dev) for k, v in tree.items()
            if k != "layers"}
@@ -115,7 +122,9 @@ def params_from_tree(tree: Mapping, model: Model) -> LMParams:
     def leaf(x, rep):
         if isinstance(x, Mapping):
             return {k: leaf(v, rep) for k, v in x.items()}
-        return tensor_like_array(np.asarray(x)[rep], dev)
+        return tensor_like_array(
+            x[rep] if isinstance(x, torch.Tensor) else np.asarray(x)[rep],
+            dev)
 
     layers = torch.nn.ModuleList(
         Layer(leaf(stacked[f"pos{i % P}"], i // P))
@@ -135,6 +144,35 @@ def cache_from_tree(tree: Mapping, device: DeviceLike = None) -> Dict:
     return {"len": int(np.asarray(tree["len"])), "layers": layers}
 
 
+def _stacked_tree(named: Mapping[str, torch.Tensor], leaf) -> Dict:
+    """``named`` (keyed as ``named_parameters()``) in the reference's
+    decoder-only layout: ``embed``, ``out_norm``, ``unembed`` and
+    ``layers/pos0/...`` with a leading (num_layers,) axis; ``leaf`` turns
+    a list of per-layer tensors (or one tensor, ``stack=False``) into a
+    leaf."""
+    tree: Dict = {k: leaf([v], stack=False) for k, v in named.items()
+                  if "." not in k}
+    per_layer: Dict[int, Dict] = {}
+    for key, v in named.items():
+        if "." in key:
+            _, i, *path = key.split(".")
+            per_layer.setdefault(int(i), {})[tuple(path)] = v
+    pos: Dict = {}
+    for path in per_layer[0]:
+        node = pos
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf([per_layer[i][path]
+                               for i in range(len(per_layer))], stack=True)
+    tree["layers"] = {"pos0": pos}
+    return tree
+
+
+def _named(params: Union[LMParams, Mapping[str, torch.Tensor]]) -> Dict:
+    return (dict(params.named_parameters())
+            if isinstance(params, torch.nn.Module) else dict(params))
+
+
 def tree_from_params(params: Union[LMParams, Mapping[str, torch.Tensor]]
                      ) -> Dict:
     """The inverse of :func:`params_from_tree` for the ported families
@@ -144,28 +182,29 @@ def tree_from_params(params: Union[LMParams, Mapping[str, torch.Tensor]]
     ``named_parameters()`` (gradients, an optimizer's new tensors).  bf16
     leaves come back as f32 arrays (numpy has no bf16; the widening is
     exact)."""
-    named = (dict(params.named_parameters())
-             if isinstance(params, torch.nn.Module) else dict(params))
 
-    def array(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    def array(ts, stack):
+        ts = [t.detach().cpu() for t in ts]
+        ts = [t.float() if t.dtype == torch.bfloat16 else t for t in ts]
+        return (np.stack([t.numpy() for t in ts]) if stack
+                else ts[0].numpy())
 
-    tree: Dict = {k: array(v) for k, v in named.items() if "." not in k}
-    per_layer: Dict[int, Dict] = {}
-    for key, v in named.items():
-        if "." in key:
-            _, i, *path = key.split(".")
-            per_layer.setdefault(int(i), {})[tuple(path)] = array(v)
-    pos: Dict = {}
-    for path in per_layer[0]:
-        node = pos
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = np.stack([per_layer[i][path]
-                                   for i in range(len(per_layer))])
-    tree["layers"] = {"pos0": pos}
-    return tree
+    return _stacked_tree(_named(params), array)
+
+
+def tensor_tree_from_params(params: Union[LMParams,
+                                          Mapping[str, torch.Tensor]]
+                            ) -> Dict:
+    """:func:`tree_from_params`'s layout with tensor leaves in their own
+    dtype (bf16 stays bf16), on the parameters' device — what
+    ``launch/train.py --checkpoint-dir`` saves, as the reference saves its
+    parameter tree."""
+
+    def tensor(ts, stack):
+        ts = [t.detach() for t in ts]
+        return torch.stack(ts) if stack else ts[0]
+
+    return _stacked_tree(_named(params), tensor)
 
 
 def batch_from_arrays(batch: Mapping, device: DeviceLike = None

@@ -25,6 +25,7 @@ from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.utils import threefry
 from repro_torch.utils.device import DeviceLike
+from repro_torch.utils.scatter import scatter_add_rows
 
 
 def gd_round(problem: FederatedLogReg, w: torch.Tensor,
@@ -42,8 +43,8 @@ def gd_client_pass(w: torch.Tensor, bucket: ClientBucket, lam: float,
     nkf = bucket.n_k.to(torch.float32).clamp(min=1.0)
     z = (bucket.val * w[bucket.idx]).sum(dim=-1)                 # (Kb, m_pad)
     g_sc = -bucket.y * torch.sigmoid(-bucket.y * z) / nkf[:, None]
-    out.zero_().scatter_add_(1, bucket.idx.reshape(Kb, -1),
-                             (g_sc[..., None] * bucket.val).reshape(Kb, -1))
+    scatter_add_rows(out.zero_(), bucket.idx.reshape(Kb, -1),
+                     (g_sc[..., None] * bucket.val).reshape(Kb, -1))
     return out.add_(lam * w).mul_(-stepsize)
 
 

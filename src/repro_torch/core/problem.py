@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.scatter import index_add
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +52,8 @@ class LogRegProblem:
     def grad(self, w: torch.Tensor) -> torch.Tensor:
         z = self.y * self.margins(w)
         g_scalar = -self.y * torch.sigmoid(-z) / self.n         # (n,)
-        g = torch.zeros_like(w).index_add_(
-            0, self.idx.reshape(-1), (g_scalar[:, None] * self.val).reshape(-1))
+        g = index_add(torch.zeros_like(w), self.idx.reshape(-1),
+                      (g_scalar[:, None] * self.val).reshape(-1))
         return g + self.lam * w
 
     def error_rate(self, w: torch.Tensor) -> torch.Tensor:
@@ -176,8 +177,8 @@ class VirtualFlat:
             margins = (cb.val * w[cb.idx]).sum(dim=-1)
             z = cb.y * margins
             g_scalar = -cb.y * torch.sigmoid(-z) / self._n
-            g.index_add_(0, cb.idx.reshape(-1),
-                         ((g_scalar * mask)[..., None] * cb.val).reshape(-1))
+            index_add(g, cb.idx.reshape(-1),
+                      ((g_scalar * mask)[..., None] * cb.val).reshape(-1))
             ls = ls + (F.softplus(-z) * mask).sum()
             preds = torch.where(margins >= 0, 1.0, -1.0)
             err = err + ((preds != cb.y).to(torch.float32) * mask).sum()

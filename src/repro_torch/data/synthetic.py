@@ -36,7 +36,9 @@ regenerate on their own: :class:`VirtualDataset` is the O(K + d) spec
 :meth:`VirtualDataset.client_rows_padded` regenerates a batch of clients'
 rows into the round engine's padded bucket layout, bit-equal to the same
 rows of :func:`generate` — which is ``materialize_dataset(virtual_dataset(
-cfg, seed))``, as in the reference.  Not ported yet: ``drifted_dataset``.
+cfg, seed))``, as in the reference.  :func:`drifted_dataset` is an
+epoch's view of that spec (concept drift and resampled clients), its rows
+bit-equal to the reference's epoch.
 """
 from __future__ import annotations
 
@@ -57,6 +59,9 @@ _OWN_TAG, _GLOB_TAG, _LABEL_TAG = 0, 1, 2
 
 #: logistic(0, s) has std s·π/√3 — this scale gives the label bias std 1.5
 _BIAS_SCALE = 1.5 * math.sqrt(3.0) / math.pi
+
+#: folded off the base key to root drift resampling
+_DRIFT_TAG = 0xD41F7
 
 #: clients per batch of the vocabulary draw (a (block, d) score matrix)
 _PARAM_BLOCK = 2048
@@ -404,3 +409,55 @@ def materialize_dataset(vds: VirtualDataset) -> FederatedDataset:
         test_idx=idx[te], test_val=val[te], test_y=y[te],
         test_client_of=client_of[te],
     )
+
+
+# --------------------------------------------------------------------- #
+# distribution drift: epoch-indexed views of the virtual spec
+# --------------------------------------------------------------------- #
+
+
+def pow_f32(x: float, n: int) -> np.float32:
+    """``jnp.float32(x) ** n`` for an int ``n >= 1``, bit for bit: XLA
+    forms an integer power by repeated squaring (``lax.integer_pow``),
+    rounding to f32 after each product, and so does this.  ``0.8 ** 4``
+    is 0.40960005 so, not the correctly rounded 0.40960002."""
+    base, acc = np.float32(x), None
+    while n > 0:
+        if n & 1:
+            acc = base if acc is None else np.float32(acc * base)
+        n >>= 1
+        if n > 0:
+            base = np.float32(base * base)
+    return acc
+
+
+def drifted_dataset(vds: VirtualDataset, epoch: int, *,
+                    w_true_scale: float = 1.0,
+                    resample_clients: bool = False) -> VirtualDataset:
+    """Epoch ``epoch``'s view of the fleet's data distribution — the
+    reference's ``drifted_dataset``, a pure function of ``(vds, epoch)``:
+
+      * ``w_true_scale`` — concept drift: the ground truth scales by
+        ``float32(w_true_scale) ** epoch`` (:func:`pow_f32`), so label
+        noise grows (< 1) or falls (> 1) while every client keeps its
+        vocabulary and feature marginals;
+      * ``resample_clients`` — the base key is re-rooted at
+        ``fold_in(fold_in(base_key, _DRIFT_TAG), epoch)``, redrawing every
+        client's vocabulary, mixture and bias (same sizes, same w_true).
+
+    Epoch 0 is the identity (``vds`` itself); a negative epoch raises.
+    Client count and sizes never change, so neither does any engine
+    shape."""
+    if epoch < 0:
+        raise ValueError("epoch must be >= 0")
+    if epoch == 0:
+        return vds
+    out = vds
+    if w_true_scale != 1.0:
+        factor = torch.tensor(pow_f32(w_true_scale, epoch),
+                              dtype=torch.float32, device=vds.device)
+        out = dataclasses.replace(out, w_true=vds.w_true * factor)
+    if resample_clients:
+        out = dataclasses.replace(out, base_key=threefry.fold_in(
+            threefry.fold_in(vds.base_key, _DRIFT_TAG), epoch))
+    return out

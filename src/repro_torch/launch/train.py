@@ -13,18 +13,28 @@ Runs the reduced config in f32 by default, as the reference does, and the
 full config in bf16 with ``--full``; on the CUDA card unless
 ``--device cpu``.  Only ``rwkv6-3b`` is ported; the other architectures
 raise ``NotImplementedError`` (ROADMAP A11).  ``--production-mesh`` (the
-reference's sharded mesh, ROADMAP A12) and ``--checkpoint-dir`` (ROADMAP
-N4) raise ``NotImplementedError`` too.
+reference's sharded mesh, ROADMAP A12) raises ``NotImplementedError`` too.
+
+``--checkpoint-dir DIR`` saves the final parameters there in the
+reference's tree layout and checkpoint format
+(:func:`repro_torch.bridge.tensor_tree_from_params`,
+:mod:`repro_torch.checkpoint`; bf16 stays bf16), at step ``--rounds`` with
+metadata ``{"arch", "mode"}``, as the reference's driver does: either
+package restores it, and ``bridge.params_from_tree`` turns the restored
+tree back into the port's parameters.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
+from repro_torch.bridge import tensor_tree_from_params
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import neural
@@ -81,10 +91,6 @@ def main(argv=None) -> List[Tuple[int, float]]:
         raise NotImplementedError(
             "--production-mesh: the sharded mesh is not ported yet "
             "(ROADMAP A12)")
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: checkpoints are not ported yet (ROADMAP "
-            "N4)")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -133,6 +139,16 @@ def main(argv=None) -> List[Tuple[int, float]]:
                 logged.append((r + 1, float(loss)))
                 print(f"step {r + 1:4d}: loss={float(loss):.4f} "
                       f"({time.time() - t0:.0f}s)")
+    if args.checkpoint_dir:
+        t_save = time.perf_counter()
+        checkpoint.save(args.checkpoint_dir, tensor_tree_from_params(params),
+                        step=args.rounds,
+                        metadata={"arch": cfg.name, "mode": args.mode})
+        t_save = time.perf_counter() - t_save
+        nbytes = sum(os.path.getsize(os.path.join(args.checkpoint_dir, f))
+                     for f in os.listdir(args.checkpoint_dir))
+        print(f"[train] checkpoint -> {args.checkpoint_dir} ({nbytes} B, "
+              f"saved in {t_save:.3f} s)")
     return logged
 
 

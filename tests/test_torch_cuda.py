@@ -1044,3 +1044,82 @@ def test_small_training_round_on_the_card_matches_the_cpu(cuda, algorithm):
                                    atol=1e-3 * scale)
     gn = float(met_c["full_grad_norm"])
     assert abs(float(met_d["full_grad_norm"]) - gn) <= 1e-3 * gn
+
+
+# --------------------------------------------------------------------- #
+# checkpoints and the fleet campaign on the card
+# --------------------------------------------------------------------- #
+
+
+def test_checkpoints_restore_onto_the_card(cuda, tmp_path):
+    """A tree saved from the CPU (f32, int32 and bf16 leaves) restores onto
+    the card bit for bit, and a bf16 tree saved from the card restores
+    onto the CPU bit for bit."""
+    from repro_torch import checkpoint
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(33, generator=g),
+            "aux": (torch.randn(4, 5, generator=g).to(torch.bfloat16),),
+            "round": torch.tensor(3, dtype=torch.int32)}
+    checkpoint.save(str(tmp_path / "cpu"), tree, step=3)
+    got, info = checkpoint.restore(str(tmp_path / "cpu"), cuda)
+    assert info["step"] == 3 and got["w"].device.type == "cuda"
+    assert torch.equal(got["w"].cpu(), tree["w"])
+    assert torch.equal(got["round"].cpu(), tree["round"])
+    assert got["aux"][0].dtype == torch.bfloat16
+    assert torch.equal(got["aux"][0].cpu().view(torch.int16),
+                       tree["aux"][0].view(torch.int16))
+    checkpoint.save(str(tmp_path / "card"), got, step=4)
+    back, _ = checkpoint.restore(str(tmp_path / "card"), "cpu")
+    assert torch.equal(back["aux"][0].view(torch.int16),
+                       tree["aux"][0].view(torch.int16))
+
+
+def test_campaign_smoke_on_the_card(cuda, tmp_path, capsys):
+    """The campaign command's ``--smoke`` on the card: a crash, a resume
+    and the bit-identity check pass."""
+    from repro_torch.experiments import campaign
+    assert campaign.main(["--smoke", "--out", str(tmp_path / "smoke")]) == 0
+    assert "resume verification: PASS" in capsys.readouterr().out
+
+
+def test_fixed_order_sums_are_bit_equal_on_the_card(cuda):
+    """``utils.scatter``: the same sums from call to call (CUDA's atomic
+    ``index_add_`` would not), within f32 rounding of an f64 sum; the 1-D
+    sum over more than one slice of terms."""
+    from repro_torch.utils import scatter
+    from repro_torch.utils.scatter import index_add, scatter_add_rows
+    g = _gen(cuda)
+    n = scatter.SLICE + 200_000
+    big = torch.randint(0, 50, (n,), device=cuda, generator=g)
+    terms = torch.randn(n, device=cuda, generator=g)
+    e, f = (index_add(torch.zeros(50, device=cuda), big, terms)
+            for _ in range(2))
+    assert torch.equal(e, f)
+    want = torch.zeros(50, dtype=torch.float64, device=cuda).index_add_(
+        0, big, terms.double())
+    torch.testing.assert_close(e.double(), want, rtol=1e-5, atol=1e-2)
+    idx, src = big[:200_000], terms[:200_000]
+    a, b = (index_add(torch.zeros(50, device=cuda), idx, src)
+            for _ in range(2))
+    assert torch.equal(a, b)
+    want = torch.zeros(50, dtype=torch.float64).index_add_(
+        0, idx.cpu(), src.cpu().double())
+    torch.testing.assert_close(a.cpu().double(), want, rtol=1e-5, atol=1e-3)
+    idx2, src2 = idx.reshape(40, -1) % 30, src.reshape(40, -1)
+    c, d = (scatter_add_rows(torch.zeros(40, 30, device=cuda), idx2, src2)
+            for _ in range(2))
+    assert torch.equal(c, d)
+    want = torch.zeros(40, 30, dtype=torch.float64).scatter_add_(
+        1, idx2.cpu(), src2.cpu().double())
+    torch.testing.assert_close(c.cpu().double(), want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["gd", "fsvrg", "svrg_naive"])
+def test_full_gradient_solvers_repeat_bit_for_bit_on_the_card(cuda, name):
+    """Two runs of a solver whose round sums full gradients give the same
+    iterate bit for bit: what a campaign's kill and resume stands on."""
+    prob = build_problem(generate(get_logreg_config().scaled(0.002), 0,
+                                  device=cuda), device=cuda)
+    ws = [Trainer(make_solver(name, prob), rounds=2, seed=0).fit().w
+          for _ in range(2)]
+    assert torch.equal(ws[0], ws[1])

@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
+
 from repro import optim as ref_optim  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.core import neural as ref_neural  # noqa: E402
@@ -375,9 +377,13 @@ def test_train_main_runs_on_the_cpu(mode, capsys):
     assert "rwkv6-3b-reduced" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint-dir", "ckpt"],
+@pytest.mark.parametrize("flag", [["--production-mesh", "--checkpoint-dir",
+                                   "ckpt"],
                                   ["--production-mesh"]])
 def test_train_main_refuses_what_is_not_ported(flag):
+    """``--production-mesh`` (ROADMAP N7) raises before anything runs,
+    with a checkpoint directory or without; ``--checkpoint-dir`` itself is
+    ported (``tests/test_torch_checkpoint.py``)."""
     with pytest.raises(NotImplementedError):
         train.main(["--device", "cpu", *flag])
 
