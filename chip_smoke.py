@@ -123,7 +123,25 @@ Phases, in order (any failure raises and exits non-zero):
    its three launches (terms, scan, chunk backward) timed apart the same
    way, a call back to back from the host and the host's enqueue alone;
    ``wkv6``'s forward at the training shape;
-11. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
+11. the dense attention family, no custom kernel on its path (every
+    kernel's count must stay 0): ``[serve-dense]`` serves llama3-8b
+    (8 × 2,048 tokens, 32 decode steps), h2o-danube-1.8b (4 × 8,192:
+    twice its window, so the prefill takes the banded path and the decode
+    ring wraps; 32 steps), codeqwen1.5-7b and granite-20b (8 × 2,048, 8
+    steps) at full width in bf16 through ``launch.serve.serve``, each
+    after three checks — ``flash_attention`` (SDPA on a named backend)
+    against ``flash_attention_ref`` at one layer's full-width shape, bf16
+    and f32, causal and with a binding window; at full width cut to 2
+    layers in f32, prefill + ``grow_cache`` + 4 decode steps against the
+    longer prefills and 64 decode steps from an empty cache against their
+    prefill; the reduced config card against CPU — with init, prefill and
+    decode seconds, peak memory and the SDPA calls by backend (checked
+    against the path each call must take); ``[train-dense]`` trains
+    h2o-danube-1.8b: the loss and gradients at full width cut to 2 layers
+    in f32 card against CPU, then at full width in bf16 with
+    ``launch/train.py``'s defaults 2 FSVRG rounds, a FedAvg round and 3
+    AdamW steps with seconds, peak memory and finite losses;
+12. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -244,6 +262,25 @@ CAMPAIGN_SCALE, CAMPAIGN_ROUNDS = 1.0, 4
 CAMPAIGN_FAULTS = "nan=0.4,seed=1,start=1,stop=2"
 DRIFT_SMALL = 0.002
 CAMPAIGN_DIR = ROOT / "build" / "campaign"
+#: the dense attention family at full width in bf16, seeded random
+#: weights: arch -> (prompts, prompt tokens, decode steps).  danube's
+#: prompts are twice its 4,096-token window: the prefill takes the banded
+#: path and the decode ring wraps
+DENSE_SERVE = {"llama3-8b": (8, 2048, 32), "h2o-danube-1.8b": (4, 8192, 32),
+               "codeqwen1.5-7b": (8, 2048, 8), "granite-20b": (8, 2048, 8)}
+#: the continuation check (full width, 2 layers, f32, 2 prompts of the
+#: serving length): DENSE_CONT_STEPS tokens decoded from the grown prefill
+#: cache against the prefill of the longer prompt; decode of
+#: DENSE_EMPTY_LEN tokens from an empty cache against their prefill
+DENSE_CONT_STEPS, DENSE_EMPTY_LEN = 4, 64
+#: the attention check's window where the config has none: a quarter of
+#: the prompt, so that it binds
+DENSE_CHECK_WINDOW = 512
+#: flash_attention against flash_attention_ref: tolerance atol + rtol·|ref|
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the dense training cell: h2o-danube-1.8b at full width in bf16, with
+#: launch/train.py's defaults (the training constants above)
+DENSE_TRAIN_ARCH = "h2o-danube-1.8b"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -549,6 +586,360 @@ def serve_phase(dev, sync) -> dict:
         require(max(errs) <= 1e-4, "card and CPU serving disagree")
     return dict(model=model, params=params, prompt=prompt,
                 launches=launches, runs=runs)
+
+
+def _rel(a, b) -> float:
+    """max |a − b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def check_attention(cfg, dev, B, S) -> None:
+    """``flash_attention`` (SDPA) against ``flash_attention_ref`` (the
+    reference's blocked online softmax) on the card at one layer of
+    ``cfg``'s full width, q, k, v ~ N(0, 1) of (B, S, H or Hkv, Dh): bf16
+    and f32, causal and with a binding window (the config's, or
+    DENSE_CHECK_WINDOW)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    window = cfg.sliding_window or DENSE_CHECK_WINDOW
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((B, S, H, Dh), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        for win in (None, window):
+            L.reset_sdpa_backends()
+            got = L.flash_attention(q, k, v, causal=True, window=win)
+            used = dict(L.SDPA_BACKENDS)
+            ref = L.flash_attention_ref(q, k, v, causal=True, window=win)
+            tol = ATTN_TOL[str(dtype).split(".")[-1]]
+            err = (got.float() - ref.float()).abs()
+            worst = float(err.max())
+            log(f"[serve-dense] {cfg.name} attention {B} × {S} × {H}/{Hkv} "
+                f"heads × {Dh}, {str(dtype).split('.')[-1]}, "
+                + ("causal" if win is None else f"window {win}")
+                + f": SDPA {used} vs the blocked softmax, max_abs_err "
+                f"{worst:.3e} (tolerance {tol:g} + {tol:g}·|plain|)")
+            require(got.dtype == dtype and got.shape == q.shape,
+                    "flash_attention's output dtype or shape")
+            require(bool((err <= tol + tol * ref.float().abs()).all()),
+                    f"{cfg.name}: flash_attention disagrees with its plain "
+                    "version")
+            require(not any(k.startswith("cpu") for k in used),
+                    "attention ran on the CPU")
+        del q, k, v, got, ref, err
+    torch.cuda.empty_cache()
+
+
+def check_dense_decode(cfg, dev, S) -> None:
+    """At ``cfg``'s full width cut to 2 layers, in f32: prefill(S) +
+    ``grow_cache`` + DENSE_CONT_STEPS decode steps against prefill(S + k)
+    for each k, and DENSE_EMPTY_LEN decode steps from an empty cache
+    against their prefill (2 prompts); tolerance 1e-3 of max |logit|
+    (f32 sums in other orders; the reference's overwrite of the last
+    prompt token moves them by about 1e-1)."""
+    import torch
+    from repro_torch.models import build_model
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    m = build_model(cfg2, torch.float32)
+    p = m.init(torch.Generator(device=dev).manual_seed(SEED))
+    K = DENSE_CONT_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (2, S + K), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(SEED + 2))
+    _, cache = m.prefill(p, {"tokens": toks[:, :S]})
+    cache = m.grow_cache(cache, S + K)
+    errs = []
+    for t in range(K):
+        logits, cache = m.decode_step(p, toks[:, S + t:S + t + 1], cache)
+        want, _ = m.prefill(p, {"tokens": toks[:, :S + t + 1]})
+        errs.append(_rel(logits, want))
+    ring = cache["layers"][0]["k"].shape[1]
+    log(f"[serve-dense] {cfg.name} 2 layers f32: prefill 2 × {S}, grow_cache "
+        f"to {ring} slots, {K} decode steps vs prefill of {S + 1}..{S + K} "
+        f"tokens: logits error {max(errs):.3e} of max |logit| (tolerance "
+        "1e-3)")
+    require(max(errs) <= 1e-3, f"{cfg.name}: the decode continuation "
+            "disagrees with the longer prefill")
+    n = DENSE_EMPTY_LEN
+    want, _ = m.prefill(p, {"tokens": toks[:, :n]})
+    cache = m.init_cache(2, n)
+    for t in range(n):
+        logits, cache = m.decode_step(p, toks[:, t:t + 1], cache)
+    err = _rel(logits, want)
+    log(f"[serve-dense] {cfg.name} 2 layers f32: {n} decode steps from an "
+        f"empty cache vs prefill of {n}: logits error {err:.3e} of max "
+        "|logit| (tolerance 1e-3)")
+    require(err <= 1e-3, f"{cfg.name}: decode from an empty cache "
+            "disagrees with prefill")
+    del m, p, cache, logits, want
+    torch.cuda.empty_cache()
+
+
+def check_dense_small(cfg, dev) -> None:
+    """The reduced config in f32, the same weights on the card and the
+    CPU: prefill of 2 × 128 tokens (past the reduced window of 64, where
+    there is one), the cache grown, 4 decode steps fed the CPU's greedy
+    token; 1e-4 of each quantity's max."""
+    import copy
+
+    import torch
+    from repro_torch.models import build_model
+
+    small = cfg.reduced()
+    m_cpu = build_model(small, torch.float32, "cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(SEED))
+    m_dev = build_model(small, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    toks = torch.randint(0, small.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(SEED))
+    lc, cc = m_cpu.prefill(p_cpu, {"tokens": toks})
+    ld, cd = m_dev.prefill(p_dev, {"tokens": toks.to(dev)})
+    errs = [_rel(ld.cpu(), lc)]
+    errs += [_rel(b[k].cpu(), a[k])
+             for a, b in zip(cc["layers"], cd["layers"]) for k in a]
+    cc, cd = m_cpu.grow_cache(cc, 132), m_dev.grow_cache(cd, 132)
+    for _ in range(4):
+        tok = lc.argmax(-1)[:, None]
+        lc, cc = m_cpu.decode_step(p_cpu, tok, cc)
+        ld, cd = m_dev.decode_step(p_dev, tok.to(dev), cd)
+        errs.append(_rel(ld.cpu(), lc))
+    log(f"[serve-dense] {small.name} f32 card vs CPU, prefill 2 × 128, "
+        f"4 decode steps: worst error {max(errs):.3e} of the quantity's "
+        "max (tolerance 1e-4)")
+    require(max(errs) <= 1e-4, f"{small.name}: card and CPU disagree")
+
+
+def serve_dense_phase(dev, sync) -> dict:
+    """Serve each dense attention config at full width in bf16 through
+    ``launch.serve.serve`` (DENSE_SERVE), after its attention, continuation
+    and card-vs-CPU checks, then trace DECODE_PROFILED more decode steps
+    for the device's idle share; each model freed before the next.
+    Returns arch -> the run's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for arch, (B, S, steps) in DENSE_SERVE.items():
+        cfg = get_config(arch)
+        W = cfg.sliding_window
+        log(f"[serve-dense] {cfg.name} ({cfg.citation}): {cfg.num_layers} "
+            f"layers, d {cfg.d_model}, {cfg.num_heads} query / "
+            f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, {cfg.mlp_style} "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window {W}, θ "
+            f"{cfg.rope_theta:g}, {cfg.param_count() / 1e9:.3f} B "
+            "parameters, bf16")
+        check_attention(cfg, dev, B, S)
+        check_dense_decode(cfg, dev, S)
+        check_dense_small(cfg, dev)
+
+        sync()
+        t0 = time.perf_counter()
+        model = build_model(cfg, torch.bfloat16)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        sync()
+        init_s = time.perf_counter() - t0
+        weights = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(SEED + 1))
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        ops.reset_launch_counts()
+        L.reset_sdpa_backends()
+        res = serve(model, params, prompt, steps + 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        used = dict(L.SDPA_BACKENDS)
+        launches = ops.launch_counts()
+        n_tok = B * S
+        log(f"[serve-dense] {cfg.name} full width: init {init_s:.2f} s "
+            f"(weights {weights / 1e9:.3f} GB); prefill {B} × {S} tokens in "
+            f"{res.prefill_s:.4f} s ({n_tok / res.prefill_s:.0f} tok/s); "
+            f"{steps} decode steps in {res.decode_s:.4f} s "
+            f"({res.decode_s / steps * 1e3:.2f} ms a step, "
+            f"{B * steps / res.decode_s:.1f} tok/s); peak {peak:.2f} GB "
+            f"allocated; SDPA calls by backend {used}")
+        nl = cfg.num_layers
+        if W is not None and S > W:
+            blocks = -(-S // min(L.BAND_Q_BLOCK, W))
+            want = {"efficient+band": nl * blocks}
+        else:
+            want = {"flash": nl}
+        want["decode:flash"] = nl * steps
+        require(used == want, f"{cfg.name}: SDPA calls {used}, expected "
+                f"{want}")
+        require(all(n == 0 for n in launches.values()),
+                f"{cfg.name}: a custom kernel was launched: {launches}")
+        require(res.tokens.shape == (B, steps + 1)
+                and bool(((res.tokens >= 0)
+                          & (res.tokens < cfg.vocab_size)).all()),
+                f"{cfg.name}: tokens out of range")
+        require(res.logits.shape == (B, cfg.vocab_size)
+                and bool(torch.isfinite(res.logits.float()).all()),
+                f"{cfg.name}: non-finite logits")
+        require(res.cache["len"] == S + steps, f"{cfg.name}: cache length")
+        slots = min(S + steps + 1, W) if W is not None else S + steps + 1
+        for j, layer in enumerate(res.cache["layers"]):
+            require(layer["k"].shape == (B, slots, cfg.num_kv_heads,
+                                         cfg.head_dim)
+                    and bool(torch.isfinite(layer["k"].float()).all())
+                    and bool(torch.isfinite(layer["v"].float()).all()),
+                    f"{cfg.name} layer {j}: cache shape or non-finite K/V")
+        if W is not None and S > W:
+            log(f"[serve-dense] {cfg.name}: the {S}-token prompts wrap the "
+                f"{W}-token window: the prefill took the banded path and "
+                f"the decode ring of {slots} slots wrapped at slot "
+                f"{S % W}..{(S + steps - 1) % W}")
+        log(f"[serve-dense] {cfg.name}: logits finite, tokens in [0, V), all "
+            f"{nl} layers' K/V finite; first tokens "
+            f"{res.tokens[0, :8].tolist()}")
+
+        # DECODE_PROFILED more decode steps traced on the device alone,
+        # against the unprofiled run's wall time a step
+        cache = model.grow_cache(res.cache, S + steps + 1 + DECODE_PROFILED)
+        tok = res.tokens[:, -1:]
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(DECODE_PROFILED):
+                logits, cache = model.decode_step(params, tok, cache)
+                tok = logits.argmax(-1)[:, None]
+            sync()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        step_ms = res.decode_s / steps * 1e3
+        n_kernels = sum(e.count for e in events) / DECODE_PROFILED
+        busy_step = busy_ms / DECODE_PROFILED
+        log(f"[profile] {cfg.name} decode, {DECODE_PROFILED} steps of {B} "
+            f"tokens: device busy {busy_step:.3f} ms a step of the "
+            f"unprofiled {step_ms:.3f} ms -> device idle share "
+            + (f"{1 - busy_step / step_ms:.1%}" if events else "not measured")
+            + f"; {n_kernels:.0f} device kernels a step; top: "
+            + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
+                        for e in sorted(events, key=lambda e:
+                                        -e.self_device_time_total)[:4]))
+        out[arch] = dict(init_s=init_s, prefill_s=res.prefill_s,
+                         decode_s=res.decode_s, peak_gb=peak, sdpa=used)
+        del model, params, res, prompt, cache, logits, prof
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_dense_phase(dev, sync) -> None:
+    """Train h2o-danube-1.8b: at full width cut to 2 layers in f32, the
+    loss and its gradients card against CPU with the same weights; then at
+    full width in bf16 with launch/train.py's defaults, FSVRG_ROUNDS FSVRG
+    rounds, a FedAvg round and ADAMW_STEPS AdamW steps, each with seconds,
+    peak memory and finite losses."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import neural
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    C, T, Bc, SQ = TRAIN_CLIENTS, TRAIN_LOCAL_STEPS, TRAIN_BATCH, TRAIN_SEQ
+    rng = np.random.default_rng(SEED)
+
+    # 2 layers, f32: the loss and every gradient leaf, card vs CPU
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    m_cpu = build_model(cfg2, torch.float32, "cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(SEED))
+    m_dev = build_model(cfg2, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    b = train.synthetic_batch(rng, cfg, 1, 1, Bc, SQ, "cpu")
+    flat = {k: x[0, 0] for k, x in b.items()}
+    grads = []
+    losses = []
+    for m, p, batch in ((m_cpu, p_cpu, flat),
+                        (m_dev, p_dev, {k: x.to(dev) for k, x in
+                                        flat.items()})):
+        loss, _ = m.loss(p, batch)
+        names, leaves = zip(*p.named_parameters())
+        grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
+        losses.append(float(loss.detach()))
+    worst = max(_rel(grads[1][n].cpu(), grads[0][n]) for n in grads[0])
+    loss_err = abs(losses[1] - losses[0]) / abs(losses[0])
+    log(f"[train-dense] {cfg2.name} (full width, 2 layers) f32 loss on "
+        f"{Bc} × {SQ} tokens card vs CPU: {losses[1]:.6f} vs {losses[0]:.6f} "
+        f"({loss_err:.2e}); gradients' worst leaf error {worst:.3e} of its "
+        f"max over {len(grads[0])} leaves (tolerance 1e-5 for the loss, "
+        "1e-3 for the gradients)")
+    require(loss_err <= 1e-5 and worst <= 1e-3,
+            "the card's and the CPU's loss or gradients disagree")
+    del m_cpu, p_cpu, m_dev, p_dev, grads
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, torch.bfloat16)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    sync()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"[train-dense] {cfg.name} at full width in bf16: "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters; {C} clients × {T} "
+        f"step × {Bc} × {SQ} tokens; {held:.2f} GB allocated with the "
+        "weights")
+
+    def run(fn):
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        require(all(n == 0 for n in launches.values()),
+                f"a custom kernel was launched: {launches}")
+        return res, secs, torch.cuda.max_memory_allocated() / 1e9
+
+    for alg, rounds in (("fsvrg", FSVRG_ROUNDS), ("fedavg", 1)):
+        step = steps.make_fsvrg_step(model, neural.FedNeuralConfig(
+            stepsize=TRAIN_STEPSIZE, local_steps=T, algorithm=alg))
+        for r in range(rounds):
+            batch = train.synthetic_batch(rng, cfg, C, T, Bc, SQ, dev)
+            (params, met), secs, peak = run(lambda: step(params, batch))
+            with torch.no_grad():
+                loss = float(model.loss(params, {k: x[0, 0] for k, x
+                                                 in batch.items()})[0])
+            gn = float(met["full_grad_norm"])
+            log(f"[train-dense] {alg} round {r + 1}: {secs:.3f} s, peak "
+                f"{peak:.2f} GB allocated; loss after {loss:.4f}, |∇f| "
+                f"{gn:.4f}")
+            require(np.isfinite(loss) and np.isfinite(gn),
+                    f"{alg} round {r + 1}: non-finite loss or |∇f|")
+            del batch, met
+    opt = adamw(TRAIN_LR)
+    opt_state = opt.init(dict(params.named_parameters()))
+    adamw_step = steps.make_adamw_step(model, opt)
+    opt_step = 0
+    for i in range(ADAMW_STEPS):
+        b = train.synthetic_batch(rng, cfg, 1, 1, C * Bc, SQ, dev)
+        flat = {k: x[0, 0] for k, x in b.items()}
+        (params, opt_state, opt_step, loss, _), secs, peak = run(
+            lambda: adamw_step(params, opt_state, opt_step, flat))
+        log(f"[train-dense] adamw step {i + 1}: {secs:.3f} s, peak "
+            f"{peak:.2f} GB allocated; loss {float(loss):.4f}")
+        require(np.isfinite(float(loss)), f"adamw step {i + 1}: non-finite "
+                "loss")
+    del model, params, opt_state, b, flat
+    torch.cuda.empty_cache()
 
 
 def fig2_phase(dev, sync, steps: int, n_buckets: int) -> dict:
@@ -3006,9 +3397,16 @@ def main() -> int:
     report(rows[-1])
     require(sorted(r["name"] for r in rows) == sorted(SOURCES),
             "the kernels line misses a kernel")
+    torch.cuda.empty_cache()
+
+    # -- 11. the dense attention family: serving and training -------------- #
+    phase("serve-dense")
+    serve_dense_phase(dev, sync)
+    phase("train-dense")
+    train_dense_phase(dev, sync)
     phase("done")
 
-    # -- 10. the result ------------------------------------------------------- #
+    # -- 12. the result ------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

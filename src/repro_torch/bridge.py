@@ -134,10 +134,11 @@ def params_from_tree(tree: Mapping, model: Model) -> LMParams:
 
 def cache_from_tree(tree: Mapping, device: DeviceLike = None) -> Dict:
     """The port's decode cache from the reference's: ``len`` and
-    ``pos{j}/{wkv, shift_tm, shift_cm}`` with a leading (nrep,) axis
-    become ``{"len": int, "layers": [per-layer dict]}``."""
+    ``pos{j}/{wkv, shift_tm, shift_cm}`` (RWKV) or ``pos{j}/{k, v}``
+    (attention) with a leading (nrep,) axis become ``{"len": int,
+    "layers": [per-layer dict]}``; each leaf keeps its dtype."""
     P = sum(1 for k in tree if k != "len")
-    nrep = len(np.asarray(tree["pos0"]["wkv"]))
+    nrep = len(np.asarray(next(iter(tree["pos0"].values()))))
     layers = [{k: tensor_like_array(np.asarray(v)[i // P], device)
                for k, v in tree[f"pos{i % P}"].items()}
               for i in range(nrep * P)]

@@ -5,11 +5,13 @@ architectures (``get_config('<arch-id>')``, ``ARCH_IDS``).
 
 These are copies of the reference package's ``configs/gplus_logreg.py``,
 ``fsvrg_gplus.py``, ``gd_gplus.py``, ``fedavg_gplus.py``, ``dane_gplus.py``,
-``cocoa_gplus.py``, ``base.py`` and ``rwkv6_3b.py`` (the port imports
-nothing of the reference), with the getters the solvers' registry defaults
-and the model stack read.  Of the reference's architectures only
-``rwkv6-3b`` is ported; the others are known by name and raise
-``NotImplementedError`` (ROADMAP A11).
+``cocoa_gplus.py``, ``base.py``, ``rwkv6_3b.py`` and the dense attention
+family's ``llama3_8b.py``, ``h2o_danube_1_8b.py``, ``codeqwen1_5_7b.py``
+and ``granite_20b.py`` (the port imports nothing of the reference), with
+the getters the solvers' registry defaults and the model stack read.  Of
+the reference's architectures RWKV-6 and the four dense decoders are
+ported; the MoE, hybrid, encoder-decoder and vision ones are known by name
+and raise ``NotImplementedError`` (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -28,16 +30,16 @@ from repro_torch.configs.gplus_logreg import LogRegConfig
 #: arch id -> its module under configs/ (None: known to the reference, not
 #: ported yet)
 _MODULES: Dict[str, Optional[str]] = {
-    "granite-20b": None,
+    "granite-20b": "granite_20b",
     "seamless-m4t-medium": None,
-    "h2o-danube-1.8b": None,
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
     "jamba-v0.1-52b": None,
     "internvl2-1b": None,
-    "llama3-8b": None,
+    "llama3-8b": "llama3_8b",
     "phi3.5-moe-42b-a6.6b": None,
     "dbrx-132b": None,
     "rwkv6-3b": "rwkv6_3b",
-    "codeqwen1.5-7b": None,
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
 }
 
 #: every architecture of the reference, ported or not

@@ -7,11 +7,13 @@ token distribution (the LM analogue of the paper's per-author vocabulary)
 
     PYTHONPATH=src python -m repro_torch.examples.federated_lm --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.examples.federated_lm --device cpu --rounds 3
+    PYTHONPATH=src python -m repro_torch.examples.federated_lm --arch llama3-8b --device cpu
 
 Trains the reference's reduced "~100M" variant of the architecture (4
-layers, d 256, d_ff 1,024, vocab 8,192) in f32, on the CUDA card unless
-``--device cpu``.  A family the port has no layers for raises
-``NotImplementedError``, as ``build_model`` does.
+layers, d 256, d_ff 1,024, vocab 8,192; an attention decoder's 4 heads of
+64 over 2 KV heads) in f32, on the CUDA card unless ``--device cpu``:
+RWKV-6 or a dense attention decoder.  A family the port has no layers for
+raises ``NotImplementedError``, as ``build_model`` does.
 """
 from __future__ import annotations
 

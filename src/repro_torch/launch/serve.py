@@ -4,10 +4,19 @@ reference's ``launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --device cpu
+
 Runs the reduced config in f32, as the reference does, on the CUDA card
 unless ``--device cpu``.  :func:`serve` is the loop itself; ``chip_smoke.py``
-calls it at full width.  Only ``rwkv6-3b`` is ported; the other
-architectures raise ``NotImplementedError`` (ROADMAP A11).
+calls it at full width.  RWKV-6 (``rwkv6-3b``) and the dense attention
+decoders (``llama3-8b``, ``h2o-danube-1.8b``, ``codeqwen1.5-7b``,
+``granite-20b``) are ported; the other architectures raise
+``NotImplementedError`` (ROADMAP A11).
+
+Unlike the reference's serve loop, this one decodes from a cache with room
+for the new tokens (``model.grow_cache``): the reference decodes from the
+prefill's cache of exactly S slots and overwrites the last prompt token's
+K and V at every step.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ class Served(NamedTuple):
     tokens: torch.Tensor     # (B, max_new) greedy tokens
     logits: torch.Tensor     # (B, V) logits of the last step
     cache: Dict              # the cache after the last step
-    prefill_s: float         # seconds in the prefill (and its argmax)
+    prefill_s: float         # seconds in the prefill, its argmax and
+    #                          growing the cache
     decode_s: float          # seconds in the max_new - 1 decode steps
 
 
@@ -35,7 +45,10 @@ def serve(model: Model, params: LMParams, prompt: torch.Tensor,
           max_new: int) -> Served:
     """Prefill ``prompt`` (B, S) and decode greedily: ``max_new`` tokens,
     the first from the prefill's logits, the rest from ``max_new - 1``
-    decode steps.  Each phase's seconds end in a device synchronize."""
+    decode steps from the prefill's cache grown to S + ``max_new`` tokens.
+    The tokens are those of decoding the prompt token by token from an
+    empty cache, and of the reference's prefill of prompt + generated
+    tokens.  Each phase's seconds end in a device synchronize."""
     if max_new < 1:
         raise ValueError("max_new must be at least 1")
 
@@ -47,6 +60,7 @@ def serve(model: Model, params: LMParams, prompt: torch.Tensor,
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, {"tokens": prompt})
     tok = logits.argmax(-1)[:, None]
+    cache = model.grow_cache(cache, prompt.shape[1] + max_new)
     sync()
     prefill_s = time.perf_counter() - t0
     toks = [tok]

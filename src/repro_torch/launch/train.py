@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b --mode fsvrg
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b --mode fsvrg --full
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b --device cpu
 
 Modes:
   fsvrg  — the paper's federated rounds (``core/neural.py``)
@@ -11,9 +12,13 @@ Modes:
 
 Runs the reduced config in f32 by default, as the reference does, and the
 full config in bf16 with ``--full``; on the CUDA card unless
-``--device cpu``.  Only ``rwkv6-3b`` is ported; the other architectures
-raise ``NotImplementedError`` (ROADMAP A11).  ``--production-mesh`` (the
-reference's sharded mesh, ROADMAP A12) raises ``NotImplementedError`` too.
+``--device cpu``.  RWKV-6 (``rwkv6-3b``) and the dense attention
+decoders (``llama3-8b``, ``h2o-danube-1.8b``, ``codeqwen1.5-7b``,
+``granite-20b``) are ported; the other architectures raise
+``NotImplementedError`` (ROADMAP A11).  At full width one 80 GB card
+trains rwkv6-3b and h2o-danube-1.8b; the 7–20 B decoders need the
+sharded mesh.  ``--production-mesh`` (the reference's sharded mesh,
+ROADMAP A12) raises ``NotImplementedError``.
 
 ``--checkpoint-dir DIR`` saves the final parameters there in the
 reference's tree layout and checkpoint format

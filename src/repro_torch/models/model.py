@@ -8,11 +8,24 @@ module, as in the reference:
     loss(params, batch)                -> (scalar, metrics)      # train
     prefill(params, batch)             -> (last_logits, cache)   # inference
     init_cache(batch, max_seq)         -> cache
+    grow_cache(cache, max_seq)         -> cache with room for max_seq
     decode_step(params, tokens, cache) -> (logits, cache)        # one token
 
-Only the decoder-only families the port has layers for are built (RWKV-6);
-the vision and audio front-ends and the encoder-decoder wait for ROADMAP
-A11.  Batches: ``{tokens, labels, mask}``, tokens and labels int64 (B, S),
+Only the decoder-only families the port has layers for are built (RWKV-6
+and the dense attention decoders); the MoE and hybrid layers, the vision
+and audio front-ends and the encoder-decoder wait for ROADMAP A11.
+
+``prefill`` returns the reference's cache: an attention layer's K and V of
+exactly the prompt's S tokens (the window's last entries as a ring where
+S exceeds it), which has no slot left for a decoded token.  The
+reference's decode step writes position S at a slot clamped to S − 1 and
+so overwrites the last prompt token (and, under a window with S < W, its
+ring of size S overwrites token 0).  The port's decode step raises there
+instead; :func:`grow_cache` copies a prefill cache into ``init_cache(B,
+max_seq)``'s layout, and ``launch/serve.serve`` calls it before the first
+decode step.
+
+Batches: ``{tokens, labels, mask}``, tokens and labels int64 (B, S),
 mask float (B, S).  ``prefill`` and ``decode_step`` run under
 ``torch.no_grad``; ``loss`` builds the autograd graph (each layer
 rematerialized, as the reference's ``loss`` does).
@@ -20,6 +33,7 @@ rematerialized, as the reference's ``loss`` does).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
@@ -41,6 +55,7 @@ class Model:
     prefill: Callable
     init_cache: Callable
     decode_step: Callable
+    grow_cache: Callable
 
 
 class LMParams(nn.Module):
@@ -110,7 +125,8 @@ def _build_decoder_only(cfg: ArchConfig, dtype: torch.dtype,
 
     def loss(params: LMParams, batch: Mapping[str, torch.Tensor]):
         x = params.embed[batch["tokens"]]
-        h, _ = T.stack_forward(params.layers, cfg, x, remat=True)
+        h, _ = T.stack_forward(params.layers, cfg, x, remat=True,
+                               collect_cache=False)
         h = L.rms_norm(h, params.out_norm, cfg.norm_eps)
         ce = L.lm_head_loss(h, _unembed(params, cfg), batch["labels"],
                             batch["mask"])
@@ -138,20 +154,60 @@ def _build_decoder_only(cfg: ArchConfig, dtype: torch.dtype,
         return logits, cache
 
     return Model(cfg, dtype, device, init, loss, prefill, init_cache,
-                 decode_step)
+                 decode_step, functools.partial(grow_cache, cfg))
 
 
 def _prefill_cache_from_entries(cfg: ArchConfig, entries: List[Dict],
                                 seq_len: int) -> Dict:
     """Turn stack_forward's per-layer cache entries into the decode-cache
-    layout: recurrent entries carry their final states."""
+    layout: recurrent entries carry their final states; an attention
+    layer's K and V (B, S, Hkv, Dh) become the cache, or, under a window
+    with S > W, its last W entries rolled by S mod W (position p at slot
+    p mod W, the decode ring's layout)."""
+    smax = T.cache_max_len(cfg, seq_len)
     layers = []
     for e in entries:
-        if "wkv" not in e:
+        if "k" in e:
+            k, v = e["k"], e["v"]
+            if cfg.sliding_window is not None and seq_len > smax:
+                k, v = (torch.roll(t[:, -smax:], shifts=seq_len % smax,
+                                   dims=1) for t in (k, v))
+            layers.append({"k": k, "v": v})
+        elif "wkv" in e:
+            layers.append({"wkv": e["wkv"], "shift_tm": e["shift_tm"],
+                           "shift_cm": e.get("shift_cm", e["shift_tm"])})
+        else:
             raise T.unported(f"a {sorted(e)} cache entry ({cfg.name})")
-        layers.append({"wkv": e["wkv"], "shift_tm": e["shift_tm"],
-                       "shift_cm": e.get("shift_cm", e["shift_tm"])})
     return {"len": seq_len, "layers": layers}
+
+
+def grow_cache(cfg: ArchConfig, cache: Dict, max_seq: int) -> Dict:
+    """``cache`` (a prefill's, or any with ``len`` tokens) in
+    ``init_cache(B, max_seq)``'s layout, so that decoding may continue to
+    ``max_seq`` tokens: an attention layer's K and V in
+    ``cache_max_len(cfg, max_seq)`` slots, its ``len`` entries at slots
+    0..len−1 (a layer that already has that many slots, a full window's
+    ring among them, is kept as it is); RWKV entries unchanged.  Raises
+    for a ring that has wrapped into fewer slots."""
+    n = cache["len"]
+    if max_seq < n:
+        raise ValueError(f"max_seq {max_seq} is below the cache's {n} "
+                         "tokens")
+    smax = T.cache_max_len(cfg, max_seq)
+    layers = []
+    for e in cache["layers"]:
+        if "k" in e and e["k"].shape[1] != smax:
+            if e["k"].shape[1] < n:
+                raise ValueError(f"a ring of {e['k'].shape[1]} slots cannot "
+                                 f"grow to {smax}")
+            grown = {}
+            for name in ("k", "v"):
+                t = e[name]
+                grown[name] = t.new_zeros((t.shape[0], smax, *t.shape[2:]))
+                grown[name][:, :n] = t[:, :n]
+            e = grown
+        layers.append(e)
+    return {"len": n, "layers": layers}
 
 
 # --------------------------------------------------------------------- #

@@ -1123,3 +1123,89 @@ def test_full_gradient_solvers_repeat_bit_for_bit_on_the_card(cuda, name):
     ws = [Trainer(make_solver(name, prob), rounds=2, seed=0).fit().w
           for _ in range(2)]
     assert torch.equal(ws[0], ws[1])
+
+
+# --------------------------------------------------------------------- #
+# the dense attention family
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("heads", [(8, 2), (4, 4), (4, 1)],
+                         ids=["GQA", "MHA", "MQA"])
+@pytest.mark.parametrize("window", [None, 64], ids=["causal", "window64"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_flash_attention_on_the_card_matches_plain(cuda, heads, window, dtype,
+                                                   tol):
+    """SDPA on its named backend (flash for bf16, efficient for f32, the
+    banded efficient path under a binding window) against the reference's
+    blocked online softmax in torch operations (``flash_attention_ref``):
+    atol + rtol·|plain| of ``tol`` (f32 sums in other orders; bf16
+    probabilities rounded with other running maxima)."""
+    from repro_torch.models import layers as L
+    H, Hkv = heads
+    g = _gen(cuda, H + Hkv)
+    q = torch.randn((2, 256, H, 64), device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn((2, 256, Hkv, 64), device=cuda, generator=g)
+            .to(dtype) for _ in range(2))
+    L.reset_sdpa_backends()
+    got = L.flash_attention(q, k, v, causal=True, window=window)
+    want = ("efficient+band" if window else
+            "flash" if dtype == torch.bfloat16 else "efficient")
+    assert set(L.SDPA_BACKENDS) == {want}
+    ref_out = L.flash_attention_ref(q, k, v, causal=True, window=window,
+                                    q_block=64, kv_block=64)
+    torch.testing.assert_close(got.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("arch,S", [("llama3-8b", 64), ("granite-20b", 64),
+                                    ("h2o-danube-1.8b", 96)])
+def test_small_dense_serve_on_the_card_matches_the_cpu(cuda, arch, S):
+    """The reduced dense configs in f32 with the same weights on the card
+    and the CPU: ``serve`` (prefill, ``grow_cache``, 4 decode steps; danube's
+    96 tokens past its window of 64) gives the same tokens, and logits and
+    caches to 1e-4 of their max (f32 sums in other orders)."""
+    cfg = get_config(arch).reduced()
+    m_cpu = build_model(cfg, torch.float32, device="cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    m_dev = build_model(cfg, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, S),
+                           generator=torch.Generator().manual_seed(1))
+    on_cpu = serve(m_cpu, p_cpu, prompt, 5)
+    on_dev = serve(m_dev, p_dev, prompt.to(cuda), 5)
+    assert torch.equal(on_dev.tokens.cpu(), on_cpu.tokens)
+    torch.testing.assert_close(on_dev.logits.cpu(), on_cpu.logits, rtol=1e-4,
+                               atol=1e-4 * float(on_cpu.logits.abs().max()))
+    for a, b in zip(on_dev.cache["layers"], on_cpu.cache["layers"]):
+        for k in a:
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-4,
+                                       atol=1e-4 * float(b[k].abs().max()))
+
+
+def test_dense_loss_and_gradients_on_the_card_match_the_cpu(cuda):
+    """Reduced danube (window 64) in f32 on 2 × 96 tokens: the loss to
+    1e-5 relative and every gradient leaf to 1e-3 of its max (SDPA's
+    backward on the card against the CPU's)."""
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    m_cpu = build_model(cfg, torch.float32, device="cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    m_dev = build_model(cfg, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97),
+                         generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "mask": torch.ones((2, 96))}
+    out = []
+    for m, p, dev in ((m_cpu, p_cpu, "cpu"), (m_dev, p_dev, cuda)):
+        loss, _ = m.loss(p, {k: x.to(dev) for k, x in batch.items()})
+        names, leaves = zip(*p.named_parameters())
+        out.append((float(loss.detach()),
+                    dict(zip(names, torch.autograd.grad(loss, leaves)))))
+    (lc, gc), (ld, gd) = out
+    assert abs(ld - lc) <= 1e-5 * abs(lc)
+    for n in gc:
+        err = float((gd[n].cpu() - gc[n]).abs().max())
+        assert err <= 1e-3 * float(gc[n].abs().max()), n
