@@ -164,6 +164,7 @@ SEED = 0
 # the card's published peaks (H100 SXM data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 #: the kernels line: a row for each of the reference's seven TPU kernels,
 #: named for the kernel that runs it on the main path (the SDCA solve's:
 #: the pass entry, one launch a bucket; the coordinate entry is timed
@@ -276,8 +277,19 @@ DENSE_CONT_STEPS, DENSE_EMPTY_LEN = 4, 64
 #: the attention check's window where the config has none: a quarter of
 #: the prompt, so that it binds
 DENSE_CHECK_WINDOW = 512
-#: flash_attention against flash_attention_ref: tolerance atol + rtol·|ref|
-ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: flash_attention and decode_attention against their plain versions:
+#: (atol, rtol), tolerance atol + rtol·|plain| element by element.  f32:
+#: the same f32 terms summed in other orders.  bf16: both round the output
+#: to bf16, which may differ by an ulp (≤ 2^-7 of |x|, so rtol 2^-6 is two);
+#: the probabilities rounded to bf16 with other maxima add an absolute
+#: error (atol: the largest that the served shapes needed beside that rtol
+#: on an H100, 1.3e-3, a little over doubled); a typical output over
+#: 2,048 keys is 2e-2 to 5e-2, so a few keys too many or too few show
+ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-3, 2 ** -6)}
+#: decode_attention's check: the cache's slots past n_valid hold keys of
+#: DECODE_POISON and values of 10·DECODE_POISON, so that one of them
+#: counted would move the output far past the tolerance
+DECODE_POISON = 30.0
 #: the dense training cell: h2o-danube-1.8b at full width in bf16, with
 #: launch/train.py's defaults (the training constants above)
 DENSE_TRAIN_ARCH = "h2o-danube-1.8b"
@@ -594,6 +606,88 @@ def _rel(a, b) -> float:
                  / b.float().abs().max().clamp_min(1e-30))
 
 
+def _attn_err(err, ref, atol, rtol) -> str:
+    """max_abs_err, the output's typical size, and the least atol that the
+    reading needs beside ``rtol``."""
+    a = ref.float().abs()
+    need = float((err - rtol * a).max())
+    return (f"max_abs_err {float(err.max()):.3e}, median |plain| "
+            f"{float(a.median()):.3e}, needs atol {max(need, 0.0):.3e} "
+            f"beside rtol {rtol:.3g} (tolerance {atol:g} + {rtol:.3g}·"
+            "|plain|)")
+
+
+def plain_decode_attention(q, k_cache, v_cache, n_valid):
+    """The reference's ``decode_attention`` in torch operations: f32 scores
+    over every cache slot, those at or past ``n_valid`` masked, softmax in
+    f32, probabilities cast to v's dtype, P·V in f32, out in q's dtype."""
+    import torch
+    B, _, H, Dh = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, Dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * Dh ** -0.5
+    mask = torch.arange(Smax, device=q.device) < n_valid
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype).float()
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def check_decode_attention(cfg, dev, B, slots, n_served) -> None:
+    """``decode_attention`` (SDPA, the path every served decode step takes)
+    against :func:`plain_decode_attention` on the card, at the served
+    cache's full-width shape (B, slots, Hkv, Dh), q, k, v ~ N(0, 1), in
+    bf16 and f32: with the ``n_served`` valid slots of the served steps and
+    with a third of the slots, the rest poisoned (DECODE_POISON)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        atol, rtol = ATTN_TOL[name]
+        q = torch.randn((B, 1, H, Dh), generator=g, device=dev).to(dtype)
+        kc, vc = (torch.randn((B, slots, Hkv, Dh), generator=g, device=dev)
+                  .to(dtype) for _ in range(2))
+        for n in sorted({*n_served, slots // 3 + 1}):
+            k, v = kc.clone(), vc.clone()
+            k[:, n:], v[:, n:] = DECODE_POISON, 10 * DECODE_POISON
+            L.reset_sdpa_backends()
+            got = L.decode_attention(q, k, v, n)
+            used = dict(L.SDPA_BACKENDS)
+            ref = plain_decode_attention(q, k, v, n)
+            err = (got.float() - ref.float()).abs()
+            log(f"[serve-dense] {cfg.name} decode attention {B} × 1 × "
+                f"{H}/{Hkv} heads × {Dh} over {n} of {slots} slots, {name}:"
+                f" SDPA {used} vs the plain softmax, "
+                + _attn_err(err, ref, atol, rtol))
+            require(got.dtype == dtype and got.shape == q.shape,
+                    "decode_attention's output dtype or shape")
+            require(used == {"decode:" + L._dense_backend(dtype): 1},
+                    f"{cfg.name}: decode attention took {used}")
+            require(bool((err <= atol + rtol * ref.float().abs()).all()),
+                    f"{cfg.name}: decode_attention disagrees with its plain "
+                    "version")
+        del q, kc, vc, k, v, got, ref, err
+    torch.cuda.empty_cache()
+
+
+def dense_prefill_flops(cfg, B, S) -> int:
+    """The operations that a dense config's prefill of B × S tokens needs:
+    each layer's weight products for every token, causal attention
+    (QK^T and P·V over each query's min(q + 1, window) keys) and the
+    unembedding of the last token of each prompt, two a multiply-add."""
+    d, H, Hkv, Dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim)
+    mats = 3 if cfg.mlp_style == "swiglu" else 2
+    weights = 2 * d * H * Dh + 2 * d * Hkv * Dh + mats * d * cfg.d_ff
+    W = cfg.sliding_window or S
+    keys = sum(min(i + 1, W) for i in range(S))
+    per_layer = 2 * weights * B * S + 4 * B * H * Dh * keys
+    return cfg.num_layers * per_layer + 2 * B * d * cfg.vocab_size
+
+
 def check_attention(cfg, dev, B, S) -> None:
     """``flash_attention`` (SDPA) against ``flash_attention_ref`` (the
     reference's blocked online softmax) on the card at one layer of
@@ -615,17 +709,16 @@ def check_attention(cfg, dev, B, S) -> None:
             got = L.flash_attention(q, k, v, causal=True, window=win)
             used = dict(L.SDPA_BACKENDS)
             ref = L.flash_attention_ref(q, k, v, causal=True, window=win)
-            tol = ATTN_TOL[str(dtype).split(".")[-1]]
+            atol, rtol = ATTN_TOL[str(dtype).split(".")[-1]]
             err = (got.float() - ref.float()).abs()
-            worst = float(err.max())
             log(f"[serve-dense] {cfg.name} attention {B} × {S} × {H}/{Hkv} "
                 f"heads × {Dh}, {str(dtype).split('.')[-1]}, "
                 + ("causal" if win is None else f"window {win}")
-                + f": SDPA {used} vs the blocked softmax, max_abs_err "
-                f"{worst:.3e} (tolerance {tol:g} + {tol:g}·|plain|)")
+                + f": SDPA {used} vs the blocked softmax, "
+                + _attn_err(err, ref, atol, rtol))
             require(got.dtype == dtype and got.shape == q.shape,
                     "flash_attention's output dtype or shape")
-            require(bool((err <= tol + tol * ref.float().abs()).all()),
+            require(bool((err <= atol + rtol * ref.float().abs()).all()),
                     f"{cfg.name}: flash_attention disagrees with its plain "
                     "version")
             require(not any(k.startswith("cpu") for k in used),
@@ -739,7 +832,10 @@ def serve_dense_phase(dev, sync) -> dict:
             f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window {W}, θ "
             f"{cfg.rope_theta:g}, {cfg.param_count() / 1e9:.3f} B "
             "parameters, bf16")
+        slots = min(S + steps + 1, W) if W is not None else S + steps + 1
         check_attention(cfg, dev, B, S)
+        check_decode_attention(cfg, dev, B, slots,
+                               {min(S + 1, slots), min(S + steps, slots)})
         check_dense_decode(cfg, dev, S)
         check_dense_small(cfg, dev)
 
@@ -763,9 +859,13 @@ def serve_dense_phase(dev, sync) -> dict:
         used = dict(L.SDPA_BACKENDS)
         launches = ops.launch_counts()
         n_tok = B * S
+        flops = dense_prefill_flops(cfg, B, S)
         log(f"[serve-dense] {cfg.name} full width: init {init_s:.2f} s "
             f"(weights {weights / 1e9:.3f} GB); prefill {B} × {S} tokens in "
-            f"{res.prefill_s:.4f} s ({n_tok / res.prefill_s:.0f} tok/s); "
+            f"{res.prefill_s:.4f} s ({n_tok / res.prefill_s:.0f} tok/s; "
+            f"{flops / 1e12:.2f} TFLOP, {flops / res.prefill_s / 1e12:.1f} "
+            f"TFLOP/s, {flops / res.prefill_s / BF16_FLOP_PER_S:.1%} of the "
+            "bf16 peak); "
             f"{steps} decode steps in {res.decode_s:.4f} s "
             f"({res.decode_s / steps * 1e3:.2f} ms a step, "
             f"{B * steps / res.decode_s:.1f} tok/s); peak {peak:.2f} GB "
@@ -789,7 +889,6 @@ def serve_dense_phase(dev, sync) -> dict:
                 and bool(torch.isfinite(res.logits.float()).all()),
                 f"{cfg.name}: non-finite logits")
         require(res.cache["len"] == S + steps, f"{cfg.name}: cache length")
-        slots = min(S + steps + 1, W) if W is not None else S + steps + 1
         for j, layer in enumerate(res.cache["layers"]):
             require(layer["k"].shape == (B, slots, cfg.num_kv_heads,
                                          cfg.head_dim)

@@ -311,11 +311,12 @@ def init_attention(gen: torch.Generator, cfg,
 
 
 def attention_fwd(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg,
-                  positions: torch.Tensor, *, window: Optional[int] = None
+                  positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence (train / prefill) attention of x (B, S, d) at
-    ``positions`` ((S,) or (B, S)): (out (B, S, d), (k, v)) with the
-    RoPE'd k and v (B, S, Hkv, Dh) for the cache."""
+    ``positions`` ((S,) or (B, S)), under the config's window:
+    (out (B, S, d), (k, v)) with the RoPE'd k and v (B, S, Hkv, Dh) for
+    the cache."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, H, Dh)
@@ -323,30 +324,23 @@ def attention_fwd(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg,
     v = (x @ params["wv"]).reshape(B, S, Hkv, Dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True,
-                        window=window or cfg.sliding_window)
+    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     return o.reshape(B, S, H * Dh) @ params["wo"], (k, v)
 
 
 def attention_decode(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                      cfg, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     cur_len: int, *, slot: Optional[int] = None,
-                     n_valid: Optional[int] = None,
-                     window: Optional[int] = None):
+                     cur_len: int, *, slot: int, n_valid: int):
     """One-token decode of x (B, 1, d) at position ``cur_len``: writes its
     RoPE'd k and its v **in place** into ``cache_k`` / ``cache_v``
-    (B, Smax, Hkv, Dh) at ``slot`` and attends to slots 0..n_valid−1.
-    The defaults are the reference's: slot ``cur_len``, ``cur_len + 1``
-    valid slots and the config's window (the stack's ring passes its own
-    slot and n_valid and no window).  Returns (out, cache_k, cache_v)."""
+    (B, Smax, Hkv, Dh) at ``slot`` and attends to slots 0..n_valid−1 with
+    no window (a window's ring holds exactly its keys).  Returns
+    (out, cache_k, cache_v)."""
     B = x.shape[0]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    slot = cur_len if slot is None else slot
     if not 0 <= slot < cache_k.shape[1]:
         raise ValueError(f"slot {slot} is outside the cache's "
                          f"{cache_k.shape[1]} slots: grow the cache first")
-    if n_valid is None:
-        n_valid, window = cur_len + 1, cfg.sliding_window
     pos = torch.full((B, 1), cur_len, dtype=torch.int64, device=x.device)
     q = apply_rope((x @ params["wq"]).reshape(B, 1, H, Dh), pos,
                    cfg.rope_theta)
@@ -355,7 +349,7 @@ def attention_decode(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     v = (x @ params["wv"]).reshape(B, 1, Hkv, Dh)
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    o = decode_attention(q, cache_k, cache_v, n_valid, window=window)
+    o = decode_attention(q, cache_k, cache_v, n_valid)
     return o.reshape(B, 1, H * Dh) @ params["wo"], cache_k, cache_v
 
 

@@ -1133,16 +1133,17 @@ def test_full_gradient_solvers_repeat_bit_for_bit_on_the_card(cuda, name):
 @pytest.mark.parametrize("heads", [(8, 2), (4, 4), (4, 1)],
                          ids=["GQA", "MHA", "MQA"])
 @pytest.mark.parametrize("window", [None, 64], ids=["causal", "window64"])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)],
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4),
+                                              (torch.bfloat16, 3e-3, 2 ** -6)],
                          ids=["f32", "bf16"])
 def test_flash_attention_on_the_card_matches_plain(cuda, heads, window, dtype,
-                                                   tol):
+                                                   atol, rtol):
     """SDPA on its named backend (flash for bf16, efficient for f32, the
     banded efficient path under a binding window) against the reference's
     blocked online softmax in torch operations (``flash_attention_ref``):
-    atol + rtol·|plain| of ``tol`` (f32 sums in other orders; bf16
-    probabilities rounded with other running maxima)."""
+    atol + rtol·|plain| (f32 sums in other orders; bf16 outputs an ulp
+    apart, ≤ 2^-7 of |x|, and probabilities rounded with other running
+    maxima, which needed ≤ 1.3e-3 absolute at chip_smoke.py's shapes)."""
     from repro_torch.models import layers as L
     H, Hkv = heads
     g = _gen(cuda, H + Hkv)
@@ -1156,8 +1157,45 @@ def test_flash_attention_on_the_card_matches_plain(cuda, heads, window, dtype,
     assert set(L.SDPA_BACKENDS) == {want}
     ref_out = L.flash_attention_ref(q, k, v, causal=True, window=window,
                                     q_block=64, kv_block=64)
-    torch.testing.assert_close(got.float(), ref_out.float(), rtol=tol,
-                               atol=tol)
+    torch.testing.assert_close(got.float(), ref_out.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("heads", [(8, 2), (4, 4), (4, 1)],
+                         ids=["GQA", "MHA", "MQA"])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4),
+                                              (torch.bfloat16, 3e-3, 2 ** -6)],
+                         ids=["f32", "bf16"])
+def test_decode_attention_on_the_card_matches_plain(cuda, heads, dtype, atol,
+                                                    rtol):
+    """``decode_attention`` (the served decode step's SDPA: ``decode:flash``
+    in bf16, ``decode:efficient`` in f32) against a plain softmax over the
+    whole cache with the slots at or past n_valid masked, at the
+    reference's precision; those slots hold large keys and values, so one
+    of them counted would show.  Tolerances as for the prefill above."""
+    from repro_torch.models import layers as L
+    H, Hkv = heads
+    B, Smax, Dh = 2, 300, 64
+    g = _gen(cuda, 10 * H + Hkv)
+    q = torch.randn((B, 1, H, Dh), device=cuda, generator=g).to(dtype)
+    kc, vc = (torch.randn((B, Smax, Hkv, Dh), device=cuda, generator=g)
+              .to(dtype) for _ in range(2))
+    for n in (1, 37, 257, Smax):
+        k, v = kc.clone(), vc.clone()
+        k[:, n:], v[:, n:] = 30.0, 300.0
+        L.reset_sdpa_backends()
+        got = L.decode_attention(q, k, v, n)
+        assert dict(L.SDPA_BACKENDS) == {
+            "decode:" + ("flash" if dtype == torch.bfloat16
+                         else "efficient"): 1}
+        s = torch.einsum("bhgd,bshd->bhgs",
+                         q.reshape(B, Hkv, H // Hkv, Dh).float(),
+                         k.float()) * Dh ** -0.5
+        s = s.masked_fill(torch.arange(Smax, device=cuda) >= n, -1e30)
+        p = torch.softmax(s, dim=-1).to(dtype).float()
+        want = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+        torch.testing.assert_close(got.float(), want.reshape(B, 1, H, Dh)
+                                   .to(dtype).float(), rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("arch,S", [("llama3-8b", 64), ("granite-20b", 64),

@@ -230,14 +230,14 @@ def test_attention_layer_and_mlps_match_the_reference(arch, dtype):
 
 
 def test_attention_decode_writes_in_place_and_refuses_a_full_cache():
-    """``attention_decode`` with the reference's defaults (slot cur_len,
-    cur_len + 1 valid slots) against the reference's; the port writes into
-    the given cache and raises where the reference would clamp the slot
-    onto the last token."""
+    """``attention_decode`` at slot cur_len with cur_len + 1 valid slots
+    (what the reference does with a cache that has room) against the
+    reference's; the port writes into the given cache and raises where the
+    reference would clamp the slot onto the last token."""
     ref_cfg, cfg = (ref_get_config("llama3-8b").reduced(),
                     get_config("llama3-8b").reduced())
     jp = ref_build_model(ref_cfg, jnp.float32).init(jax.random.PRNGKey(0))
-    w = {k: np.asarray(v[0]) for k, v in jp["layers"]["pos0"]["attn"].items()}
+    w = {k: np.array(v[0]) for k, v in jp["layers"]["pos0"]["attn"].items()}
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
     shp = (2, 16, cfg.num_kv_heads, cfg.head_dim)
@@ -248,7 +248,7 @@ def test_attention_decode_writes_in_place_and_refuses_a_full_cache():
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
     to, ok, ov = layers.attention_decode(
         {k: torch.from_numpy(v) for k, v in w.items()}, torch.from_numpy(x),
-        cfg, tk, tv, 9)
+        cfg, tk, tv, 9, slot=9, n_valid=10)
     assert ok is tk and ov is tv
     _close(to, jo, F32_TOL)
     _close(tk, jk, F32_TOL)
@@ -256,7 +256,7 @@ def test_attention_decode_writes_in_place_and_refuses_a_full_cache():
     with pytest.raises(ValueError, match="grow the cache"):
         layers.attention_decode(
             {k: torch.from_numpy(v) for k, v in w.items()},
-            torch.from_numpy(x), cfg, tk, tv, 16)
+            torch.from_numpy(x), cfg, tk, tv, 16, slot=16, n_valid=16)
 
 
 # --------------------------------------------------------------------- #
