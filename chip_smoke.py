@@ -7,7 +7,7 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. record the machine: torch and CUDA versions, ``nvcc --version``, whether
    ``import triton`` works, the card's name and power limit;
-2. build the eight kernel libraries from ``src/repro_torch/kernels/csrc``
+2. build the nine kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print the build seconds and
    each library's register and spill report, and ``wkv6``'s, each
    ``wkv6_bwd`` launch's and the robust select's registers, shared
@@ -48,7 +48,8 @@ Phases, in order (any failure raises and exits non-zero):
    must agree;
    then each solver on a small problem on the card and on the CPU (plain
    versions) from the same seed, each device drawing for itself, which
-   must agree;
+   must agree; DANE's launches include ``segment_sum`` (its local
+   gradient in a fixed order) once a GD step and once for a_k, a bucket;
 5. the fault-tolerant rounds at full width: a fleet trace, delta faults
    (NaN / sign / scale / replay) and a guard — FSVRG with the trimmed
    mean, FedAvg with the median (both through ``robust_aggregate``),
@@ -96,13 +97,20 @@ Phases, in order (any failure raises and exits non-zero):
    against the CPU with the same weights;
 9. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
-   card could take) — ``robust_aggregate``'s trimmed mean and median at
-   the faulted cells' m and at m = K, ``cocoa_sdca_pass`` at every bucket
-   of a round, the host-bound wrappers also by the profiler's device time
-   — ``wkv6`` in both entries and the layout copies it no longer needs;
-   break one full-width round of each plain solver into its parts; trace
-   one plain round of each solver for the device's idle share, and one
-   full-width prefill for its busy share and top operations;
+   card could take) — ``segment_sum`` at every bucket of the §4 problem
+   against its plain version bit for bit and against the atomic
+   ``scatter_add_`` it replaced, then DANE's round from one state with
+   either sum, in turns (the fixed-order rounds ``torch.equal``) —
+   ``robust_aggregate``'s trimmed mean and median at the faulted cells' m
+   and at m = K, ``cocoa_sdca_pass`` at every bucket of a round, the
+   host-bound wrappers also by the profiler's device time — ``wkv6`` in
+   both entries and the layout copies it no longer needs; break one
+   full-width round of each plain solver into its parts; trace one plain
+   round of DANE, CoCoA+ and svrg_naive, and a sample of FSVRG's and
+   FedAvg's (the prelude and every bucket's first PROFILE_ROWS rows, each
+   bucket's device time weighed by its m_pad) over the unprofiled round,
+   for the device's idle share, and one full-width prefill for its busy
+   share and top operations;
 10. train rwkv6-3b, the serving weights and the earlier phases' tensors
    freed first: ``wkv6_bwd`` against autograd through the plain forward
    (the training path's (2, 128, 40, 64) from zeros and from a given
@@ -141,7 +149,17 @@ Phases, in order (any failure raises and exits non-zero):
     in f32 card against CPU, then at full width in bf16 with
     ``launch/train.py``'s defaults 2 FSVRG rounds, a FedAvg round and 3
     AdamW steps with seconds, peak memory and finite losses;
-12. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
+12. the MoE family, no custom kernel on its path: ``[serve-moe]`` serves
+    phi3.5-moe (full width, 24 of its 32 layers: 8 × 2,048 tokens, 32
+    decode steps) and dbrx-132b (full width, 4 of 40 layers: 4 × 2,048
+    tokens, 8 steps) in bf16 through ``launch.serve.serve``, each after
+    ``moe_fwd`` at full width card against CPU (f32 and bf16, the same
+    dispatch) and the reduced config's serve card against CPU — init,
+    prefill (routed and dispatched TFLOP/s) and decode seconds, peak
+    memory, the prefill's tokens an expert and the pairs capacity dropped,
+    the decode's idle share; ``[train-moe]`` trains phi3.5-moe at full
+    width cut to 2 layers as ``[train-dense]`` trains danube;
+13. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -168,7 +186,8 @@ BF16_FLOP_PER_S = 989e12
 #: the kernels line: a row for each of the reference's seven TPU kernels,
 #: named for the kernel that runs it on the main path (the SDCA solve's:
 #: the pass entry, one launch a bucket; the coordinate entry is timed
-#: apart), and one for wkv6's backward
+#: apart), one for wkv6's backward and one for DANE's fixed-order local
+#: gradient sum
 TPU_KERNELS = {
     "fused_aggregate": "src/repro/kernels/scaled_aggregate.py:66",
     # the same TPU kernel's entries the streamed and cohort rounds launch
@@ -183,6 +202,9 @@ TPU_KERNELS = {
     # the backward of the same TPU kernel (which has none: the reference
     # differentiates its jnp _wkv_chunked, src/repro/models/rwkv.py:73)
     "wkv6_bwd": "src/repro/kernels/wkv6.py:71",
+    # no TPU kernel: DANE's local gradient, an XLA scatter-add in the
+    # reference (its data grad's .at[idx].add), summed in a fixed order
+    "segment_sum": "src/repro/core/dane.py:114",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -196,6 +218,7 @@ SOURCES = {
     "robust_aggregate": CSRC + "robust_aggregate.cu",
     "wkv6": CSRC + "wkv6.cu",
     "wkv6_bwd": CSRC + "wkv6_bwd.cu",
+    "segment_sum": CSRC + "segment_sum.cu",
 }
 #: solver -> the kernel its client pass launches
 STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
@@ -225,6 +248,9 @@ RAGGED_LEN = 2047
 CONSISTENCY_LEN = 256
 #: decode steps traced for the device's idle share
 DECODE_PROFILED = 8
+#: FSVRG's and FedAvg's traced sample of a round: the prelude and, of
+#: every bucket, a pass over its first PROFILE_ROWS rows (of its m_pad)
+PROFILE_ROWS = 128
 #: the training cell: rwkv6-3b at full width in bf16 with launch/train.py's
 #: defaults (TRAIN_CLIENTS clients, 1 local step, 2 sequences of TRAIN_SEQ
 #: tokens a client, stepsize 0.5, AdamW lr 3e-4): FSVRG_ROUNDS FSVRG
@@ -293,6 +319,24 @@ DECODE_POISON = 30.0
 #: the dense training cell: h2o-danube-1.8b at full width in bf16, with
 #: launch/train.py's defaults (the training constants above)
 DENSE_TRAIN_ARCH = "h2o-danube-1.8b"
+#: the MoE family at full width in bf16, seeded random weights, depth cut
+#: to fit one 80 GB card: arch -> (layers, prompts, prompt tokens, decode
+#: steps).  phi3.5-moe's 32 layers are 83.7 GB of bf16 weights, more than
+#: the card holds beside a cache and the dispatch buffers: 24 layers are
+#: 62.9 GB; dbrx-132b's 4 of 40 layers (28.5 GB) check the top-4 dispatch
+MOE_SERVE = {"phi3.5-moe-42b-a6.6b": (24, 8, 2048, 32),
+             "dbrx-132b": (4, 4, 2048, 8)}
+#: moe_fwd card against CPU at a config's full width: one layer's weights,
+#: MOE_CHECK_SEQ tokens; tolerance on max |card − CPU| over max |CPU| by
+#: dtype.  f32: the same f32 sums in other orders, 7.8e-7 (phi3.5) and
+#: 7.1e-7 (dbrx) on an H100, so 1e-5; bf16: the products and the
+#: weighted combine rounded to bf16 at other points, 5.2e-3 and 6.3e-3
+#: (an ulp is 3.9e-3 of a value), so 1.5e-2
+MOE_CHECK_SEQ = 32
+MOE_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
+#: the MoE training cell: phi3.5-moe at full width cut to 2 layers
+#: (2.87 B parameters) in bf16 with launch/train.py's defaults
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 2
 
 
 def require(cond: bool, msg: str) -> None:
@@ -773,7 +817,7 @@ def check_dense_decode(cfg, dev, S) -> None:
     torch.cuda.empty_cache()
 
 
-def check_dense_small(cfg, dev) -> None:
+def check_dense_small(cfg, dev, tag="serve-dense") -> None:
     """The reduced config in f32, the same weights on the card and the
     CPU: prefill of 2 × 128 tokens (past the reduced window of 64, where
     there is one), the cache grown, 4 decode steps fed the CPU's greedy
@@ -801,10 +845,43 @@ def check_dense_small(cfg, dev) -> None:
         lc, cc = m_cpu.decode_step(p_cpu, tok, cc)
         ld, cd = m_dev.decode_step(p_dev, tok.to(dev), cd)
         errs.append(_rel(ld.cpu(), lc))
-    log(f"[serve-dense] {small.name} f32 card vs CPU, prefill 2 × 128, "
+    log(f"[{tag}] {small.name} f32 card vs CPU, prefill 2 × 128, "
         f"4 decode steps: worst error {max(errs):.3e} of the quantity's "
         "max (tolerance 1e-4)")
     require(max(errs) <= 1e-4, f"{small.name}: card and CPU disagree")
+
+
+def profile_decode(label, model, params, res, sync) -> None:
+    """DECODE_PROFILED more decode steps after a ``serve`` run ``res``,
+    traced on the device alone: busy time and kernels a step against the
+    unprofiled run's wall time a step (the device's idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B, n = res.tokens.shape
+    steps = n - 1
+    cache = model.grow_cache(res.cache, res.cache["len"] + 1 + DECODE_PROFILED)
+    tok = res.tokens[:, -1:]
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(DECODE_PROFILED):
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = logits.argmax(-1)[:, None]
+        sync()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_step = sum(e.self_device_time_total
+                    for e in events) / 1e3 / DECODE_PROFILED
+    step_ms = res.decode_s / steps * 1e3
+    n_kernels = sum(e.count for e in events) / DECODE_PROFILED
+    log(f"[profile] {label} decode, {DECODE_PROFILED} steps of {B} tokens: "
+        f"device busy {busy_step:.3f} ms a step of the unprofiled "
+        f"{step_ms:.3f} ms -> device idle share "
+        + (f"{1 - busy_step / step_ms:.1%}" if events else "not measured")
+        + f"; {n_kernels:.0f} device kernels a step; top: "
+        + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
+                    for e in sorted(events, key=lambda e:
+                                    -e.self_device_time_total)[:4]))
 
 
 def serve_dense_phase(dev, sync) -> dict:
@@ -819,8 +896,6 @@ def serve_dense_phase(dev, sync) -> dict:
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for arch, (B, S, steps) in DENSE_SERVE.items():
@@ -904,43 +979,21 @@ def serve_dense_phase(dev, sync) -> dict:
             f"{nl} layers' K/V finite; first tokens "
             f"{res.tokens[0, :8].tolist()}")
 
-        # DECODE_PROFILED more decode steps traced on the device alone,
-        # against the unprofiled run's wall time a step
-        cache = model.grow_cache(res.cache, S + steps + 1 + DECODE_PROFILED)
-        tok = res.tokens[:, -1:]
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(DECODE_PROFILED):
-                logits, cache = model.decode_step(params, tok, cache)
-                tok = logits.argmax(-1)[:, None]
-            sync()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        step_ms = res.decode_s / steps * 1e3
-        n_kernels = sum(e.count for e in events) / DECODE_PROFILED
-        busy_step = busy_ms / DECODE_PROFILED
-        log(f"[profile] {cfg.name} decode, {DECODE_PROFILED} steps of {B} "
-            f"tokens: device busy {busy_step:.3f} ms a step of the "
-            f"unprofiled {step_ms:.3f} ms -> device idle share "
-            + (f"{1 - busy_step / step_ms:.1%}" if events else "not measured")
-            + f"; {n_kernels:.0f} device kernels a step; top: "
-            + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
-                        for e in sorted(events, key=lambda e:
-                                        -e.self_device_time_total)[:4]))
+        profile_decode(cfg.name, model, params, res, sync)
         out[arch] = dict(init_s=init_s, prefill_s=res.prefill_s,
                          decode_s=res.decode_s, peak_gb=peak, sdpa=used)
-        del model, params, res, prompt, cache, logits, prof
+        del model, params, res, prompt
         torch.cuda.empty_cache()
     return out
 
 
-def train_dense_phase(dev, sync) -> None:
-    """Train h2o-danube-1.8b: at full width cut to 2 layers in f32, the
-    loss and its gradients card against CPU with the same weights; then at
-    full width in bf16 with launch/train.py's defaults, FSVRG_ROUNDS FSVRG
-    rounds, a FedAvg round and ADAMW_STEPS AdamW steps, each with seconds,
-    peak memory and finite losses."""
+def train_dense_phase(dev, sync, cfg=None, tag="train-dense") -> None:
+    """Train ``cfg`` (default h2o-danube-1.8b): at its width cut to 2
+    layers in f32, the loss and its gradients card against CPU with the
+    same weights; then ``cfg`` in bf16 with launch/train.py's defaults,
+    FSVRG_ROUNDS FSVRG rounds, a FedAvg round and ADAMW_STEPS AdamW steps,
+    each with seconds, peak memory and finite losses (an MoE config's loss
+    is ce + 0.01 · its load-balance loss, printed beside)."""
     import copy
 
     import numpy as np
@@ -952,7 +1005,7 @@ def train_dense_phase(dev, sync) -> None:
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
 
-    cfg = get_config(DENSE_TRAIN_ARCH)
+    cfg = cfg or get_config(DENSE_TRAIN_ARCH)
     C, T, Bc, SQ = TRAIN_CLIENTS, TRAIN_LOCAL_STEPS, TRAIN_BATCH, TRAIN_SEQ
     rng = np.random.default_rng(SEED)
 
@@ -964,18 +1017,21 @@ def train_dense_phase(dev, sync) -> None:
     p_dev = copy.deepcopy(p_cpu).to(dev)
     b = train.synthetic_batch(rng, cfg, 1, 1, Bc, SQ, "cpu")
     flat = {k: x[0, 0] for k, x in b.items()}
-    grads = []
-    losses = []
-    for m, p, batch in ((m_cpu, p_cpu, flat),
-                        (m_dev, p_dev, {k: x.to(dev) for k, x in
-                                        flat.items()})):
+
+    def loss_and_grads(m, p, batch):
+        # a function, so that the loss's graph (which holds the weights)
+        # goes with its frame
         loss, _ = m.loss(p, batch)
         names, leaves = zip(*p.named_parameters())
-        grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
-        losses.append(float(loss.detach()))
+        return (float(loss.detach()),
+                dict(zip(names, torch.autograd.grad(loss, leaves))))
+
+    losses, grads = zip(
+        loss_and_grads(m_cpu, p_cpu, flat),
+        loss_and_grads(m_dev, p_dev, {k: x.to(dev) for k, x in flat.items()}))
     worst = max(_rel(grads[1][n].cpu(), grads[0][n]) for n in grads[0])
     loss_err = abs(losses[1] - losses[0]) / abs(losses[0])
-    log(f"[train-dense] {cfg2.name} (full width, 2 layers) f32 loss on "
+    log(f"[{tag}] {cfg2.name} (full width, 2 layers) f32 loss on "
         f"{Bc} × {SQ} tokens card vs CPU: {losses[1]:.6f} vs {losses[0]:.6f} "
         f"({loss_err:.2e}); gradients' worst leaf error {worst:.3e} of its "
         f"max over {len(grads[0])} leaves (tolerance 1e-5 for the loss, "
@@ -989,7 +1045,7 @@ def train_dense_phase(dev, sync) -> None:
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     sync()
     held = torch.cuda.memory_allocated() / 1e9
-    log(f"[train-dense] {cfg.name} at full width in bf16: "
+    log(f"[{tag}] {cfg.name} at full width in bf16: "
         f"{cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.param_count() / 1e9:.3f} B parameters; {C} clients × {T} "
         f"step × {Bc} × {SQ} tokens; {held:.2f} GB allocated with the "
@@ -1018,7 +1074,7 @@ def train_dense_phase(dev, sync) -> None:
                 loss = float(model.loss(params, {k: x[0, 0] for k, x
                                                  in batch.items()})[0])
             gn = float(met["full_grad_norm"])
-            log(f"[train-dense] {alg} round {r + 1}: {secs:.3f} s, peak "
+            log(f"[{tag}] {alg} round {r + 1}: {secs:.3f} s, peak "
                 f"{peak:.2f} GB allocated; loss after {loss:.4f}, |∇f| "
                 f"{gn:.4f}")
             require(np.isfinite(loss) and np.isfinite(gn),
@@ -1033,12 +1089,234 @@ def train_dense_phase(dev, sync) -> None:
         flat = {k: x[0, 0] for k, x in b.items()}
         (params, opt_state, opt_step, loss, _), secs, peak = run(
             lambda: adamw_step(params, opt_state, opt_step, flat))
-        log(f"[train-dense] adamw step {i + 1}: {secs:.3f} s, peak "
+        log(f"[{tag}] adamw step {i + 1}: {secs:.3f} s, peak "
             f"{peak:.2f} GB allocated; loss {float(loss):.4f}")
         require(np.isfinite(float(loss)), f"adamw step {i + 1}: non-finite "
                 "loss")
     del model, params, opt_state, b, flat
     torch.cuda.empty_cache()
+
+
+def release(tag: str) -> None:
+    """Collect what earlier phases left in reference cycles (solvers and
+    step closures hold their models) and return the cache to the card;
+    log what stays allocated."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        "before the phase (earlier phases' tensors)")
+
+
+def moe_prefill_flops(cfg, B, S, C):
+    """The operations of an MoE config's prefill of B × S tokens, two a
+    multiply-add: (routed, dispatched).  Both count each layer's attention
+    and router products for every token, causal attention and one
+    unembedding a prompt; the expert products count k · S token-expert
+    pairs a sequence (routed: the work the routing asks for) or the E · C
+    slots the capacity dispatch computes, weight-0 fillers included."""
+    d, H, Hkv, Dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim)
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    mats = 3 if cfg.mlp_style == "swiglu" else 2
+    dense = 2 * d * H * Dh + 2 * d * Hkv * Dh + d * E
+    keys = S * (S + 1) // 2
+    common = cfg.num_layers * (2 * dense * B * S + 4 * B * H * Dh * keys)
+    expert = 2 * mats * d * cfg.d_ff
+    head = 2 * B * d * cfg.vocab_size
+    return (common + cfg.num_layers * expert * k * B * S + head,
+            common + cfg.num_layers * expert * E * C * B + head)
+
+
+def check_moe_fwd(cfg, dev) -> None:
+    """``moe_fwd`` at ``cfg``'s full width on the card against the CPU
+    with the same weights (one layer's, drawn on the card) and input (1 ×
+    MOE_CHECK_SEQ tokens), f32 and bf16: the same dispatch (every expert's
+    token indices equal), the output within MOE_TOL of its max, the aux
+    loss within 1e-5."""
+    import torch
+    from repro_torch.models import moe
+
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    S = MOE_CHECK_SEQ
+    C = moe.capacity(S, cfg)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        p = moe.init_moe(g, cfg, dtype)
+        x = torch.randn((1, S, cfg.d_model), generator=g,
+                        device=dev).to(dtype)
+        t = time.perf_counter()
+        od, ad = moe.moe_fwd(p, x, cfg)
+        pc = {n: v.cpu() for n, v in p.items()}
+        oc, ac = moe.moe_fwd(pc, x.cpu(), cfg)
+        idx = [moe.dispatch(moe.route_topk(xx.float() @ pp["router"], k)[0],
+                            C)[1].cpu() for xx, pp in ((x, p),
+                                                       (x.cpu(), pc))]
+        err = _rel(od.cpu(), oc)
+        aerr = abs(float(ad) - float(ac)) / abs(float(ac))
+        log(f"[serve-moe] {cfg.name} moe_fwd at full width (d "
+            f"{cfg.d_model}, {E} experts of d_ff {cfg.d_ff}, top-{k}), 1 × "
+            f"{S} tokens, C = {C}, {name}: card vs CPU output error "
+            f"{err:.3e} of max |out| (tolerance {MOE_TOL[name]:g}), aux "
+            f"{float(ad):.6f} vs {float(ac):.6f} ({aerr:.1e}); dispatch "
+            f"indices equal {torch.equal(idx[0], idx[1])} "
+            f"({time.perf_counter() - t:.1f} s)")
+        require(od.dtype == dtype and od.shape == x.shape,
+                f"{cfg.name}: moe_fwd's output dtype or shape")
+        require(torch.equal(idx[0], idx[1]),
+                f"{cfg.name}: the card and the CPU dispatch other tokens")
+        require(err <= MOE_TOL[name] and aerr <= 1e-5,
+                f"{cfg.name}: moe_fwd on the card disagrees with the CPU")
+        del p, pc, x, od, oc
+    torch.cuda.empty_cache()
+
+
+def serve_moe_phase(dev, sync) -> dict:
+    """Serve each MoE config at full width in bf16, depth cut as
+    MOE_SERVE says, through ``launch.serve.serve``, after ``moe_fwd``'s
+    card-vs-CPU check at full width and the reduced config's card-vs-CPU
+    serve; prints init, prefill (routed and dispatched TFLOP/s) and decode
+    numbers, peak memory, the prefill's per-expert token counts and the
+    tokens capacity dropped, and traces DECODE_PROFILED more decode steps
+    for the device's idle share.  Every custom kernel's count must stay 0.
+    Returns arch -> the run's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.scaling import expert_occupancy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model, moe
+
+    release("serve-moe")
+    out = {}
+    for arch, (layers, B, S, steps) in MOE_SERVE.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+        C = moe.capacity(S, cfg)
+        log(f"[serve-moe] {full.name} ({full.citation}): {full.num_layers} "
+            f"layers, d {full.d_model}, {full.num_heads} query / "
+            f"{full.num_kv_heads} KV heads of {full.head_dim}, {E} experts "
+            f"top-{k} of d_ff {full.d_ff}, vocab {full.vocab_size}; "
+            f"{full.param_count() / 1e9:.2f} B parameters, "
+            f"{full.param_count() * 2 / 1e9:.1f} GB in bf16, "
+            f"{full.active_param_count() / 1e9:.2f} B active a token.  Cut "
+            f"to {layers} of {full.num_layers} layers (reduced: depth): "
+            f"{cfg.param_count() / 1e9:.2f} B parameters, "
+            f"{cfg.param_count() * 2 / 1e9:.1f} GB in bf16, beside the "
+            f"cache of {B} × {S + steps} tokens "
+            f"({2 * layers * B * (S + steps) * cfg.num_kv_heads * cfg.head_dim * 2 / 1e9:.2f} GB)"
+            f" and the prefill's dispatch buffers ((B, E, C, d) at C = {C}: "
+            f"{B * E * C * cfg.d_model * 2 / 1e9:.2f} GB; each (B, E, C, "
+            f"d_ff) product {B * E * C * cfg.d_ff * 2 / 1e9:.2f} GB)")
+        check_moe_fwd(cfg, dev)
+        check_dense_small(full, dev, tag="serve-moe")
+
+        sync()
+        t0 = time.perf_counter()
+        model = build_model(cfg, torch.bfloat16)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        sync()
+        init_s = time.perf_counter() - t0
+        weights = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(SEED + 1))
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        ops.reset_launch_counts()
+        res = serve(model, params, prompt, steps + 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = ops.launch_counts()
+        routed, dispatched = moe_prefill_flops(cfg, B, S, C)
+        log(f"[serve-moe] {cfg.name} full width, {layers} layers: init "
+            f"{init_s:.2f} s (weights {weights / 1e9:.3f} GB); prefill {B} × "
+            f"{S} tokens in {res.prefill_s:.4f} s ({B * S / res.prefill_s:.0f}"
+            f" tok/s; routed {routed / 1e12:.2f} TFLOP, "
+            f"{routed / res.prefill_s / 1e12:.1f} TFLOP/s, "
+            f"{routed / res.prefill_s / BF16_FLOP_PER_S:.1%} of the bf16 "
+            f"peak; dispatched {dispatched / 1e12:.2f} TFLOP, "
+            f"{dispatched / res.prefill_s / 1e12:.1f} TFLOP/s, "
+            f"{dispatched / res.prefill_s / BF16_FLOP_PER_S:.1%}); {steps} "
+            f"decode steps in {res.decode_s:.4f} s "
+            f"({res.decode_s / steps * 1e3:.2f} ms a step, "
+            f"{B * steps / res.decode_s:.1f} tok/s); peak {peak:.2f} GB "
+            "allocated")
+        require(all(n == 0 for n in launches.values()),
+                f"{cfg.name}: a custom kernel was launched: {launches}")
+        require(res.tokens.shape == (B, steps + 1)
+                and bool(((res.tokens >= 0)
+                          & (res.tokens < cfg.vocab_size)).all()),
+                f"{cfg.name}: tokens out of range")
+        require(res.logits.shape == (B, cfg.vocab_size)
+                and bool(torch.isfinite(res.logits.float()).all()),
+                f"{cfg.name}: non-finite logits")
+        require(res.cache["len"] == S + steps, f"{cfg.name}: cache length")
+        for j, layer in enumerate(res.cache["layers"]):
+            require(layer["k"].shape == (B, S + steps + 1, cfg.num_kv_heads,
+                                         cfg.head_dim)
+                    and bool(torch.isfinite(layer["k"].float()).all())
+                    and bool(torch.isfinite(layer["v"].float()).all()),
+                    f"{cfg.name} layer {j}: cache shape or non-finite K/V")
+        log(f"[serve-moe] {cfg.name}: logits finite, tokens in [0, V), all "
+            f"{layers} layers' K/V finite; first tokens "
+            f"{res.tokens[0, :8].tolist()}")
+
+        # the prefill's routing, once more with each layer's router read
+        # (untimed): tokens a layer routes to each expert, summed over the
+        # layers, and those past an expert's C slots of a sequence
+        real = moe.moe_fwd
+        counts = torch.zeros(E, device=dev)
+        dropped = [0]
+
+        def counted(p, x, cfg_, **kw):
+            logits = x.float() @ p["router"]
+            _, probs, mask = moe.route_topk(logits, k)
+            counts.add_(expert_occupancy(probs.reshape(-1, E), k))
+            cap = moe.capacity(x.shape[1], cfg_, **kw)
+            dropped[0] += int((mask.sum(1) - cap).clamp(min=0).sum())
+            return real(p, x, cfg_, **kw)
+
+        moe.moe_fwd = counted
+        try:
+            model.prefill(params, {"tokens": prompt})
+        finally:
+            moe.moe_fwd = real
+        routed_pairs = layers * B * S * k
+        log(f"[serve-moe] {cfg.name} prefill routing over {layers} layers: "
+            f"tokens routed to each expert " + str(
+                [int(c) for c in counts.tolist()])
+            + f" (Σ {int(counts.sum())} = layers × {B * S} tokens × top-{k});"
+            f" {dropped[0]} token-expert pairs dropped by capacity ("
+            f"{dropped[0] / routed_pairs:.2%} of {routed_pairs})")
+        require(int(counts.sum()) == routed_pairs,
+                f"{cfg.name}: expert counts do not sum to the routed pairs")
+
+        profile_decode(f"{cfg.name} ({layers} layers)", model, params, res,
+                       sync)
+        out[arch] = dict(init_s=init_s, prefill_s=res.prefill_s,
+                         decode_s=res.decode_s, peak_gb=peak)
+        del model, params, res, prompt
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_phase(dev, sync) -> None:
+    """Train phi3.5-moe at full width cut to MOE_TRAIN_LAYERS layers:
+    ``train_dense_phase``'s steps (the f32 loss and gradients card vs CPU,
+    then FSVRG, FedAvg and AdamW in bf16) on that config."""
+    from repro_torch.configs import get_config
+    release("train-moe")
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+    log(f"[train-moe] {cfg.name} cut to {MOE_TRAIN_LAYERS} of "
+        f"{full.num_layers} layers "
+        f"(reduced: depth): {cfg.param_count() / 1e9:.3f} B parameters")
+    train_dense_phase(dev, sync, cfg=cfg, tag="train-moe")
 
 
 def fig2_phase(dev, sync, steps: int, n_buckets: int) -> dict:
@@ -1077,7 +1355,10 @@ def fig2_phase(dev, sync, steps: int, n_buckets: int) -> dict:
         "fsvrgr": {"fsvrg_update": fsvrg},
         "gd": {},
         "dane": {"dane_update": len(get_dane_config().local_lr_sweep)
-                 * rounds * get_dane_config().local_steps * n_buckets},
+                 * rounds * get_dane_config().local_steps * n_buckets,
+                 "segment_sum": len(get_dane_config().local_lr_sweep)
+                 * rounds * (get_dane_config().local_steps + 1)
+                 * n_buckets},
         "cocoa": {"cocoa_sdca_pass": rounds * n_buckets},
         "fedavg": {"fedavg_update": len(fedavg_cfg.stepsize_sweep) * rounds
                    * fedavg_cfg.local_epochs * steps},
@@ -2210,6 +2491,197 @@ def campaign_phase(dev, sync) -> dict:
     return launches
 
 
+def sampled_round_profile(name, solver, res, prob, dev, sync,
+                          round_s) -> None:
+    """The device's busy share of FSVRG's or FedAvg's round ``ROUNDS``,
+    from a sample that stands for it: the prelude (FSVRG's full gradient)
+    once, and every bucket's pass over its first PROFILE_ROWS rows (a
+    bucket of those rows: the same clients and work a step, fewer steps),
+    each part traced alone.  A step's device work does not depend on the
+    step, so bucket b's device time counts m_pad / rows times: each bucket
+    weighs in by its share of Σ m_pad, as in the round.  The estimated
+    busy seconds are taken over ``round_s``, the unprofiled round's wall
+    time.  (A pass's host time does not scale so: it has a fixed part, the
+    draws and row gathers, which the scaling would count m_pad / rows
+    times.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.problem import ClientBucket
+    from repro_torch.utils import threefry
+
+    w = res.w
+    key = threefry.fold_in(threefry.as_key(threefry.PRNGKey(SEED), dev),
+                           ROUNDS)
+    ctx = (prob.flat.grad(w),) if name in PRELUDE else ()
+    parts = [(1.0, lambda: prob.flat.grad(w))] if ctx else []
+    rows = 0
+    for bi, (wi, b) in enumerate(zip(solver.engine._offsets, prob.buckets)):
+        n = min(b.m_pad, PROFILE_ROWS)
+        rows += n
+        cut = ClientBucket(b.idx[:, :n].contiguous(),
+                           b.val[:, :n].contiguous(),
+                           b.y[:, :n].contiguous(), b.n_k.clamp(max=n))
+
+        def part(bi=bi, cut=cut, kb=threefry.fold_in(key, wi)):
+            solver._pass(w, bi, cut, kb, torch.empty(
+                (cut.num_clients, prob.d), device=dev), *ctx)
+        parts.append((b.m_pad / n, part))
+    busy_s = traced_s = 0.0
+    top = {}                  # kernel -> [weighed device µs, weighed count]
+    for weight, fn in parts:
+        sync()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        traced_s += time.perf_counter() - t
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                busy_s += weight * e.self_device_time_total / 1e6
+                acc = top.setdefault(e.key, [0.0, 0.0])
+                acc[0] += weight * e.self_device_time_total
+                acc[1] += weight * e.count
+    steps = sum(b.m_pad for b in prob.buckets)
+    if top:
+        log(f"[profile] {name}: a sample of the round under the profiler "
+            f"({'the prelude and ' if ctx else ''}every bucket's first "
+            f"≤ {PROFILE_ROWS} rows: {rows} of Σ m_pad {steps}, each "
+            f"bucket's device time weighed by m_pad / rows; {traced_s:.1f} "
+            f"s to trace): device busy {busy_s:.3f} s of the unprofiled "
+            f"{round_s:.3f} s round -> device idle share "
+            f"{1 - busy_s / round_s:.1%}")
+    else:
+        log(f"[profile] {name}: device idle share: not measured (the "
+            "profiler saw no device time)")
+    for k, (us, count) in sorted(top.items(), key=lambda kv: kv[1][0],
+                                 reverse=True)[:8]:
+        log(f"[profile]   {us / 1e3:9.2f} ms {count:9.0f}× {k[:90]} "
+            "(weighed)")
+
+
+def atomic_data_grad(wk, bucket, plan, out):
+    """DANE's local gradient as it was before the fixed-order sum: the
+    same terms through CUDA's atomic ``scatter_add_`` (the yardstick of
+    the [time] DANE turns; the port never calls it)."""
+    from repro_torch.core.dane import row_scales
+    Kb = bucket.num_clients
+    gs = row_scales(wk, bucket)
+    return out.zero_().scatter_add_(
+        1, bucket.idx.reshape(Kb, -1),
+        (gs[..., None] * bucket.val).reshape(Kb, -1))
+
+
+def segment_sum_phase(dev, sync, prob, w, cuda_ms, bound) -> dict:
+    """``segment_sum`` at DANE's main path's shapes — every bucket of the
+    §4 problem with its plan and the local gradient's terms at ``w`` (a
+    DANE iterate): the kernel against its plain version (the same bits)
+    and against itself (two calls); its time, the plain version's and the
+    atomic ``scatter_add_``'s (the sum it replaced) summed over the
+    buckets, one call each, beside the bound (bytes: each kept term's slot
+    index and b, a and out once).  Returns the numbers for the kernels
+    line."""
+    import torch
+    from repro_torch.core.dane import bucket_plan, row_scales
+    from repro_torch.kernels import ops, ref
+
+    d = prob.d
+    ms = plain = lib = nbytes = 0.0
+    longest, n_terms, n_runs = 0, 0, 0
+    for bi, b in enumerate(prob.buckets):
+        Kb = b.num_clients
+        plan = bucket_plan(b, d)
+        flat_idx = b.idx.reshape(Kb, -1)
+        gs = row_scales(w, b).contiguous()
+        val = b.val.contiguous()
+        out = torch.full((Kb, d), float("nan"), device=dev)
+        got = ops.segment_sum(plan, gs, val, out).clone()
+        again = ops.segment_sum(plan, gs, val, out).clone()
+        want = ref.segment_sum_ref(plan, gs, val, torch.empty_like(out))
+        sync()
+        require(torch.equal(got, again), f"segment_sum bucket {bi}: two "
+                "calls differ")
+        require(torch.equal(got, want), f"segment_sum bucket {bi}: the "
+                "kernel and its plain version differ")
+        terms = (gs[..., None] * val).reshape(Kb, -1)
+        atomic = torch.zeros_like(out).scatter_add_(1, flat_idx, terms)
+        err = float((atomic - got).abs().max())
+        require(err <= 1e-5 * float(got.abs().max()) + 1e-12,
+                f"segment_sum bucket {bi}: far from the atomic sum")
+        runs = plan.run_start[1:] - plan.run_start[:-1]
+        longest = max(longest, int(runs.max()))
+        n_terms += plan.order.numel()
+        n_runs += plan.n_runs
+        # the function's bytes: each kept term's slot index and b once, a
+        # and out once (the plan's run arrays are the design's, not the
+        # function's, and are left out)
+        b_bytes = plan.order.numel() * 8 + gs.numel() * 4 + Kb * d * 4
+        nbytes += b_bytes
+        k_ms = cuda_ms(lambda: ops.segment_sum(plan, gs, val, out))
+        p_ms = cuda_ms(lambda: ref.segment_sum_ref(plan, gs, val, out),
+                       iters=3, warmup=1)
+        a_ms = cuda_ms(lambda: torch.zeros_like(out).scatter_add_(
+            1, flat_idx, terms))
+        ms, plain, lib = ms + k_ms, plain + p_ms, lib + a_ms
+        log(f"[check] segment_sum bucket {bi} ({Kb} × {b.m_pad} rows, "
+            f"{plan.order.numel():,} nonzero terms into {Kb * d:,} slots, "
+            f"{plan.n_runs:,} runs, the longest {int(runs.max())}): kernel "
+            "== plain version and == itself bit for bit; vs the atomic "
+            f"scatter_add_ {err:.3e}; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.2f} ms, atomic scatter_add_ {a_ms:.4f} ms, bound "
+            f"{bound(b_bytes, 0)[0]:.4f} ms (bytes)")
+        del out, got, again, want, terms, atomic
+    b_ms, b_by = bound(nbytes, 2 * n_terms)
+    log(f"[time] segment_sum, one call a bucket ({len(prob.buckets)} "
+        f"buckets, {n_terms:,} terms, {n_runs:,} runs, the longest "
+        f"{longest}): kernel {ms:.4f} ms, plain {plain:.2f} ms, atomic "
+        f"scatter_add_ {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e9:.3f} GB); {b_ms / ms:.1%} of the bound")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def dane_turns(dev, sync, solver, state) -> dict:
+    """DANE's round from one state, in turns: the fixed-order local
+    gradient (what the port runs), the atomic one (``atomic_data_grad``),
+    the atomic one, the fixed-order one; the fixed-order rounds' iterates
+    must be ``torch.equal``.  Returns the seconds of each."""
+    import torch
+    from repro_torch.core import dane as dane_mod
+    from repro_torch.utils import threefry
+
+    key = threefry.fold_in(threefry.PRNGKey(SEED), ROUNDS + 1)
+    fixed = dane_mod.data_grad
+    secs = {"fixed": [], "atomic": []}
+    ws = {"fixed": [], "atomic": []}
+    try:
+        for kind in ("fixed", "atomic", "atomic", "fixed"):
+            dane_mod.data_grad = fixed if kind == "fixed" else (
+                atomic_data_grad)
+            sync()
+            t = time.perf_counter()
+            new = solver.round(state, key)
+            sync()
+            secs[kind].append(time.perf_counter() - t)
+            ws[kind].append(new.w.clone())
+    finally:
+        dane_mod.data_grad = fixed
+    same = torch.equal(ws["fixed"][0], ws["fixed"][1])
+    same_atomic = torch.equal(ws["atomic"][0], ws["atomic"][1])
+    diff = float((ws["fixed"][0] - ws["atomic"][0]).abs().max())
+    log(f"[time] dane round from one state, in turns (fixed, atomic, "
+        f"atomic, fixed): fixed-order local gradient "
+        + ", ".join(f"{x:.3f}" for x in secs["fixed"]) + " s, atomic "
+        "scatter_add_ " + ", ".join(f"{x:.3f}" for x in secs["atomic"])
+        + f" s ({min(secs['fixed']) / min(secs['atomic']):.2f}× the "
+        f"atomic round, target ≤ 1.5×); the two fixed-order rounds "
+        f"torch.equal {same}, the two atomic rounds {same_atomic}; fixed "
+        f"vs atomic iterate {diff:.3e}")
+    require(same, "dane: two rounds from the same state differ on the card")
+    return secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2756,8 +3228,13 @@ def main() -> int:
             f"draws (masks, keys, permutations or samples) {draw_s:.4f} s; "
             f"peak device memory {run_['peak_gb']:.2f} GB; full gradients "
             f"{run_['grads']}")
+        # DANE's local gradient: one segment_sum a GD step and one for
+        # a_k, in every bucket
+        also = ({"segment_sum": ROUNDS * (solver.cfg.local_steps + 1)
+                 * len(prob.buckets)} if name == "dane" else {})
         log(f"[main] {name}: launches {launches} (expected {kernel} "
-            f"{expected}, fused_aggregate {ROUNDS})")
+            f"{expected}, fused_aggregate {ROUNDS}"
+            + "".join(f", {k} {v}" for k, v in also.items()) + ")")
         require(all(f == f and abs(f) != float("inf") for f in hist),
                 f"{name}: non-finite loss")
         if name in ("fsvrg", "fedavg"):
@@ -2795,8 +3272,10 @@ def main() -> int:
                 f"{name}: {kernel} was not launched once per local step")
         require(launches["fused_aggregate"] == ROUNDS,
                 f"{name}: fused_aggregate was not launched once per round")
+        require(all(launches[k] == v for k, v in also.items()),
+                f"{name}: {also} expected")
         require(all(v == 0 for k, v in launches.items()
-                    if k not in (kernel, "fused_aggregate")),
+                    if k not in (kernel, "fused_aggregate", *also)),
                 f"{name}: launched another solver's kernel")
         require(run_["grads"] == (ROUNDS if name in PRELUDE else 0),
                 f"{name}: not one full gradient per round")
@@ -3258,6 +3737,19 @@ def main() -> int:
                                     out=wk),
         16 * Kb * d + 4 * d, 7 * Kb * d))
     del wk, diff, a_k
+    # DANE's local gradient (segment_sum) at every bucket, from DANE's
+    # final iterate; then DANE's round with it and with the atomic sum it
+    # replaced, in turns
+    rows.append(dict(
+        name="segment_sum", route="cuda", source=SOURCES["segment_sum"],
+        replaces=TPU_KERNELS["segment_sum"],
+        launches=sum(r_["launches"]["segment_sum"]
+                     for r_ in (*runs.values(), *fault_runs.values()))
+        + fig2_launches.get("segment_sum", 0)
+        + campaign_launches.get("segment_sum", 0),
+        **segment_sum_phase(dev, sync, prob, runs["dane"]["res"].w, cuda_ms,
+                            bound)))
+    dane_turns(dev, sync, runs["dane"]["solver"], runs["dane"]["res"].state)
     b0 = rand(Kb) * 0.9 + 0.05
     m = randn(Kb, scale=3.0)
     c = rand(Kb) * 1e4
@@ -3412,10 +3904,18 @@ def main() -> int:
     # the device's busy share of a round: the device's kernel times for one
     # more full-width round of each solver, traced by the profiler (device
     # activity only: tracing the host's operator calls too takes minutes),
-    # over the unprofiled rounds' wall time
+    # over the unprofiled rounds' wall time.  FSVRG's and FedAvg's rounds
+    # run ≈ 15,000 and 30,000 host-bound batched steps, whose tracing cost
+    # ≈ 150 s: for them a sample of the round stands for it
+    # (sampled_round_profile)
     phase("profile")
     for name, run_ in runs.items():
         solver, res = run_["solver"], run_["res"]
+        if name in ("fsvrg", "fedavg"):
+            sampled_round_profile(name, solver, res, prob, dev, sync,
+                                  sum(run_["round_s"]) / len(run_["round_s"]))
+            continue
+        wall_s = sum(run_["round_s"]) / len(run_["round_s"])
         t = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             solver.round(res.state, threefry.fold_in(
@@ -3425,11 +3925,10 @@ def main() -> int:
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.self_device_time_total, reverse=True)
         busy_s = sum(e.self_device_time_total for e in events) / 1e6
-        wall_s = sum(run_["round_s"]) / len(run_["round_s"])
         if events:
             log(f"[profile] {name}: one round under the profiler "
                 f"({time.perf_counter() - t:.1f} s to trace): device busy "
-                f"{busy_s:.3f} s of the unprofiled {wall_s:.3f} s round -> "
+                f"{busy_s:.3f} s of the unprofiled {wall_s:.3f} s -> "
                 f"device idle share {1 - busy_s / wall_s:.1%}")
         else:
             log(f"[profile] {name}: device idle share: not measured (the "
@@ -3490,7 +3989,10 @@ def main() -> int:
     # -- 9. training rwkv6-3b at full width, the serving weights and the
     #       logreg phases' tensors freed first
     del served, model, params, res, runs, fault_runs, prob, ds
-    torch.cuda.empty_cache()
+    # and every name still holding a solver or a bucket (they hold the
+    # problem; the solvers sit in reference cycles)
+    del fsvrg, eng, solver, run_, cocoa_solver, cocoa_res, b
+    release("training")
     phase("training")
     rows.append(train_phase(dev, sync, compare, cuda_ms, bound))
     report(rows[-1])
@@ -3503,9 +4005,16 @@ def main() -> int:
     serve_dense_phase(dev, sync)
     phase("train-dense")
     train_dense_phase(dev, sync)
+    torch.cuda.empty_cache()
+
+    # -- 12. the MoE family: serving and training ----------------------------- #
+    phase("serve-moe")
+    serve_moe_phase(dev, sync)
+    phase("train-moe")
+    train_moe_phase(dev, sync)
     phase("done")
 
-    # -- 12. the result ------------------------------------------------------- #
+    # -- 13. the result ------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,14 @@ architectures (``get_config('<arch-id>')``, ``ARCH_IDS``).
 
 These are copies of the reference package's ``configs/gplus_logreg.py``,
 ``fsvrg_gplus.py``, ``gd_gplus.py``, ``fedavg_gplus.py``, ``dane_gplus.py``,
-``cocoa_gplus.py``, ``base.py``, ``rwkv6_3b.py`` and the dense attention
+``cocoa_gplus.py``, ``base.py``, ``rwkv6_3b.py``, the dense attention
 family's ``llama3_8b.py``, ``h2o_danube_1_8b.py``, ``codeqwen1_5_7b.py``
-and ``granite_20b.py`` (the port imports nothing of the reference), with
-the getters the solvers' registry defaults and the model stack read.  Of
-the reference's architectures RWKV-6 and the four dense decoders are
-ported; the MoE, hybrid, encoder-decoder and vision ones are known by name
-and raise ``NotImplementedError`` (ROADMAP A11).
+and ``granite_20b.py`` and the MoE family's ``phi3_5_moe_42b.py`` and
+``dbrx_132b.py`` (the port imports nothing of the reference), with the
+getters the solvers' registry defaults and the model stack read.  Of the
+reference's architectures RWKV-6, the four dense decoders and the two MoE
+decoders are ported; the hybrid, encoder-decoder and vision ones are
+known by name and raise ``NotImplementedError`` (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ _MODULES: Dict[str, Optional[str]] = {
     "jamba-v0.1-52b": None,
     "internvl2-1b": None,
     "llama3-8b": "llama3_8b",
-    "phi3.5-moe-42b-a6.6b": None,
-    "dbrx-132b": None,
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "dbrx-132b": "dbrx_132b",
     "rwkv6-3b": "rwkv6_3b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
 }

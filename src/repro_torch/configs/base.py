@@ -87,6 +87,18 @@ class ArchConfig:
                 enc += self._attn_params() + self._dense_mlp_params() + 2 * d
         return emb + per_layer + enc + d  # final norm
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        total = emb + d
+        for i in range(L):
+            total += self._layer_params(i, active_only=True)
+        if self.encoder_layers:
+            for i in range(self.encoder_layers):
+                total += self._attn_params() + self._dense_mlp_params() + 2 * d
+        return total
+
     # -- helpers ------------------------------------------------------- #
     def _attn_params(self) -> int:
         hd = self.head_dim or (self.d_model // max(self.num_heads, 1))
@@ -112,7 +124,7 @@ class ArchConfig:
         d = self.d_model
         return 4 * d * d + 2 * d * self.d_ff + 10 * d  # r,k,v,o + ffn + mixes/decay
 
-    def _layer_params(self, i: int) -> int:
+    def _layer_params(self, i: int, active_only: bool = False) -> int:
         d = self.d_model
         norms = 2 * d
         if self.attention_free:
@@ -122,7 +134,8 @@ class ArchConfig:
         else:
             mixer = self._attn_params()
         if self.moe is not None and (self.moe_period == 0 or i % self.moe_period == self.moe_period - 1):
-            mlp = self.moe.num_experts * self._dense_mlp_params() + d * self.moe.num_experts
+            n_e = self.moe.experts_per_token if active_only else self.moe.num_experts
+            mlp = n_e * self._dense_mlp_params() + d * self.moe.num_experts
         else:
             mlp = self._dense_mlp_params()
         return mixer + mlp + norms

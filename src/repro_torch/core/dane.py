@@ -42,6 +42,7 @@ from repro_torch.core.problem import ClientBucket, FederatedLogReg
 from repro_torch.core.registry import register
 from repro_torch.core.solver import FederatedSolver, SolverState
 from repro_torch.kernels import ops
+from repro_torch.kernels.segment_sum import SegmentPlan, segment_plan
 from repro_torch.utils import threefry
 from repro_torch.utils.device import DeviceLike
 
@@ -94,67 +95,89 @@ def ridge_grad(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return X @ (X.T @ w - y) / m + lam * w
 
 
-def data_grad(wk: torch.Tensor, bucket: ClientBucket,
-              out: torch.Tensor) -> torch.Tensor:
-    """The sparse data part of ∇F_k at every client's iterate, written to
-    ``out`` (Kb, d): Σ_i (−y_i σ(−y_i x_iᵀw_k)) x_i / n_k over the client's
-    valid rows.  ``wk`` is (Kb, d), or one (d,) iterate shared by all."""
+def row_scales(wk: torch.Tensor, bucket: ClientBucket) -> torch.Tensor:
+    """Each row's scale in the sparse data part of ∇F_k at its client's
+    iterate: −y_i σ(−y_i x_iᵀw_k) / n_k on the valid rows, 0 on the padded
+    ones, (Kb, m_pad).  ``wk`` is (Kb, d), or one (d,) iterate shared by
+    all."""
     Kb, m_pad, _ = bucket.idx.shape
-    flat_idx = bucket.idx.reshape(Kb, -1)
     wk = wk.expand(Kb, -1)
     nkf = bucket.n_k.to(torch.float32).clamp(min=1.0)
     valid = (torch.arange(m_pad, device=wk.device)[None, :]
              < bucket.n_k[:, None]).to(torch.float32)
-    z = bucket.y * (bucket.val * wk.gather(1, flat_idx).reshape(
-        bucket.idx.shape)).sum(dim=-1)
-    gs = -bucket.y * torch.sigmoid(-bucket.y * z) * valid / nkf[:, None]
-    # CUDA's atomic scatter_add_: DANE's local steps take this 26 times a
-    # round, where utils.scatter's sorted sum took 8× the round's time, so
-    # its rounds do not repeat bit for bit on the card (ROADMAP Queue C)
-    return out.zero_().scatter_add_(
-        1, flat_idx, (gs[..., None] * bucket.val).reshape(Kb, -1))
+    z = bucket.y * (bucket.val * wk.gather(1, bucket.idx.reshape(Kb, -1))
+                    .reshape(bucket.idx.shape)).sum(dim=-1)
+    return -bucket.y * torch.sigmoid(-bucket.y * z) * valid / nkf[:, None]
+
+
+def bucket_plan(bucket: ClientBucket, d: int) -> SegmentPlan:
+    """The fixed order of :func:`data_grad`'s sum over a bucket: its row
+    terms (· val) into the (Kb, d) slots (client k, feature idx[k, i, j]),
+    the terms of zero values (padded rows, a row's repeated features) left
+    out."""
+    Kb = bucket.num_clients
+    slots = (bucket.idx.reshape(Kb, -1)
+             + d * torch.arange(Kb, device=bucket.idx.device)[:, None])
+    return segment_plan(slots, Kb * d, keep=bucket.val != 0)
+
+
+def data_grad(wk: torch.Tensor, bucket: ClientBucket, plan: SegmentPlan,
+              out: torch.Tensor) -> torch.Tensor:
+    """The sparse data part of ∇F_k at every client's iterate, written to
+    ``out`` (Kb, d): Σ_i (−y_i σ(−y_i x_iᵀw_k)) x_i / n_k over the client's
+    valid rows, summed in the order of the bucket's ``plan``
+    (:func:`bucket_plan`): the same bits from call to call on the card,
+    where CUDA's atomic scatter_add_ is not.  ``wk`` is (Kb, d), or one
+    (d,) iterate shared by all."""
+    return ops.segment_sum(plan, row_scales(wk, bucket).contiguous(),
+                           bucket.val.contiguous(), out)
 
 
 def dane_gd_pass(w0: torch.Tensor, full_grad: torch.Tensor,
                  bucket: ClientBucket, lam: float, cfg: DANEConfig,
                  out: torch.Tensor, *, g: Optional[torch.Tensor] = None,
-                 a: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 a: Optional[torch.Tensor] = None,
+                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """``local_steps`` GD steps on subproblem (10) for every client of a
     bucket — the counterpart of the reference's ``_dane_gd_pass``.
 
     The iterates are stepped in place in ``out`` (Kb, d), which ends
     holding the deltas w_k − w0.  ``g`` and ``a`` are optional (≥Kb, d)
-    scratches for the data gradient and a_k = ∇F_k(w^t) − η∇f(w^t)."""
+    scratches for the data gradient and a_k = ∇F_k(w^t) − η∇f(w^t);
+    ``plan`` is the bucket's :func:`bucket_plan` (built here if None)."""
     Kb = bucket.num_clients
     d = w0.shape[0]
     g = torch.empty_like(out) if g is None else g[:Kb]
     a = torch.empty_like(out) if a is None else a[:Kb]
-    data_grad(w0, bucket, a)
+    plan = bucket_plan(bucket, d) if plan is None else plan
+    data_grad(w0, bucket, plan, a)
     a += lam * w0
     a -= cfg.eta * full_grad
     wk = out
     wk.copy_(w0.expand(Kb, d))
     for _ in range(cfg.local_steps):
-        data_grad(wk, bucket, g)
+        data_grad(wk, bucket, plan, g)
         ops.dane_update(wk, g, a, w0, cfg.local_lr, lam, cfg.mu, out=wk)
     return wk.sub_(w0)
 
 
 def dane_svrg_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
                          bucket: ClientBucket, lam: float, cfg: DANEConfig,
-                         samples: torch.Tensor,
-                         out: torch.Tensor) -> torch.Tensor:
+                         samples: torch.Tensor, out: torch.Tensor, *,
+                         plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """Proposition 1: one epoch of generic SVRG on subproblem (10) *as a
     subproblem* (η = 1, µ = 0), for every client of a bucket over explicit
     sample indices ``samples`` (Kb, m) — the counterpart of the reference's
     ``_dane_svrg_pass_keyed``.  a_k and the linear term are materialized,
-    as in the reference.  Writes the deltas w_k − w0 into ``out``."""
+    as in the reference.  Writes the deltas w_k − w0 into ``out``.
+    ``plan`` is the bucket's :func:`bucket_plan` (built here if None)."""
     Kb = bucket.num_clients
     d = w0.shape[0]
     rows = torch.arange(Kb, device=w0.device)
+    plan = bucket_plan(bucket, d) if plan is None else plan
 
     def fk_grad(wk):
-        return data_grad(wk, bucket, torch.empty_like(out)) + lam * wk
+        return data_grad(wk, bucket, plan, torch.empty_like(out)) + lam * wk
 
     f0 = fk_grad(w0)
     a_k = f0 - full_grad                               # η = 1
@@ -163,6 +186,10 @@ def dane_svrg_pass_keyed(w0: torch.Tensor, full_grad: torch.Tensor,
     def fi_grad(wk, xi, vi, yi):
         z = (vi * wk.expand(Kb, d).gather(1, xi)).sum(dim=1)
         gs = -yi * torch.sigmoid(-yi * z)
+        # one row a client: a feature that repeats within a row has its
+        # repeats' values zeroed (the generator's dedupe), so each slot
+        # gets at most one nonzero term and the atomic sum is exact in any
+        # order — the same bits from run to run
         return torch.zeros_like(out).scatter_add_(1, xi,
                                                   gs[:, None] * vi) + lam * wk
 
@@ -202,6 +229,9 @@ class DANE(FederatedSolver):
             participation_model=cfg.participation_model,
             fault_model=cfg.fault_model,
         )
+        # each bucket's plan of data_grad's sum, built on its first pass
+        # (its rows never change); a chunk pass builds its chunk's own
+        self._plans = {}
         if cfg.local_solver == "gd":
             # the steps' scratches (data gradient, a_k), shared by passes
             self._scratch("_g", self.engine.pass_rows())
@@ -223,18 +253,21 @@ class DANE(FederatedSolver):
         return threefry.randint(keys, (self.cfg.svrg_steps,), 0,
                                 bucket.n_k.clamp(min=1))
 
-    def _gd(self, w, bucket, out, full_grad):
+    def _gd(self, w, bucket, out, full_grad, plan=None):
         Kb = bucket.num_clients
         dane_gd_pass(w, full_grad, bucket, self.problem.flat.lam, self.cfg,
                      out, g=self._scratch("_g", Kb),
-                     a=self._scratch("_a", Kb))
+                     a=self._scratch("_a", Kb), plan=plan)
 
     def _pass(self, w, bi, bucket, kb, out, full_grad):
+        if bi not in self._plans:
+            self._plans[bi] = bucket_plan(bucket, self.problem.d)
         if self.cfg.local_solver == "gd":
-            self._gd(w, bucket, out, full_grad)
+            self._gd(w, bucket, out, full_grad, self._plans[bi])
         else:
             dane_svrg_pass_keyed(w, full_grad, bucket, self.problem.flat.lam,
-                                 self.cfg, self.samples(kb, bi, bucket), out)
+                                 self.cfg, self.samples(kb, bi, bucket), out,
+                                 plan=self._plans[bi])
 
     def _chunk_pass(self, w, bi, bucket, keys, out, full_grad):
         """The keyed chunk pass: a chunk, a gathered cohort or a

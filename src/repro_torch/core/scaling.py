@@ -14,6 +14,7 @@ Counts are integer sums in float32, so they match the reference exactly.
 regenerated, so S_k of a chunk of virtual clients is formed the same way.
 On a virtual problem n^j and ω^j stream over regenerated client chunks
 (:class:`~repro_torch.core.problem.VirtualFlat`), the same integer sums.
+:func:`expert_occupancy` is the MoE router's counterpart of n_k^j.
 """
 from __future__ import annotations
 
@@ -79,3 +80,17 @@ def s_k_diag(phi_global: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     nkf = n_k.to(torch.float32).clamp(min=1.0)
     phi_k = nkj / (nkf[:, None] if nkj.dim() == 2 else nkf)
     return torch.where(nkj > 0, phi_global / phi_k.clamp(min=1e-12), 1.0)
+
+
+def expert_occupancy(router_probs: torch.Tensor, top_k: int) -> torch.Tensor:
+    """MoE analogue of n_k^j: which experts this client's tokens route to.
+
+    router_probs: (tokens, E) softmax router outputs for one client's batch.
+    Returns (E,) f32 counts of the tokens whose top-k includes each expert;
+    equal probabilities keep the lower expert first (``jax.lax.top_k``'s
+    rule, a stable descending sort here)."""
+    topi = torch.sort(router_probs, dim=-1, descending=True,
+                      stable=True).indices[:, :top_k]
+    onehot = torch.zeros(router_probs.shape, dtype=torch.float32,
+                         device=router_probs.device).scatter_(1, topi, 1.0)
+    return onehot.sum(0)

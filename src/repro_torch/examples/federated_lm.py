@@ -12,8 +12,9 @@ token distribution (the LM analogue of the paper's per-author vocabulary)
 Trains the reference's reduced "~100M" variant of the architecture (4
 layers, d 256, d_ff 1,024, vocab 8,192; an attention decoder's 4 heads of
 64 over 2 KV heads) in f32, on the CUDA card unless ``--device cpu``:
-RWKV-6 or a dense attention decoder.  A family the port has no layers for
-raises ``NotImplementedError``, as ``build_model`` does.
+RWKV-6, a dense attention decoder or an MoE decoder (the reduced
+config's 4 experts).  A family the port has no layers for raises
+``NotImplementedError``, as ``build_model`` does.
 """
 from __future__ import annotations
 

@@ -36,6 +36,7 @@ SOURCES = {
     "robust_aggregate": "robust_aggregate.cu",
     "wkv6": "wkv6.cu",
     "wkv6_bwd": "wkv6_bwd.cu",
+    "segment_sum": "segment_sum.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -67,6 +68,8 @@ SIGNATURES = {
     "wkv6_bwd": ("wkv6_bwd_launch", [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _I, _I, _I, _P]),
+    "segment_sum": ("segment_sum_launch", [_P, _P, _I, _P, _P, _P, _L, _P, _L,
+                                           _P]),
 }
 EXTRA_SIGNATURES = {
     "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],

@@ -19,6 +19,7 @@ from repro_torch.kernels import fsvrg_update as _fu
 from repro_torch.kernels import ref
 from repro_torch.kernels import robust_aggregate as _ra
 from repro_torch.kernels import scaled_aggregate as _sa
+from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import wkv6 as _wk
 
 Scalar = Union[float, torch.Tensor]
@@ -36,6 +37,7 @@ KERNELS = {
     "robust_aggregate": _ra.robust_aggregate,
     "wkv6": _wk.wkv6,
     "wkv6_bwd": _wk.wkv6_bwd,
+    "segment_sum": _ss.segment_sum,
 }
 
 
@@ -174,3 +176,14 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 d_state=d_state)
     return _wk.wkv6_bwd(r, k, v, w, u, d_out, chunk, state=state,
                         d_state=d_state)
+
+
+def segment_sum(plan: _ss.SegmentPlan, a: torch.Tensor, b: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+    """out[s] = Σ over the terms t of slot s of a[t // group] · b[t] (0 for
+    a slot with no term), in the order of ``plan``
+    (:func:`repro_torch.kernels.segment_sum.segment_plan`): the same bits
+    from call to call, on the card and on the CPU alike."""
+    if _on_cpu(out):
+        return ref.segment_sum_ref(plan, a, b, out)
+    return _ss.segment_sum(plan, a, b, out)

@@ -13,6 +13,8 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.kernels.segment_sum import LANES
+
 Scalar = Union[float, torch.Tensor]
 
 _F32 = torch.float32
@@ -500,3 +502,28 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q = dc[:, t] + wb[:, t + 1] * q
             dw[:, n * L + t] = c_prev[:, t] * q
     return dr, dk, dv, dw, du, None if state is None else ds
+
+
+def segment_sum_ref(plan, a: torch.Tensor, b: torch.Tensor,
+                    out: torch.Tensor) -> torch.Tensor:
+    """The plain version of the segment_sum kernel: out[slot of run r] =
+    the run's products a[t // group] · b[t] (group = n_terms / a.numel()),
+    lane i mod 32 of the run adding its terms i in turn from 0, the 32
+    lanes then combined by the butterfly p_l + p_(l xor o) for o = 16, 8,
+    4, 2, 1 (lane 0's sums: the halves added, five times); every other
+    slot 0.  The kernel's sums, bit for bit."""
+    flat_out = out.view(-1)
+    flat_out.zero_()
+    if plan.n_runs == 0:
+        return out
+    t, key, bounds = plan.lane_steps
+    # every product rounded once, as the kernel's; the summed ones taken
+    terms = (a.reshape(-1, 1) * b.reshape(a.numel(), -1)).reshape(-1)[t]
+    partial = torch.zeros(LANES * plan.n_runs, dtype=_F32, device=out.device)
+    for lo, hi in bounds:        # within a step, a (lane, run) key once
+        partial.index_add_(0, key[lo:hi], terms[lo:hi])
+    p = partial.view(LANES, plan.n_runs)
+    for w in (16, 8, 4, 2, 1):
+        p = p[:w] + p[w:2 * w]
+    flat_out.index_copy_(0, plan.run_slot.long(), p[0])
+    return out

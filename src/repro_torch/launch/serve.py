@@ -8,9 +8,10 @@ reference's ``launch/serve.py``).
 
 Runs the reduced config in f32, as the reference does, on the CUDA card
 unless ``--device cpu``.  :func:`serve` is the loop itself; ``chip_smoke.py``
-calls it at full width.  RWKV-6 (``rwkv6-3b``) and the dense attention
+calls it at full width.  RWKV-6 (``rwkv6-3b``), the dense attention
 decoders (``llama3-8b``, ``h2o-danube-1.8b``, ``codeqwen1.5-7b``,
-``granite-20b``) are ported; the other architectures raise
+``granite-20b``) and the MoE decoders (``phi3.5-moe-42b-a6.6b``,
+``dbrx-132b``) are ported; the other architectures raise
 ``NotImplementedError`` (ROADMAP A11).
 
 Unlike the reference's serve loop, this one decodes from a cache with room

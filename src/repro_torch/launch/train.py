@@ -12,10 +12,11 @@ Modes:
 
 Runs the reduced config in f32 by default, as the reference does, and the
 full config in bf16 with ``--full``; on the CUDA card unless
-``--device cpu``.  RWKV-6 (``rwkv6-3b``) and the dense attention
-decoders (``llama3-8b``, ``h2o-danube-1.8b``, ``codeqwen1.5-7b``,
-``granite-20b``) are ported; the other architectures raise
-``NotImplementedError`` (ROADMAP A11).  At full width one 80 GB card
+``--device cpu``.  RWKV-6 (``rwkv6-3b``), the dense attention decoders
+(``llama3-8b``, ``h2o-danube-1.8b``, ``codeqwen1.5-7b``, ``granite-20b``)
+and the MoE decoders (``phi3.5-moe-42b-a6.6b``, ``dbrx-132b``) are
+ported; the other architectures raise ``NotImplementedError`` (ROADMAP
+A11).  At full width one 80 GB card
 trains rwkv6-3b and h2o-danube-1.8b; the 7–20 B decoders need the
 sharded mesh.  ``--production-mesh`` (the reference's sharded mesh,
 ROADMAP A12) raises ``NotImplementedError``.

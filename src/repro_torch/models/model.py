@@ -11,9 +11,12 @@ module, as in the reference:
     grow_cache(cache, max_seq)         -> cache with room for max_seq
     decode_step(params, tokens, cache) -> (logits, cache)        # one token
 
-Only the decoder-only families the port has layers for are built (RWKV-6
-and the dense attention decoders); the MoE and hybrid layers, the vision
-and audio front-ends and the encoder-decoder wait for ROADMAP A11.
+Only the decoder-only families the port has layers for are built (RWKV-6,
+the dense attention decoders and the MoE decoders); the hybrid layers, the
+vision and audio front-ends and the encoder-decoder wait for ROADMAP A11.
+``loss`` returns ce + the config's ``load_balance_weight`` · the MoE
+layers' summed load-balance loss (0 without MoE layers), with metrics
+``{"ce", "aux"}``, as the reference's does.
 
 ``prefill`` returns the reference's cache: an attention layer's K and V of
 exactly the prompt's S tokens (the window's last entries as a ring where
@@ -125,19 +128,21 @@ def _build_decoder_only(cfg: ArchConfig, dtype: torch.dtype,
 
     def loss(params: LMParams, batch: Mapping[str, torch.Tensor]):
         x = params.embed[batch["tokens"]]
-        h, _ = T.stack_forward(params.layers, cfg, x, remat=True,
-                               collect_cache=False)
+        h, _, aux = T.stack_forward(params.layers, cfg, x, remat=True,
+                                    collect_cache=False)
         h = L.rms_norm(h, params.out_norm, cfg.norm_eps)
         ce = L.lm_head_loss(h, _unembed(params, cfg), batch["labels"],
                             batch["mask"])
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        return ce, {"ce": ce, "aux": aux}
+        # the reference's ce + 0.0 · aux without MoE layers is ce itself
+        total = (ce if cfg.moe is None
+                 else ce + cfg.moe.load_balance_weight * aux)
+        return total, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(params: LMParams, batch: Mapping[str, torch.Tensor]):
         x = params.embed[batch["tokens"]]
         S = x.shape[1]
-        h, entries = T.stack_forward(params.layers, cfg, x)
+        h, entries, _ = T.stack_forward(params.layers, cfg, x)
         h = L.rms_norm(h, params.out_norm, cfg.norm_eps)
         logits = h[:, -1] @ _unembed(params, cfg)
         return logits, _prefill_cache_from_entries(cfg, entries, S)

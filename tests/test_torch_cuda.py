@@ -1247,3 +1247,103 @@ def test_dense_loss_and_gradients_on_the_card_match_the_cpu(cuda):
     for n in gc:
         err = float((gd[n].cpu() - gc[n]).abs().max())
         assert err <= 1e-3 * float(gc[n].abs().max()), n
+
+
+# --------------------------------------------------------------------- #
+# the fixed-order segment sum (DANE's local gradient) and the MoE family
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("run,group", [(1, 1), (33, 4), (2_000, 62)])
+def test_segment_sum_matches_plain_bit_for_bit(cuda, run, group):
+    """The kernel against its plain version (the same lanes, the same
+    butterfly: the same bits), twice; every slot without a run zeroed."""
+    from repro_torch.kernels import segment_sum as ss
+    g = _gen(cuda)
+    n_slots = 10_000
+    used = torch.randperm(n_slots, device=cuda, generator=g)[:500]
+    slots = used.repeat_interleave(run)
+    slots = slots[torch.randperm(slots.numel(), device=cuda, generator=g)]
+    n = slots.numel() - slots.numel() % group
+    slots = slots[:n]
+    a = torch.randn(n // group, device=cuda, generator=g)
+    b = torch.randn(n, device=cuda, generator=g)
+    plan = ss.segment_plan(slots, n_slots, keep=b.abs() > 0.05)
+    before = ops.launch_counts()["segment_sum"]
+    got = ops.segment_sum(plan, a, b, torch.full((n_slots,), float("nan"),
+                                                 device=cuda))
+    again = ops.segment_sum(plan, a, b, torch.empty(n_slots, device=cuda))
+    assert ops.launch_counts()["segment_sum"] == before + 2
+    want = ref.segment_sum_ref(plan, a, b, torch.empty(n_slots, device=cuda))
+    assert torch.equal(got, again) and torch.equal(got, want)
+    assert not got[~torch.isin(torch.arange(n_slots, device=cuda),
+                               plan.run_slot.long())].any()
+
+
+def test_dane_rounds_repeat_bit_for_bit_on_the_card(cuda):
+    """Two runs of DANE (the GD solver: 26 segment sums a bucket and round)
+    give the same iterate bit for bit, and agree with the CPU's run."""
+    prob = build_problem(generate(get_logreg_config().scaled(0.002), 0,
+                                  device=cuda), device=cuda)
+    before = ops.launch_counts()["segment_sum"]
+    ws = [Trainer(make_solver("dane", prob), rounds=2, seed=0).fit().w
+          for _ in range(2)]
+    assert ops.launch_counts()["segment_sum"] > before
+    assert torch.equal(ws[0], ws[1])
+    cpu = build_problem(generate(get_logreg_config().scaled(0.002), 0,
+                                 device="cpu"), device="cpu")
+    wc = Trainer(make_solver("dane", cpu, device="cpu"), rounds=2,
+                 seed=0).fit().w
+    torch.testing.assert_close(ws[0].cpu(), wc, rtol=1e-4,
+                               atol=1e-4 * float(wc.abs().max()))
+
+
+@pytest.mark.parametrize("cf", [2.0, 0.5])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_moe_fwd_on_the_card_matches_the_cpu(cuda, cf, dtype, tol):
+    """``moe_fwd`` at reduced phi3.5 with E = 8, top-2 (tokens dropped at
+    cf 0.5): the same dispatch (equal token indices), the output to tol of
+    its max (f32: sums in other orders; bf16: an ulp of the products and
+    of the combine), the aux loss to 1e-6."""
+    import dataclasses
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b").reduced(),
+                              moe=MoEConfig(8, 2))
+    g = torch.Generator().manual_seed(0)
+    p = moe.init_moe(g, cfg, dtype)
+    x = torch.randn((2, 64, cfg.d_model), generator=g).to(dtype)
+    oc, ac = moe.moe_fwd(p, x, cfg, capacity_factor=cf)
+    pd = {k: v.to(cuda) for k, v in p.items()}
+    od, ad = moe.moe_fwd(pd, x.to(cuda), cfg, capacity_factor=cf)
+    C = moe.capacity(64, cfg, cf)
+    wc = moe.route_topk(x.float() @ p["router"], 2)[0]
+    wd = moe.route_topk(x.to(cuda).float() @ pd["router"], 2)[0]
+    assert torch.equal(moe.dispatch(wd, C)[1].cpu(), moe.dispatch(wc, C)[1])
+    assert od.dtype == dtype
+    torch.testing.assert_close(od.cpu().float(), oc.float(), rtol=tol,
+                               atol=tol * float(oc.float().abs().max()))
+    assert abs(float(ad) - float(ac)) <= 1e-6 * abs(float(ac))
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "dbrx-132b"])
+def test_small_moe_serve_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced MoE configs in f32 with the same weights on the card
+    and the CPU: ``serve`` of 2 × 64 tokens and 4 decode steps gives the
+    same tokens, logits to 1e-4 of their max; no custom kernel runs."""
+    cfg = get_config(arch).reduced()
+    m_cpu = build_model(cfg, torch.float32, device="cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    m_dev = build_model(cfg, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    on_cpu = serve(m_cpu, p_cpu, prompt, 5)
+    before = ops.launch_counts()
+    on_dev = serve(m_dev, p_dev, prompt.to(cuda), 5)
+    assert ops.launch_counts() == before
+    assert torch.equal(on_dev.tokens.cpu(), on_cpu.tokens)
+    torch.testing.assert_close(on_dev.logits.cpu(), on_cpu.logits, rtol=1e-4,
+                               atol=1e-4 * float(on_cpu.logits.abs().max()))

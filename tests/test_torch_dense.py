@@ -27,6 +27,7 @@ Tolerances, each beside what was observed:
 Greedy tokens must agree exactly in f32.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -264,17 +265,27 @@ def test_attention_decode_writes_in_place_and_refuses_a_full_cache():
 # --------------------------------------------------------------------- #
 
 
-@pytest.fixture(scope="module", params=DENSE)
-def models(request):
+@functools.lru_cache(maxsize=None)
+def _models(arch):
     """The reference model and its params, and the port's with the same
-    weights, in f32."""
-    arch = request.param
+    weights, in f32: built once a module run."""
     ref_cfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
     jm = ref_build_model(ref_cfg, jnp.float32)
     jp = jm.init(jax.random.PRNGKey(0))
     pm = build_model(cfg, torch.float32, device="cpu")
     pp = bridge.params_from_tree(jax.tree.map(np.asarray, jp), pm)
     return jm, jp, pm, pp
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def models(request):
+    return _models(request.param)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_models():
+    yield
+    _models.cache_clear()
 
 
 def _tokens(seed, S, B=2):
@@ -391,11 +402,7 @@ def test_serve_continues_like_the_reference_prefill_of_the_longer_prompt(
     last logits are that prefill's.  S = 32 grows a 32-slot cache (under
     danube's window of 64 too); danube's S = 96 starts past the window:
     the ring is kept and wraps."""
-    ref_cfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
-    jm = ref_build_model(ref_cfg, jnp.float32)
-    jp = jm.init(jax.random.PRNGKey(0))
-    pm = build_model(cfg, torch.float32, device="cpu")
-    pp = bridge.params_from_tree(jax.tree.map(np.asarray, jp), pm)
+    jm, jp, pm, pp = _models(arch)
     toks = _tokens(11, S)
     k = 3
     res = serve.serve(pm, pp, torch.from_numpy(toks), k)

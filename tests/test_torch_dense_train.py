@@ -18,6 +18,8 @@ Tolerances, each beside what was observed:
   ``jax.grad`` of the same mean loss, jitted or not, agreed with the
   eager round.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,7 +56,10 @@ def _leaves(tree):
             for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+@functools.lru_cache(maxsize=None)
 def _models(arch):
+    """The reference model and its params, and the port's with the same
+    weights, in f32: built once a module run."""
     ref_cfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
     jm = ref_build_model(ref_cfg, jnp.float32)
     jp = jm.init(jax.random.PRNGKey(0))
@@ -96,7 +101,8 @@ def test_model_loss_and_gradients_match_the_reference(arch):
 
 @pytest.fixture(scope="module")
 def danube():
-    return _models("h2o-danube-1.8b")
+    yield _models("h2o-danube-1.8b")
+    _models.cache_clear()
 
 
 @pytest.mark.parametrize("algorithm", ["fsvrg", "fedavg"])

@@ -137,9 +137,11 @@ def test_training_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
 
 
 def test_unported_architectures_name_the_roadmap():
-    for arch in ("phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b",
-                 "seamless-m4t-medium"):
+    for arch in ("jamba-v0.1-52b", "seamless-m4t-medium", "internvl2-1b"):
         with pytest.raises(NotImplementedError, match="A11"):
             get_config(arch)
+    for arch in ("phi3.5-moe-42b-a6.6b", "dbrx-132b"):
+        assert get_config(arch).name == arch
+        assert get_config(arch).family == "moe"
     with pytest.raises(KeyError):
         get_config("no-such-arch")

@@ -330,12 +330,18 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     got = ops.wkv6_bwd(r, k, v, w, u, g, 11)
     assert got[-1] is None and all(torch.equal(a, b) for a, b in zip(
         got[:-1], ref.wkv6_bwd_ref(r, k, v, w, u, g, 11)[:-1]))
+    from repro_torch.kernels.segment_sum import segment_plan
+    plan = segment_plan(idx + 5 * torch.arange(4)[:, None, None], 20,
+                        keep=val != 0)
+    assert torch.equal(ops.segment_sum(plan, x[2], val, torch.empty(4, 5)),
+                       ref.segment_sum_ref(plan, x[2], val,
+                                           torch.empty(4, 5)))
     assert ops.launch_counts() == before
     assert set(before) == {"fused_aggregate", "fused_accumulate",
                            "fused_epilogue", "fsvrg_update", "fedavg_update",
                            "dane_update", "cocoa_sdca_update",
                            "cocoa_sdca_pass", "robust_aggregate", "wkv6",
-                           "wkv6_bwd"}
+                           "wkv6_bwd", "segment_sum"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

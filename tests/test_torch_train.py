@@ -152,7 +152,7 @@ def test_model_loss_and_gradients_match_the_reference(models, S):
     8 in the port (the reference runs a ragged S sequentially)."""
     jm, jp, pm, pp = models
     b = _batch(S, (2,), S, pm.cfg.vocab_size, holes=True)
-    (jl, jaux), jg = jax.value_and_grad(jm.loss, has_aux=True)(
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
         jp, jax.tree.map(jnp.asarray, b))
     names, leaves = zip(*pp.named_parameters())
     tl, taux = pm.loss(pp, bridge.batch_from_arrays(b, "cpu"))
@@ -185,8 +185,8 @@ def test_remat_changes_nothing_but_the_recompute(models):
         for remat in (False, True):
             calls.clear()
             xr = x.clone().requires_grad_()
-            h, _ = transformer.stack_forward(pp.layers, pm.cfg, xr,
-                                             remat=remat)
+            h, _, _ = transformer.stack_forward(pp.layers, pm.cfg, xr,
+                                                remat=remat)
             grads = torch.autograd.grad(h.square().sum(),
                                         [xr, *pp.layers.parameters()])
             out[remat] = (h, grads, len(calls))
@@ -247,10 +247,14 @@ def test_round_matches_the_reference(models, fed_kw):
 
 
 def test_stepsize_zero_is_the_identity(models):
-    _, _, tree, _, _ = _rounds(models, dict(stepsize=0.0), C=2, T=1)
-    _, _, _, pp = models
+    """The port's round at stepsize 0 (the reference's round is not run:
+    nothing here compares with it)."""
+    _, _, pm, pp = models
+    b = _batch(0, (2, 1, 2), 64, pm.cfg.vocab_size)
+    pnew, _ = neural.make_fsvrg_round(pm, neural.FedNeuralConfig(
+        local_steps=1, stepsize=0.0))(pp, bridge.batch_from_arrays(b, "cpu"))
     before = _leaves(bridge.tree_from_params(pp))
-    for k, v in _leaves(tree).items():
+    for k, v in _leaves(bridge.tree_from_params(pnew)).items():
         np.testing.assert_array_equal(v, before[k])
 
 
@@ -342,7 +346,7 @@ def test_adamw_step_matches_the_reference(models):
     b = _batch(3, (2,), 32, pm.cfg.vocab_size)
     lr = 3e-4
     jopt = ref_optim.adamw(lr)
-    (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(
+    (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
         jp, jax.tree.map(jnp.asarray, b))
     jnew, _ = jopt.update(jp, jg, jopt.init(jp), jnp.zeros((), jnp.int32))
     opt = optim.adamw(lr)
@@ -394,7 +398,7 @@ def test_federated_lm_example_runs_on_the_cpu():
                               "--batch-per-client", "1", "--clients", "2"])
     assert np.isfinite(loss)
     with pytest.raises(NotImplementedError):
-        federated_lm.main(["--arch", "phi3.5-moe-42b-a6.6b", "--device",
+        federated_lm.main(["--arch", "jamba-v0.1-52b", "--device",
                            "cpu"])
 
 
@@ -446,8 +450,10 @@ def test_tolerances_cover_rounding_level_perturbations(models):
     b = jax.tree.map(jnp.asarray, _batch(64, (2,), 64, pm.cfg.vocab_size,
                                          holes=True))
 
+    grad = jax.jit(jax.grad(lambda q: jm.loss(q, b)[0]))
+
     def grads(p):
-        return _leaves(jax.grad(lambda q: jm.loss(q, b)[0])(p))
+        return _leaves(grad(p))
 
     g0, g1 = grads(jp), grads(_perturbed(jp, 1))
     assert max(_rel(g1[k], g0[k]) for k in g0) <= GRAD_TOL
