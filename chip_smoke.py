@@ -98,9 +98,13 @@ Phases, in order (any failure raises and exits non-zero):
 9. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events at the main paths' shapes, beside the bound (the least time the
    card could take) — ``segment_sum`` at every bucket of the §4 problem
-   against its plain version bit for bit and against the atomic
-   ``scatter_add_`` it replaced, then DANE's round from one state with
-   either sum, in turns (the fixed-order rounds ``torch.equal``) —
+   (its runs by length, its plan's build seconds and units, the host's
+   time a call) against its plain version bit for bit and against the
+   atomic ``scatter_add_`` it replaced, then DANE's round from one state
+   with either sum, in turns (the fixed-order rounds ``torch.equal``);
+   the full gradient's sum through ``utils.scatter``, the atomic
+   ``index_add_`` and, measured only, ``segment_sum`` with a plan of the
+   flat view —
    ``robust_aggregate``'s trimmed mean and median at the faulted cells' m
    and at m = K, ``cocoa_sdca_pass`` at every bucket of a round, the
    host-bound wrappers also by the profiler's device time — ``wkv6`` in
@@ -2576,26 +2580,34 @@ def segment_sum_phase(dev, sync, prob, w, cuda_ms, bound) -> dict:
     """``segment_sum`` at DANE's main path's shapes — every bucket of the
     §4 problem with its plan and the local gradient's terms at ``w`` (a
     DANE iterate): the kernel against its plain version (the same bits)
-    and against itself (two calls); its time, the plain version's and the
-    atomic ``scatter_add_``'s (the sum it replaced) summed over the
-    buckets, one call each, beside the bound (bytes: each kept term's slot
-    index and b, a and out once).  Returns the numbers for the kernels
-    line."""
+    and against itself (two calls, ``out`` filled with NaN before each);
+    each bucket's runs by length (1, 2, 3–32, more than 32 terms), its
+    plan's build seconds, units and the bytes they add; its time, the
+    host's time a call, the plain version's and the atomic
+    ``scatter_add_``'s (the sum it replaced) summed over the buckets, one
+    call each, beside the bound (bytes: each kept term's slot index and b,
+    a and out once).  Returns the numbers for the kernels line."""
     import torch
     from repro_torch.core.dane import bucket_plan, row_scales
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_sum import TILE
 
     d = prob.d
     ms = plain = lib = nbytes = 0.0
     longest, n_terms, n_runs = 0, 0, 0
     for bi, b in enumerate(prob.buckets):
         Kb = b.num_clients
+        sync()
+        t0 = time.perf_counter()
         plan = bucket_plan(b, d)
+        sync()
+        plan_s = time.perf_counter() - t0
         flat_idx = b.idx.reshape(Kb, -1)
         gs = row_scales(w, b).contiguous()
         val = b.val.contiguous()
         out = torch.full((Kb, d), float("nan"), device=dev)
         got = ops.segment_sum(plan, gs, val, out).clone()
+        out.fill_(float("nan"))
         again = ops.segment_sum(plan, gs, val, out).clone()
         want = ref.segment_sum_ref(plan, gs, val, torch.empty_like(out))
         sync()
@@ -2609,34 +2621,48 @@ def segment_sum_phase(dev, sync, prob, w, cuda_ms, bound) -> dict:
         require(err <= 1e-5 * float(got.abs().max()) + 1e-12,
                 f"segment_sum bucket {bi}: far from the atomic sum")
         runs = plan.run_start[1:] - plan.run_start[:-1]
+        hist = [int((runs == 1).sum()), int((runs == 2).sum()),
+                int(((runs > 2) & (runs <= 32)).sum()), int((runs > 32).sum())]
         longest = max(longest, int(runs.max()))
         n_terms += plan.order.numel()
         n_runs += plan.n_runs
         # the function's bytes: each kept term's slot index and b once, a
-        # and out once (the plan's run arrays are the design's, not the
-        # function's, and are left out)
+        # and out once (the plan's run arrays and units are the design's,
+        # not the function's, and are left out)
         b_bytes = plan.order.numel() * 8 + gs.numel() * 4 + Kb * d * 4
         nbytes += b_bytes
         k_ms = cuda_ms(lambda: ops.segment_sum(plan, gs, val, out))
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(20):            # the host's part of a call
+            ops.segment_sum(plan, gs, val, out)
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        sync()
         p_ms = cuda_ms(lambda: ref.segment_sum_ref(plan, gs, val, out),
                        iters=3, warmup=1)
         a_ms = cuda_ms(lambda: torch.zeros_like(out).scatter_add_(
             1, flat_idx, terms))
         ms, plain, lib = ms + k_ms, plain + p_ms, lib + a_ms
+        b_ms = bound(b_bytes, 0)[0]
         log(f"[check] segment_sum bucket {bi} ({Kb} × {b.m_pad} rows, "
             f"{plan.order.numel():,} nonzero terms into {Kb * d:,} slots, "
-            f"{plan.n_runs:,} runs, the longest {int(runs.max())}): kernel "
-            "== plain version and == itself bit for bit; vs the atomic "
-            f"scatter_add_ {err:.3e}; kernel {k_ms:.4f} ms, plain "
+            f"{plan.n_runs:,} runs of 1 / 2 / 3–32 / > 32 terms "
+            + " / ".join(f"{h:,}" for h in hist) + f", the longest "
+            f"{int(runs.max())}; plan {plan_s:.3f} s, {plan.n_units:,} units "
+            f"of ≤ {TILE} slots, {plan.unit_bytes:,} B more): kernel == "
+            "plain version and == itself bit for bit; vs the atomic "
+            f"scatter_add_ {err:.3e}; kernel {k_ms:.4f} ms ({b_ms / k_ms:.1%} "
+            f"of the bound; the host {host_ms:.4f} ms a call), plain "
             f"{p_ms:.2f} ms, atomic scatter_add_ {a_ms:.4f} ms, bound "
-            f"{bound(b_bytes, 0)[0]:.4f} ms (bytes)")
-        del out, got, again, want, terms, atomic
+            f"{b_ms:.4f} ms (bytes)")
+        del out, got, again, want, terms, atomic, plan
     b_ms, b_by = bound(nbytes, 2 * n_terms)
     log(f"[time] segment_sum, one call a bucket ({len(prob.buckets)} "
         f"buckets, {n_terms:,} terms, {n_runs:,} runs, the longest "
         f"{longest}): kernel {ms:.4f} ms, plain {plain:.2f} ms, atomic "
         f"scatter_add_ {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nbytes / 1e9:.3f} GB); {b_ms / ms:.1%} of the bound")
+        f"{nbytes / 1e9:.3f} GB); {b_ms / ms:.1%} of the bound (target ≥ "
+        "50 %)")
     torch.cuda.empty_cache()
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by)
@@ -2699,6 +2725,7 @@ def main() -> int:
                                    fault_counts, fleet_masks)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import robust_aggregate as ra_kernel
+    from repro_torch.kernels import segment_sum as ss_kernel
     from repro_torch.utils import threefry
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 yardsticks
@@ -2757,6 +2784,14 @@ def main() -> int:
         log(f"[build] wkv6_bwd {part}: {regs} registers a thread, {smem} B "
             f"of shared memory a block, {blocks} blocks of 256 an SM (the "
             f"occupancy calculator), {local} B of local memory a thread")
+    occupancy = _build.launcher("segment_sum", "segment_sum_occupancy")
+    res = [ctypes.c_int(0) for _ in range(5)]
+    _build.check(occupancy(*map(ctypes.byref, res)), "segment_sum occupancy")
+    blocks, threads, regs, smem, local = (r.value for r in res)
+    log(f"[build] segment_sum at units of ≤ {ss_kernel.TILE} slots: {regs} "
+        f"registers a thread, {smem} B of shared memory a block, {blocks} "
+        f"blocks of {threads} an SM (the occupancy calculator), {local} B "
+        "of local memory a thread")
     occupancy = _build.launcher("robust_aggregate", "robust_select_occupancy")
     for m_occ in (3922, 10_000, ra_kernel.MAX_VALID):
         res = [ctypes.c_int(0) for _ in range(4)]
@@ -3835,12 +3870,16 @@ def main() -> int:
     del deltas
     # the full gradient's sum into d slots: utils.scatter's fixed order
     # (what LogRegProblem.grad runs on the card) against CUDA's atomic
-    # index_add_ on the same terms, and whether each repeats bit for bit
+    # index_add_ on the same terms, and whether each repeats bit for bit;
+    # and, measured only (no path sums so), ops.segment_sum with a plan of
+    # the flat view: a the rows' scales, b the values, the zero values
+    # left out
+    from repro_torch.kernels.segment_sum import segment_plan
     from repro_torch.utils import scatter
     flat = prob.flat
     w_g = torch.randn(d, device=dev, generator=g) * 0.01
-    terms = ((-flat.y * torch.sigmoid(-flat.y * flat.margins(w_g))
-              / flat.n)[:, None] * flat.val).reshape(-1)
+    scale = -flat.y * torch.sigmoid(-flat.y * flat.margins(w_g)) / flat.n
+    terms = (scale[:, None] * flat.val).reshape(-1)
     slots = flat.idx.reshape(-1)
 
     def fixed_sum():
@@ -3853,14 +3892,35 @@ def main() -> int:
     for fn in (fixed_sum, atomic_sum):
         first = fn()
         same.append(all(torch.equal(first, fn()) for _ in range(2)))
+    sync()
+    t0 = time.perf_counter()
+    grad_plan = segment_plan(flat.idx, d, keep=flat.val != 0)
+    sync()
+    plan_s = time.perf_counter() - t0
+    scale, vals = scale.contiguous(), flat.val.contiguous()
+    g_out = torch.empty(d, device=dev)
+
+    def planned_sum():
+        return ops.segment_sum(grad_plan, scale, vals, g_out)
+
+    first = planned_sum().clone()
+    same.append(all(torch.equal(first, planned_sum()) for _ in range(2)))
+    seg_err = float((first - fixed_sum()).abs().max())
     log(f"[time] the full gradient's sum of {terms.numel()} terms into d = "
         f"{d}: fixed order (utils.scatter) {cuda_ms(fixed_sum):.3f} ms, "
         f"three calls bit-equal {same[0]}; atomic index_add_ "
         f"{cuda_ms(atomic_sum):.3f} ms, three calls bit-equal {same[1]}; "
-        f"the whole LogRegProblem.grad {cuda_ms(lambda: flat.grad(w_g)):.3f} "
-        "ms")
+        f"ops.segment_sum with a plan of the flat view "
+        f"{cuda_ms(planned_sum):.3f} ms ({grad_plan.order.numel():,} "
+        f"nonzero terms, {grad_plan.n_runs:,} runs, the longest "
+        f"{int((grad_plan.run_start[1:] - grad_plan.run_start[:-1]).max()):,}"
+        f"; plan {plan_s:.3f} s, {grad_plan.n_units:,} units), three calls "
+        f"bit-equal {same[2]}, vs utils.scatter {seg_err:.3e} (measured "
+        f"only: no path sums so); the whole LogRegProblem.grad "
+        f"{cuda_ms(lambda: flat.grad(w_g)):.3f} ms")
     require(same[0], "the fixed-order gradient sum differs from call to call")
-    del terms, slots, first, flat, w_g
+    require(same[2], "segment_sum's gradient sum differs from call to call")
+    del terms, slots, first, flat, w_g, scale, vals, g_out, grad_plan
     # wkv6 at the serving prefill's shape, in the entry the model calls:
     # (B, S, Hn, D) = (8, 2,048, 40, 64) f32, chunk 32, with RWKV-like
     # decays; launches from the serving run; bound from wkv6_cost

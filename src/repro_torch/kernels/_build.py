@@ -44,6 +44,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
@@ -68,8 +69,8 @@ SIGNATURES = {
     "wkv6_bwd": ("wkv6_bwd_launch", [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _I, _I, _I, _P]),
-    "segment_sum": ("segment_sum_launch", [_P, _P, _I, _P, _P, _P, _L, _P, _L,
-                                           _P]),
+    "segment_sum": ("segment_sum_launch", [_P, _P, _U, _I, _P, _P, _P, _P,
+                                           _I, _I, _I, _P, _P]),
 }
 EXTRA_SIGNATURES = {
     "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],
@@ -83,6 +84,7 @@ EXTRA_SIGNATURES = {
                                                      _P]},
     "wkv6": {"wkv6_occupancy": [_I, _P, _P, _P]},
     "wkv6_bwd": {"wkv6_bwd_occupancy": [_I, _P, _P, _P, _P]},
+    "segment_sum": {"segment_sum_occupancy": [_P, _P, _P, _P, _P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1254,30 +1254,91 @@ def test_dense_loss_and_gradients_on_the_card_match_the_cpu(cuda):
 # --------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("run,group", [(1, 1), (33, 4), (2_000, 62)])
-def test_segment_sum_matches_plain_bit_for_bit(cuda, run, group):
-    """The kernel against its plain version (the same lanes, the same
-    butterfly: the same bits), twice; every slot without a run zeroed."""
-    from repro_torch.kernels import segment_sum as ss
-    g = _gen(cuda)
-    n_slots = 10_000
-    used = torch.randperm(n_slots, device=cuda, generator=g)[:500]
-    slots = used.repeat_interleave(run)
-    slots = slots[torch.randperm(slots.numel(), device=cuda, generator=g)]
+def _segment_case(case, dev, g):
+    """(slots, n_slots, a, b, keep) of a case of the kernel test: runs of
+    one length (in scattered term positions), a mix like the §4 buckets',
+    runs on the units' edges, no runs, or −0 products."""
+    from repro_torch.kernels.segment_sum import TILE
+    n_slots, group = 10_000, 1
+    lengths = {"runs-1": 1, "runs-2": 2, "runs-32": 32, "runs-33-group-4": 33,
+               "runs-2000-group-62": 2_000}
+    if case in lengths:
+        run = lengths[case]
+        group = {33: 4, 2_000: 62}.get(run, 1)
+        used = torch.randperm(n_slots, device=dev, generator=g)[:500]
+        slots = used.repeat_interleave(run)
+    elif case == "mix":
+        # two runs in three of one term, one in ten of two, one in five of
+        # 3–32, the rest of 33–7,000 (the §4 buckets' longest is 6,750);
+        # groups of 62 terms (a §4 row)
+        group = 62
+        n_slots = 2_000 * 20_002 // 100
+        used = torch.randperm(n_slots, device=dev, generator=g)[:30_000]
+        u = torch.rand(used.numel(), device=dev, generator=g)
+        run = torch.where(u < 0.656, 1, torch.where(u < 0.758, 2, torch.where(
+            u < 0.953, torch.randint(3, 33, u.shape, device=dev, generator=g),
+            torch.randint(33, 7_001, u.shape, device=dev, generator=g))))
+        slots = used.repeat_interleave(run)
+    elif case == "unit-edges":
+        # units of TILE slots over 3 TILE + 1 slots (the last unit one
+        # slot), runs of 1, 5 and 40 terms on each unit's first and last
+        # slot
+        n_slots = 3 * TILE + 1
+        edges = torch.arange(0, n_slots, TILE, device=dev)
+        used = torch.cat([edges, (edges + TILE - 1).clamp(max=n_slots - 1)])
+        run = torch.tensor([1, 5, 40], device=dev).repeat(used.numel())[
+            :used.numel()]
+        slots = used.repeat_interleave(run)
+    elif case in ("no-runs", "negative-zero"):
+        slots = torch.randint(0, n_slots, (5_000,), device=dev, generator=g)
+    slots = slots[torch.randperm(slots.numel(), device=dev, generator=g)]
     n = slots.numel() - slots.numel() % group
     slots = slots[:n]
-    a = torch.randn(n // group, device=cuda, generator=g)
-    b = torch.randn(n, device=cuda, generator=g)
-    plan = ss.segment_plan(slots, n_slots, keep=b.abs() > 0.05)
+    a = torch.randn(n // group, device=dev, generator=g)
+    b = torch.randn(n, device=dev, generator=g)
+    keep = b.abs() > 0.05
+    if case == "no-runs":
+        keep[:] = False
+    elif case == "negative-zero":
+        # every kept term's product −0 (or +0): each sum is +0
+        a = -a.abs()
+        b = torch.where(b > 0, 0.0, -0.0)
+        keep[:] = True
+    return slots, n_slots, a, b, keep
+
+
+@pytest.mark.parametrize("case", ["runs-1", "runs-2", "runs-32",
+                                  "runs-33-group-4", "runs-2000-group-62",
+                                  "mix", "unit-edges", "no-runs",
+                                  "negative-zero"])
+def test_segment_sum_matches_plain_bit_for_bit(cuda, case):
+    """The kernel against its plain version (the same lanes, the same
+    butterfly: the same bits), twice, ``out`` filled with NaN before each
+    call and, in the unit-edge case, 4 B past a 16-byte boundary; every
+    slot without a run zeroed, +0 where every product is −0."""
+    from repro_torch.kernels import segment_sum as ss
+    slots, n_slots, a, b, keep = _segment_case(case, cuda, _gen(cuda))
+    plan = ss.segment_plan(slots, n_slots, keep=keep)
+    lengths = plan.run_start[1:] - plan.run_start[:-1]
+    if case.startswith("runs-"):
+        assert int(lengths.max()) <= int(case.split("-")[1])
+    if case in ("mix", "unit-edges"):
+        assert int(lengths.min()) == 1 and int(lengths.max()) > ss.LANES
+    assert (plan.n_runs == 0) == (case == "no-runs")
     before = ops.launch_counts()["segment_sum"]
-    got = ops.segment_sum(plan, a, b, torch.full((n_slots,), float("nan"),
-                                                 device=cuda))
-    again = ops.segment_sum(plan, a, b, torch.empty(n_slots, device=cuda))
+    got = []
+    for _ in range(2):
+        buf = torch.full((n_slots + 4,), float("nan"), device=cuda)
+        out = buf[1:n_slots + 1] if case == "unit-edges" else buf[:n_slots]
+        got.append(ops.segment_sum(plan, a, b, out).clone())
     assert ops.launch_counts()["segment_sum"] == before + 2
     want = ref.segment_sum_ref(plan, a, b, torch.empty(n_slots, device=cuda))
-    assert torch.equal(got, again) and torch.equal(got, want)
-    assert not got[~torch.isin(torch.arange(n_slots, device=cuda),
-                               plan.run_slot.long())].any()
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], want)
+    assert not got[0][~torch.isin(torch.arange(n_slots, device=cuda),
+                                  plan.run_slot.long())].any()
+    assert not torch.signbit(got[0][got[0] == 0]).any()
+    if case == "negative-zero":
+        assert plan.n_runs > 0 and not got[0].any()
 
 
 def test_dane_rounds_repeat_bit_for_bit_on_the_card(cuda):
