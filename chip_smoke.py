@@ -7,7 +7,7 @@ Phases, in order (any failure raises and exits non-zero):
 
 1. record the machine: torch and CUDA versions, ``nvcc --version``, whether
    ``import triton`` works, the card's name and power limit;
-2. build the nine kernel libraries from ``src/repro_torch/kernels/csrc``
+2. build the ten kernel libraries from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print the build seconds and
    each library's register and spill report, and ``wkv6``'s, each
    ``wkv6_bwd`` launch's and the robust select's registers, shared
@@ -163,7 +163,20 @@ Phases, in order (any failure raises and exits non-zero):
     memory, the prefill's tokens an expert and the pairs capacity dropped,
     the decode's idle share; ``[train-moe]`` trains phi3.5-moe at full
     width cut to 2 layers as ``[train-dense]`` trains danube;
-13. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
+13. the Mamba / attention / MoE hybrid, ``[serve-hybrid]``:
+    ``selective_scan`` against its plain version (the prefill's (8,
+    2,048, 8,192, 16) with bf16 x, a decode step's S = 1 in bf16 and f32,
+    a ragged S and di; two calls bit-equal) and its registers, shared
+    memory and blocks an SM; ``mamba_fwd`` at full width card against CPU
+    (f32 and bf16); the reduced jamba card against CPU; then jamba-v0.1-52b
+    at full width cut to 16 of its 32 layers, bf16, 8 × 2,048 prompt
+    tokens and 32 decode steps through ``launch.serve.serve`` — init,
+    prefill (routed and dispatched TFLOP/s) and decode seconds, peak
+    memory, caches finite, tokens an expert and pairs dropped, a traced
+    decode; ``selective_scan`` launched 14 times in the prefill and in
+    each decode step (its 14 Mamba layers), every other kernel 0; its
+    time, plain time and bound at the prefill's shape;
+14. print the ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -209,6 +222,9 @@ TPU_KERNELS = {
     # no TPU kernel: DANE's local gradient, an XLA scatter-add in the
     # reference (its data grad's .at[idx].add), summed in a fixed order
     "segment_sum": "src/repro/core/dane.py:114",
+    # no TPU kernel: the Mamba block's discretization, chunked associative
+    # scan and C contraction, plain JAX in the reference (mamba.py:46-109)
+    "selective_scan": "src/repro/models/mamba.py:46",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -223,6 +239,7 @@ SOURCES = {
     "wkv6": CSRC + "wkv6.cu",
     "wkv6_bwd": CSRC + "wkv6_bwd.cu",
     "segment_sum": CSRC + "segment_sum.cu",
+    "selective_scan": CSRC + "selective_scan.cu",
 }
 #: solver -> the kernel its client pass launches
 STEP_KERNEL = {"fsvrg": "fsvrg_update", "fedavg": "fedavg_update",
@@ -341,6 +358,29 @@ MOE_TOL = {"float32": 1e-5, "bfloat16": 1.5e-2}
 #: the MoE training cell: phi3.5-moe at full width cut to 2 layers
 #: (2.87 B parameters) in bf16 with launch/train.py's defaults
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 2
+#: the hybrid at full width in bf16, seeded random weights, depth cut to
+#: fit one 80 GB card: (layers, prompts, prompt tokens, decode steps).
+#: jamba-v0.1-52b's 32 layers are 102.9 GB of bf16 weights; 16 (two whole
+#: pattern blocks: 14 Mamba and 2 attention layers, 8 MoE and 8 dense
+#: MLPs) are 52.0 GB
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_SERVE = (16, 8, 2048, 32)
+#: mamba_fwd card against CPU at full width: one layer's weights,
+#: MAMBA_CHECK_SEQ tokens; tolerance on max |card − CPU| over max |CPU| by
+#: dtype (f32: the same sums in other orders and the kernel's fused
+#: multiply-adds; bf16: the projections' and the gate's bf16 roundings,
+#: about five bf16 ulps of the max, as tests/test_torch_mamba.py holds
+#: the port against the reference)
+MAMBA_CHECK_SEQ = 32
+MAMBA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: selective_scan against its plain version: atol SCAN_TOL · max |plain| +
+#: rtol SCAN_TOL (the kernel fuses a·h + b into one multiply-add and sums
+#: Σ_n h·C in order; the plain version rounds each operation)
+SCAN_TOL = 1e-5
+#: the exponentials' floor: exp(dt·A) once a (t, channel, state) on the
+#: special-function units, 16 an SM a clock (H100 SXM: 132 SMs at a
+#: 1.98 GHz boost clock)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1178,6 +1218,45 @@ def check_moe_fwd(cfg, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def prefill_routing(tag, cfg, model, params, prompt, n_moe) -> None:
+    """The prefill of ``prompt`` once more with each MoE layer's router
+    read (untimed): tokens the ``n_moe`` MoE layers route to each expert,
+    summed over the layers, and those past an expert's C slots of a
+    sequence."""
+    import torch
+    from repro_torch.core.scaling import expert_occupancy
+    from repro_torch.models import moe
+
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    B, S = prompt.shape
+    real = moe.moe_fwd
+    counts = torch.zeros(E, device=prompt.device)
+    dropped = [0]
+
+    def counted(p, x, cfg_, **kw):
+        logits = x.float() @ p["router"]
+        _, probs, mask = moe.route_topk(logits, k)
+        counts.add_(expert_occupancy(probs.reshape(-1, E), k))
+        cap = moe.capacity(x.shape[1], cfg_, **kw)
+        dropped[0] += int((mask.sum(1) - cap).clamp(min=0).sum())
+        return real(p, x, cfg_, **kw)
+
+    moe.moe_fwd = counted
+    try:
+        model.prefill(params, {"tokens": prompt})
+    finally:
+        moe.moe_fwd = real
+    routed_pairs = n_moe * B * S * k
+    log(f"[{tag}] {cfg.name} prefill routing over its {n_moe} MoE layers: "
+        f"tokens routed to each expert " + str(
+            [int(c) for c in counts.tolist()])
+        + f" (Σ {int(counts.sum())} = MoE layers × {B * S} tokens × "
+        f"top-{k}); {dropped[0]} token-expert pairs dropped by capacity ("
+        f"{dropped[0] / routed_pairs:.2%} of {routed_pairs})")
+    require(int(counts.sum()) == routed_pairs,
+            f"{cfg.name}: expert counts do not sum to the routed pairs")
+
+
 def serve_moe_phase(dev, sync) -> dict:
     """Serve each MoE config at full width in bf16, depth cut as
     MOE_SERVE says, through ``launch.serve.serve``, after ``moe_fwd``'s
@@ -1189,7 +1268,6 @@ def serve_moe_phase(dev, sync) -> dict:
     Returns arch -> the run's numbers."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.scaling import expert_occupancy
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model, moe
@@ -1270,36 +1348,7 @@ def serve_moe_phase(dev, sync) -> dict:
             f"{layers} layers' K/V finite; first tokens "
             f"{res.tokens[0, :8].tolist()}")
 
-        # the prefill's routing, once more with each layer's router read
-        # (untimed): tokens a layer routes to each expert, summed over the
-        # layers, and those past an expert's C slots of a sequence
-        real = moe.moe_fwd
-        counts = torch.zeros(E, device=dev)
-        dropped = [0]
-
-        def counted(p, x, cfg_, **kw):
-            logits = x.float() @ p["router"]
-            _, probs, mask = moe.route_topk(logits, k)
-            counts.add_(expert_occupancy(probs.reshape(-1, E), k))
-            cap = moe.capacity(x.shape[1], cfg_, **kw)
-            dropped[0] += int((mask.sum(1) - cap).clamp(min=0).sum())
-            return real(p, x, cfg_, **kw)
-
-        moe.moe_fwd = counted
-        try:
-            model.prefill(params, {"tokens": prompt})
-        finally:
-            moe.moe_fwd = real
-        routed_pairs = layers * B * S * k
-        log(f"[serve-moe] {cfg.name} prefill routing over {layers} layers: "
-            f"tokens routed to each expert " + str(
-                [int(c) for c in counts.tolist()])
-            + f" (Σ {int(counts.sum())} = layers × {B * S} tokens × top-{k});"
-            f" {dropped[0]} token-expert pairs dropped by capacity ("
-            f"{dropped[0] / routed_pairs:.2%} of {routed_pairs})")
-        require(int(counts.sum()) == routed_pairs,
-                f"{cfg.name}: expert counts do not sum to the routed pairs")
-
+        prefill_routing("serve-moe", cfg, model, params, prompt, layers)
         profile_decode(f"{cfg.name} ({layers} layers)", model, params, res,
                        sync)
         out[arch] = dict(init_s=init_s, prefill_s=res.prefill_s,
@@ -1321,6 +1370,328 @@ def train_moe_phase(dev, sync) -> None:
         f"{full.num_layers} layers "
         f"(reduced: depth): {cfg.param_count() / 1e9:.3f} B parameters")
     train_dense_phase(dev, sync, cfg=cfg, tag="train-moe")
+
+
+def scan_inputs(dev, g, B, S, di, dtype, given):
+    """selective_scan's inputs as ``mamba_fwd`` passes them: x (B, S, di)
+    in ``dtype``, dt_pre the (B, S) view of a (B, S, 1) column, B and C the
+    halves of one (B, S, 32) tensor, a_log near log(1..16), dt_bias and
+    d_skip near their inits, and a start state (or None)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    bc = randn(B, S, 32)
+    a_log = (torch.log(torch.arange(1, 17, device=dev, dtype=torch.float32))
+             .repeat(di, 1) + 0.1 * randn(di, 16))
+    return (randn(B, S, di).to(dtype), randn(B, S, 1)[..., 0],
+            0.5 * randn(di), a_log, bc[..., :16], bc[..., 16:],
+            1 + 0.1 * randn(di), randn(B, di, 16) if given else None)
+
+
+def scan_cost(B, S, di, N, x_bytes):
+    """selective_scan's (bytes, f32 operations, exponentials) for one call:
+    x read once, y (f32) and the last state written once, dt_pre, B, C and
+    the per-channel vectors read once; 7N + 9 operations a (t, channel):
+    7 a state — dt·A, its exp, (dt·x)·B, a·h, + b, h·C and its add into
+    y, less the first add — and 9 — the bias add, softplus's |·|,
+    negation, exp, log1p, max and add, dt·x formed once, x·d_skip and its
+    add; one exponential a (t, channel, state)."""
+    nbytes = (B * S * di * (x_bytes + 4) + B * di * N * 4
+              + B * S * (1 + 2 * N) * 4 + di * (2 + N) * 4)
+    return nbytes, B * S * di * (7 * N + 9), B * S * di * N
+
+
+def check_selective_scan(dev, compare, di) -> float:
+    """``selective_scan`` against its plain version on the card at the
+    hybrid prefill's shape (bf16 x, from zeros), a decode step's (S = 1,
+    from a given state, f32 and bf16) and a ragged one (S no multiple of
+    the staged tile, di of the last block), two calls bit-equal each, at
+    ``di`` channels; the kernel's resources.  Returns the largest max abs
+    error."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import selective_scan as sc
+
+    _, B, S, _ = HYBRID_SERVE
+    occupancy = _build.launcher("selective_scan", "selective_scan_occupancy")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for code, name in enumerate(("float32", "bfloat16")):
+        res = [ctypes.c_int(0) for _ in range(5)]
+        _build.check(occupancy(code, *map(ctypes.byref, res)),
+                     "selective_scan occupancy")
+        blocks, threads, regs, smem, local = (r.value for r in res)
+        log(f"[serve-hybrid] selective_scan x {name}: {regs} registers a "
+            f"thread, {smem} B of shared memory a block, {blocks} blocks of "
+            f"{threads} an SM (the occupancy calculator), {local} B of local "
+            f"memory a thread; the prefill's {B * -(-di // threads)} blocks "
+            f"fill {B * -(-di // threads) / (blocks * sms):.2f} waves of "
+            f"{sms} SMs")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    worst = 0.0
+    for label, shape, dtype, given in (
+            (f"prefill ({B}, {S:,}, {di:,}, 16) bf16 x from zeros",
+             (B, S, di), torch.bfloat16, False),
+            (f"decode step ({B}, 1, {di:,}, 16) bf16 x from a given state",
+             (B, 1, di), torch.bfloat16, True),
+            (f"decode step ({B}, 1, {di:,}, 16) f32 x from a given state",
+             (B, 1, di), torch.float32, True),
+            (f"ragged (3, 100, {di + 40:,}, 16) f32 x from a given state",
+             (3, 100, di + 40), torch.float32, True)):
+        args = scan_inputs(dev, g, *shape, dtype, given)
+        got = sc.selective_scan(*args)
+        again = sc.selective_scan(*args)
+        want = ref.selective_scan_ref(*args)
+        for part, a, b in (("y", got[0], want[0]), ("last state", got[1],
+                                                     want[1])):
+            worst = max(worst, compare(
+                "selective_scan", f"{label}: {part}", a, b, SCAN_TOL,
+                SCAN_TOL * float(b.abs().max())))
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+        log(f"[check] selective_scan {label}: two calls bit-equal {same}")
+        require(same, "selective_scan: two calls differ")
+        del args, got, again, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_mamba_fwd(cfg, dev) -> None:
+    """``mamba_fwd`` at ``cfg``'s full width on the card against the CPU
+    with the same weights (one layer's, drawn on the card), input (1 ×
+    MAMBA_CHECK_SEQ tokens) and states, f32 and bf16: the output, the SSM
+    state and the convolution state (the last inputs' projections) within
+    MAMBA_TOL of their max."""
+    import torch
+    from repro_torch.models import mamba
+
+    di, N = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(SEED + 12)
+        p = mamba.init_mamba(g, cfg, dtype)
+        p["dt_bias"] = 0.5 * torch.randn(di, device=dev, generator=g)
+        x = torch.randn((1, MAMBA_CHECK_SEQ, cfg.d_model), generator=g,
+                        device=dev).to(dtype)
+        h0 = torch.randn((1, di, N), device=dev, generator=g)
+        c0 = torch.randn((1, cfg.mamba_d_conv - 1, di), device=dev,
+                         generator=g).to(dtype)
+        t = time.perf_counter()
+        od, (hd, cd) = mamba.mamba_fwd(p, x, cfg, ssm_state=h0,
+                                       conv_state=c0)
+        pc = {n: v.cpu() for n, v in p.items()}
+        oc, (hc, cc) = mamba.mamba_fwd(pc, x.cpu(), cfg, ssm_state=h0.cpu(),
+                                       conv_state=c0.cpu())
+        errs = [_rel(a.cpu(), b) for a, b in ((od, oc), (hd, hc), (cd, cc))]
+        log(f"[serve-hybrid] {cfg.name} mamba_fwd at full width (d "
+            f"{cfg.d_model}, di {di}, N {N}), 1 × {MAMBA_CHECK_SEQ} tokens "
+            f"from given states, {name}: card vs CPU output error "
+            f"{errs[0]:.3e}, SSM state {errs[1]:.3e}, convolution state "
+            f"{errs[2]:.3e} of their max (tolerance {MAMBA_TOL[name]:g}) "
+            f"({time.perf_counter() - t:.1f} s)")
+        require(od.dtype == dtype and od.shape == x.shape
+                and hd.shape == (1, di, N), f"{cfg.name}: mamba_fwd's "
+                "output dtype or shapes")
+        require(max(errs) <= MAMBA_TOL[name],
+                f"{cfg.name}: mamba_fwd on the card disagrees with the CPU")
+        del p, pc, x, od, oc, hd, hc, cd, cc
+    torch.cuda.empty_cache()
+
+
+def hybrid_prefill_flops(cfg, B, S, C):
+    """The operations of a hybrid config's prefill of B × S tokens, two a
+    multiply-add: (routed, dispatched), as ``moe_prefill_flops`` counts an
+    MoE layer's experts.  A Mamba layer counts its four projections, the
+    convolution and the scan's 7N + 9 operations a (token, channel); an
+    attention layer its projections and causal attention; a dense MLP
+    its products; one unembedding a prompt."""
+    from repro_torch.models import transformer as T
+
+    d, H, Hkv, Dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim)
+    di, N, Kc = cfg.mamba_expand * d, cfg.mamba_d_state, cfg.mamba_d_conv
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    mats = 3 if cfg.mlp_style == "swiglu" else 2
+    T_ = B * S
+    mamba = T_ * (2 * d * 2 * di + 2 * di * (2 * N + 1) + 2 * di * d
+                  + 2 * Kc * di + (7 * N + 9) * di)
+    attn = (2 * T_ * (2 * d * H * Dh + 2 * d * Hkv * Dh)
+            + 4 * B * H * Dh * (S * (S + 1) // 2))
+    expert = 2 * mats * d * cfg.d_ff
+    routed = dispatched = 2 * B * d * cfg.vocab_size
+    P = T.pattern_period(cfg)
+    for i in range(cfg.num_layers):
+        mixer, mlp = T.layer_kind(cfg, i % P)
+        common = mamba if mixer == "mamba" else attn
+        if mlp == "moe":
+            common += 2 * T_ * d * E
+            routed += common + expert * k * T_
+            dispatched += common + expert * E * C * B
+        else:
+            routed += common + expert * T_
+            dispatched += common + expert * T_
+    return routed, dispatched
+
+
+def serve_hybrid_phase(dev, sync, compare, cuda_ms, bound) -> dict:
+    """Serve jamba-v0.1-52b at full width in bf16, cut to HYBRID_SERVE's
+    depth, through ``launch.serve.serve``, after ``selective_scan``'s
+    checks against its plain version, ``mamba_fwd``'s card-vs-CPU check at
+    full width and the reduced config's card-vs-CPU serve: init, prefill
+    (routed and dispatched TFLOP/s) and decode numbers, peak memory, the
+    prefill's tokens an expert and pairs dropped, a traced decode; the
+    launch counts (``selective_scan`` once a Mamba layer in the prefill
+    and in each decode step, every other kernel 0).  Returns the
+    ``selective_scan`` row of the kernels line, timed at the prefill's
+    shape."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model, moe
+    from repro_torch.models import transformer as T
+
+    release("serve-hybrid")
+    layers, B, S, steps = HYBRID_SERVE
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    P = T.pattern_period(cfg)
+    kinds = [T.layer_kind(cfg, i % P) for i in range(layers)]
+    n_mamba = sum(m == "mamba" for m, _ in kinds)
+    n_moe = sum(f == "moe" for _, f in kinds)
+    di, N = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    C = moe.capacity(S, cfg)
+    log(f"[serve-hybrid] {full.name} ({full.citation}): {full.num_layers} "
+        f"layers in blocks of {P} (Mamba at 0–{P - 2}, attention at "
+        f"{P - 1}; MoE every {full.moe_period}), d {full.d_model}, Mamba di "
+        f"{di} N {N} conv {full.mamba_d_conv}, {full.num_heads} query / "
+        f"{full.num_kv_heads} KV heads of {full.head_dim}, "
+        f"{full.moe.num_experts} experts top-{full.moe.experts_per_token} "
+        f"of d_ff {full.d_ff}, vocab {full.vocab_size}; "
+        f"{full.param_count() / 1e9:.2f} B parameters, "
+        f"{full.param_count() * 2 / 1e9:.1f} GB in bf16.  Cut to {layers} "
+        f"of {full.num_layers} layers (reduced: depth; {n_mamba} Mamba, "
+        f"{layers - n_mamba} attention, {n_moe} MoE, {layers - n_moe} "
+        f"dense): {cfg.param_count() / 1e9:.2f} B parameters, "
+        f"{cfg.param_count() * 2 / 1e9:.1f} GB in bf16")
+
+    max_err = check_selective_scan(dev, compare, di)
+    check_mamba_fwd(full, dev)
+    check_dense_small(full, dev, tag="serve-hybrid")
+
+    sync()
+    t0 = time.perf_counter()
+    model = build_model(cfg, torch.bfloat16)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    sync()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED + 1))
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    ops.reset_launch_counts()
+    res = serve(model, params, prompt, steps + 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = ops.launch_counts()
+    routed, dispatched = hybrid_prefill_flops(cfg, B, S, C)
+    log(f"[serve-hybrid] {cfg.name} full width, {layers} layers: init "
+        f"{init_s:.2f} s (weights {weights / 1e9:.3f} GB); prefill {B} × {S} "
+        f"tokens in {res.prefill_s:.4f} s ({B * S / res.prefill_s:.0f} "
+        f"tok/s; routed {routed / 1e12:.2f} TFLOP, "
+        f"{routed / res.prefill_s / 1e12:.1f} TFLOP/s, "
+        f"{routed / res.prefill_s / BF16_FLOP_PER_S:.1%} of the bf16 peak; "
+        f"dispatched {dispatched / 1e12:.2f} TFLOP, "
+        f"{dispatched / res.prefill_s / 1e12:.1f} TFLOP/s, "
+        f"{dispatched / res.prefill_s / BF16_FLOP_PER_S:.1%}); {steps} "
+        f"decode steps in {res.decode_s:.4f} s "
+        f"({res.decode_s / steps * 1e3:.2f} ms a step, "
+        f"{B * steps / res.decode_s:.1f} tok/s); peak {peak:.2f} GB "
+        f"allocated; launches {launches}")
+    served_launches = n_mamba * (steps + 1)
+    require(launches["selective_scan"] == served_launches
+            and all(n == 0 for name, n in launches.items()
+                    if name != "selective_scan"),
+            f"{cfg.name}: launches {launches}, expected selective_scan = "
+            f"{n_mamba} a Mamba layer × (prefill + {steps} steps) = "
+            f"{served_launches} and no other kernel")
+    require(res.tokens.shape == (B, steps + 1)
+            and bool(((res.tokens >= 0)
+                      & (res.tokens < cfg.vocab_size)).all()),
+            f"{cfg.name}: tokens out of range")
+    require(res.logits.shape == (B, cfg.vocab_size)
+            and bool(torch.isfinite(res.logits.float()).all()),
+            f"{cfg.name}: non-finite logits")
+    require(res.cache["len"] == S + steps, f"{cfg.name}: cache length")
+    for j, (layer, (mixer, _)) in enumerate(zip(res.cache["layers"], kinds)):
+        if mixer == "mamba":
+            ok = (layer["ssm"].shape == (B, di, N)
+                  and layer["ssm"].dtype == torch.float32
+                  and layer["conv"].shape == (B, cfg.mamba_d_conv - 1, di))
+        else:
+            ok = layer["k"].shape == (B, S + steps + 1, cfg.num_kv_heads,
+                                      cfg.head_dim)
+        require(ok and all(bool(torch.isfinite(t.float()).all())
+                           for t in layer.values()),
+                f"{cfg.name} layer {j}: cache shape or non-finite entries")
+    log(f"[serve-hybrid] {cfg.name}: logits finite, tokens in [0, V), all "
+        f"{layers} layers' caches finite ({n_mamba} SSM states (B, di, N) "
+        f"f32 and convolution states, {layers - n_mamba} K/V); first tokens "
+        f"{res.tokens[0, :8].tolist()}")
+
+    # the prefill alone and one decode step, counted apart
+    ops.reset_launch_counts()
+    prefill_routing("serve-hybrid", cfg, model, params, prompt, n_moe)
+    n_prefill = ops.launch_counts()["selective_scan"]
+    ops.reset_launch_counts()
+    model.decode_step(params, res.tokens[:, -1:],
+                      model.grow_cache(res.cache, S + steps + 2))
+    n_step = ops.launch_counts()["selective_scan"]
+    log(f"[serve-hybrid] selective_scan launches: {n_prefill} in a prefill, "
+        f"{n_step} in a decode step ({n_mamba} Mamba layers)")
+    require(n_prefill == n_step == n_mamba,
+            "selective_scan: not one launch a Mamba layer")
+    profile_decode(f"{cfg.name} ({layers} layers)", model, params, res, sync)
+    del model, params, res, prompt
+    torch.cuda.empty_cache()
+
+    # the kernels line's row, at the prefill's shape (bf16 x from zeros)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    args = scan_inputs(dev, g, B, S, di, torch.bfloat16, False)
+    nbytes, flops, n_exp = scan_cost(B, S, di, N, 2)
+    b_ms, b_by = bound(nbytes, flops)
+    row = dict(name="selective_scan", route="cuda",
+               source=SOURCES["selective_scan"],
+               replaces=TPU_KERNELS["selective_scan"],
+               launches=launches["selective_scan"], max_abs_err=max_err,
+               ms=cuda_ms(lambda: ops.selective_scan(*args)),
+               plain_ms=cuda_ms(lambda: ref.selective_scan_ref(*args),
+                                iters=2, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    dec = scan_inputs(dev, g, B, 1, di, torch.bfloat16, True)
+    dec_ms = cuda_ms(lambda: ops.selective_scan(*dec))
+    dec_bytes, dec_flops, _ = scan_cost(B, 1, di, N, 2)
+    dec_bytes += B * di * N * 4                     # the start state read
+    log(f"[time] selective_scan at ({B}, {S:,}, {di:,}, {N}) bf16 x: "
+        f"{nbytes / 1e9:.3f} GB ({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+        f"{flops / 1e9:.2f} GFLOP f32 ({flops / F32_FLOP_PER_S * 1e3:.4f} "
+        f"ms); the {n_exp:.3e} exponentials' floor on the special-function "
+        f"units {n_exp / SFU_EXP_PER_S * 1e3:.4f} ms (not the bound); "
+        f"kernel {row['ms']:.4f} ms = {row['bound_ms'] / row['ms']:.1%} of "
+        f"the bound, {n_exp / SFU_EXP_PER_S * 1e3 / row['ms']:.1%} of the "
+        f"exponentials' floor; a decode step's ({B}, 1, {di:,}, {N}) "
+        f"{dec_ms:.4f} ms (bound "
+        f"{max(dec_bytes / HBM_BYTES_PER_S, dec_flops / F32_FLOP_PER_S) * 1e3:.6f}"
+        f" ms, {dec_bytes / 1e6:.2f} MB)")
+    log("[time] selective_scan library: null — no PyTorch call computes a "
+        "selective scan")
+    del args, dec
+    torch.cuda.empty_cache()
+    return row
 
 
 def fig2_phase(dev, sync, steps: int, n_buckets: int) -> dict:
@@ -4056,8 +4427,6 @@ def main() -> int:
     phase("training")
     rows.append(train_phase(dev, sync, compare, cuda_ms, bound))
     report(rows[-1])
-    require(sorted(r["name"] for r in rows) == sorted(SOURCES),
-            "the kernels line misses a kernel")
     torch.cuda.empty_cache()
 
     # -- 11. the dense attention family: serving and training -------------- #
@@ -4072,9 +4441,16 @@ def main() -> int:
     serve_moe_phase(dev, sync)
     phase("train-moe")
     train_moe_phase(dev, sync)
+
+    # -- 13. the hybrid: serving ---------------------------------------------- #
+    phase("serve-hybrid")
+    rows.append(serve_hybrid_phase(dev, sync, compare, cuda_ms, bound))
+    report(rows[-1])
+    require(sorted(r["name"] for r in rows) == sorted(SOURCES),
+            "the kernels line misses a kernel")
     phase("done")
 
-    # -- 13. the result ------------------------------------------------------- #
+    # -- 14. the result ------------------------------------------------------- #
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -134,9 +134,10 @@ def params_from_tree(tree: Mapping, model: Model) -> LMParams:
 
 def cache_from_tree(tree: Mapping, device: DeviceLike = None) -> Dict:
     """The port's decode cache from the reference's: ``len`` and
-    ``pos{j}/{wkv, shift_tm, shift_cm}`` (RWKV) or ``pos{j}/{k, v}``
-    (attention) with a leading (nrep,) axis become ``{"len": int,
-    "layers": [per-layer dict]}``; each leaf keeps its dtype."""
+    ``pos{j}/{wkv, shift_tm, shift_cm}`` (RWKV), ``pos{j}/{ssm, conv}``
+    (Mamba) or ``pos{j}/{k, v}`` (attention) with a leading (nrep,) axis
+    become ``{"len": int, "layers": [per-layer dict]}`` (layer i = rep · P
+    + j); each leaf keeps its dtype."""
     P = sum(1 for k in tree if k != "len")
     nrep = len(np.asarray(next(iter(tree["pos0"].values()))))
     layers = [{k: tensor_like_array(np.asarray(v)[i // P], device)
@@ -148,9 +149,11 @@ def cache_from_tree(tree: Mapping, device: DeviceLike = None) -> Dict:
 def _stacked_tree(named: Mapping[str, torch.Tensor], leaf) -> Dict:
     """``named`` (keyed as ``named_parameters()``) in the reference's
     decoder-only layout: ``embed``, ``out_norm``, ``unembed`` and
-    ``layers/pos0/...`` with a leading (num_layers,) axis; ``leaf`` turns
-    a list of per-layer tensors (or one tensor, ``stack=False``) into a
-    leaf."""
+    ``layers/pos{j}/...`` for the P positions of a pattern block, each with
+    a leading (num_layers // P,) axis (layer i = rep · P + j); P is the
+    period of the layers' parameter names (1 for a stack of one kind, 8
+    for the Jamba hybrid's); ``leaf`` turns a list of per-layer tensors
+    (or one tensor, ``stack=False``) into a leaf."""
     tree: Dict = {k: leaf([v], stack=False) for k, v in named.items()
                   if "." not in k}
     per_layer: Dict[int, Dict] = {}
@@ -158,14 +161,20 @@ def _stacked_tree(named: Mapping[str, torch.Tensor], leaf) -> Dict:
         if "." in key:
             _, i, *path = key.split(".")
             per_layer.setdefault(int(i), {})[tuple(path)] = v
-    pos: Dict = {}
-    for path in per_layer[0]:
-        node = pos
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = leaf([per_layer[i][path]
-                               for i in range(len(per_layer))], stack=True)
-    tree["layers"] = {"pos0": pos}
+    n = len(per_layer)
+    P = next(p for p in range(1, n + 1)
+             if n % p == 0 and all(per_layer[i].keys() == per_layer[i % p]
+                                   .keys() for i in range(n)))
+    tree["layers"] = {}
+    for j in range(P):
+        pos: Dict = {}
+        for path in per_layer[j]:
+            node = pos
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = leaf([per_layer[i][path]
+                                   for i in range(j, n, P)], stack=True)
+        tree["layers"][f"pos{j}"] = pos
     return tree
 
 
@@ -176,11 +185,11 @@ def _named(params: Union[LMParams, Mapping[str, torch.Tensor]]) -> Dict:
 
 def tree_from_params(params: Union[LMParams, Mapping[str, torch.Tensor]]
                      ) -> Dict:
-    """The inverse of :func:`params_from_tree` for the ported families
-    (a pattern of one layer): ``embed``, ``out_norm``, ``unembed`` and
-    ``layers/pos0/...`` with a leading (num_layers,) axis, as numpy
-    arrays.  ``params``: an :class:`LMParams`, or any mapping keyed as its
-    ``named_parameters()`` (gradients, an optimizer's new tensors).  bf16
+    """The inverse of :func:`params_from_tree`: ``embed``, ``out_norm``,
+    ``unembed`` and ``layers/pos{j}/...`` with a leading (num_layers // P,)
+    axis, as numpy arrays.  ``params``: an :class:`LMParams`, or any
+    mapping keyed as its ``named_parameters()`` (gradients, an
+    optimizer's new tensors).  bf16
     leaves come back as f32 arrays (numpy has no bf16; the widening is
     exact)."""
 

@@ -8,11 +8,13 @@ These are copies of the reference package's ``configs/gplus_logreg.py``,
 ``cocoa_gplus.py``, ``base.py``, ``rwkv6_3b.py``, the dense attention
 family's ``llama3_8b.py``, ``h2o_danube_1_8b.py``, ``codeqwen1_5_7b.py``
 and ``granite_20b.py`` and the MoE family's ``phi3_5_moe_42b.py`` and
-``dbrx_132b.py`` (the port imports nothing of the reference), with the
-getters the solvers' registry defaults and the model stack read.  Of the
-reference's architectures RWKV-6, the four dense decoders and the two MoE
-decoders are ported; the hybrid, encoder-decoder and vision ones are
-known by name and raise ``NotImplementedError`` (ROADMAP A11).
+``dbrx_132b.py`` and the Mamba / attention / MoE hybrid's
+``jamba_v0_1_52b.py`` (the port imports nothing of the reference), with
+the getters the solvers' registry defaults and the model stack read.  Of
+the reference's architectures RWKV-6, the four dense decoders, the two
+MoE decoders and the hybrid are ported (the hybrid serves; its training
+waits for the selective scan's backward); the encoder-decoder and vision
+ones are known by name and raise ``NotImplementedError`` (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ _MODULES: Dict[str, Optional[str]] = {
     "granite-20b": "granite_20b",
     "seamless-m4t-medium": None,
     "h2o-danube-1.8b": "h2o_danube_1_8b",
-    "jamba-v0.1-52b": None,
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "internvl2-1b": None,
     "llama3-8b": "llama3_8b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",

@@ -14,7 +14,9 @@ layers, d 256, d_ff 1,024, vocab 8,192; an attention decoder's 4 heads of
 64 over 2 KV heads) in f32, on the CUDA card unless ``--device cpu``:
 RWKV-6, a dense attention decoder or an MoE decoder (the reduced
 config's 4 experts).  A family the port has no layers for raises
-``NotImplementedError``, as ``build_model`` does.
+``NotImplementedError``, as ``build_model`` does, and so does the Jamba
+hybrid, whose ``selective_scan`` kernel has no backward yet (ROADMAP
+A11).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import neural
 from repro_torch.models import build_model
+from repro_torch.models.transformer import require_trainable
 from repro_torch.utils.device import resolve_device
 
 
@@ -65,6 +68,7 @@ def main(argv=None) -> float:
 
     # ~100M-class variant: reduced depth / width but real vocab structure
     cfg = get_config(args.arch).reduced()
+    require_trainable(cfg)
     cfg = dataclasses.replace(cfg, name=cfg.name + "-100m", num_layers=4,
                               d_model=256, d_ff=1024, vocab_size=8192,
                               num_heads=4, num_kv_heads=2, head_dim=64)

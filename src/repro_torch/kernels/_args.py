@@ -111,6 +111,12 @@ def output(kernel: str, out: Optional[torch.Tensor],
     return out
 
 
+def strides(x: torch.Tensor) -> Tuple[int, ...]:
+    """x's strides in elements, 0 along a dimension of size 1 (never
+    stepped), as the launchers that take strided views read them."""
+    return tuple(st if n > 1 else 0 for n, st in zip(x.shape, x.stride()))
+
+
 def stream(x: torch.Tensor) -> int:
     """PyTorch's current stream on ``x``'s card, as the launchers take it
     (the raw handle, without building a ``torch.cuda.Stream``)."""

@@ -37,6 +37,7 @@ SOURCES = {
     "wkv6": "wkv6.cu",
     "wkv6_bwd": "wkv6_bwd.cu",
     "segment_sum": "segment_sum.cu",
+    "selective_scan": "selective_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -71,6 +72,9 @@ SIGNATURES = {
                                      _L, _L, _L, _I, _I, _I, _P]),
     "segment_sum": ("segment_sum_launch", [_P, _P, _U, _I, _P, _P, _P, _P,
                                            _I, _I, _I, _P, _P]),
+    "selective_scan": ("selective_scan_launch",
+                       [_P, _I, _L, _L, _P, _L, _L, _P, _P, _P, _P, _L, _L,
+                        _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 EXTRA_SIGNATURES = {
     "fused_aggregate": {"fused_aggregate_occupancy": [_I, _I, _P],
@@ -85,6 +89,8 @@ EXTRA_SIGNATURES = {
     "wkv6": {"wkv6_occupancy": [_I, _P, _P, _P]},
     "wkv6_bwd": {"wkv6_bwd_occupancy": [_I, _P, _P, _P, _P]},
     "segment_sum": {"segment_sum_occupancy": [_P, _P, _P, _P, _P]},
+    "selective_scan": {"selective_scan_occupancy": [_I, _P, _P, _P, _P,
+                                                    _P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

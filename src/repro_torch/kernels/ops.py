@@ -20,6 +20,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import robust_aggregate as _ra
 from repro_torch.kernels import scaled_aggregate as _sa
 from repro_torch.kernels import segment_sum as _ss
+from repro_torch.kernels import selective_scan as _sc
 from repro_torch.kernels import wkv6 as _wk
 
 Scalar = Union[float, torch.Tensor]
@@ -38,6 +39,7 @@ KERNELS = {
     "wkv6": _wk.wkv6,
     "wkv6_bwd": _wk.wkv6_bwd,
     "segment_sum": _ss.segment_sum,
+    "selective_scan": _sc.selective_scan,
 }
 
 
@@ -187,3 +189,19 @@ def segment_sum(plan: _ss.SegmentPlan, a: torch.Tensor, b: torch.Tensor,
     if _on_cpu(out):
         return ref.segment_sum_ref(plan, a, b, out)
     return _ss.segment_sum(plan, a, b, out)
+
+
+def selective_scan(x: torch.Tensor, dt_pre: torch.Tensor,
+                   dt_bias: torch.Tensor, a_log: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan over x (B, S, di) from the state ``h0`` (B,
+    di, N) or zeros: y (B, S, di) f32 and the last state (B, di, N) f32
+    (:func:`repro_torch.kernels.ref.selective_scan_ref` says what it
+    computes).  On the card no (B, S, di, N) tensor is formed; the kernel
+    has no backward yet (ROADMAP A11)."""
+    if _on_cpu(x):
+        return ref.selective_scan_ref(x, dt_pre, dt_bias, a_log, b, c,
+                                      d_skip, h0)
+    return _sc.selective_scan(x, dt_pre, dt_bias, a_log, b, c, d_skip, h0)

@@ -527,3 +527,44 @@ def segment_sum_ref(plan, a: torch.Tensor, b: torch.Tensor,
         p = p[:w] + p[w:2 * w]
     flat_out.index_copy_(0, plan.run_slot.long(), p[0])
     return out
+
+
+def softplus_ref(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(v, 0)``): max(v, 0) +
+    log1p(exp(−|v|)), with no threshold (torch's ``F.softplus`` returns v
+    itself above 20)."""
+    return torch.clamp_min(v, 0.0) + torch.log1p(torch.exp(-v.abs()))
+
+
+def selective_scan_ref(x: torch.Tensor, dt_pre: torch.Tensor,
+                       dt_bias: torch.Tensor, a_log: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None):
+    """The plain version of the selective_scan kernel: Mamba's S6 scan,
+    the sequential recurrence over t in f32 from the state ``h0`` (B, di,
+    N) or zeros.  x (B, S, di) in any float dtype, read as f32; dt_pre
+    (B, S) (the reference's ``x_dt`` is (di, 1)); dt_bias, d_skip (di,);
+    a_log (di, N); b, c (B, S, N).  At each t, per sequence, channel and
+    state:
+
+        dt = softplus(dt_pre + dt_bias),   A = −exp(a_log)
+        h  = exp(dt·A)·h + (dt·b_t)·x
+        y  = Σ_n h·c_t + x·d_skip
+
+    Returns y (B, S, di) f32 and the last state (B, di, N) f32.  The
+    reference (``models/mamba.py``) forms the same a and b for every t as
+    (B, S, di, N) tensors and scans them by chunks; here one step's
+    (B, di, N) lives at a time."""
+    xf = _f32(x)
+    B, S, di = xf.shape
+    A = -torch.exp(_f32(a_log))                                # (di, N)
+    dt = softplus_ref(_f32(dt_pre)[..., None] + _f32(dt_bias))  # (B, S, di)
+    b, c = _f32(b), _f32(c)
+    h = (torch.zeros((B, di, A.shape[1]), dtype=_F32, device=xf.device)
+         if h0 is None else _f32(h0))
+    y = torch.empty((B, S, di), dtype=_F32, device=xf.device)
+    for t in range(S):
+        d = dt[:, t, :, None]                                  # (B, di, 1)
+        h = torch.exp(d * A) * h + (d * b[:, t, None, :]) * xf[:, t, :, None]
+        y[:, t] = (h * c[:, t, None, :]).sum(-1)
+    return y + xf * _f32(d_skip), h

@@ -46,11 +46,6 @@ def _require(cond: bool, msg: Union[str, Callable[[], str]]) -> None:
     _args.require(_NAME, cond, msg)
 
 
-def _strides(x: torch.Tensor) -> Tuple[int, ...]:
-    """x's strides, 0 along a dimension of size 1 (never stepped)."""
-    return tuple(st if n > 1 else 0 for n, st in zip(x.shape, x.stride()))
-
-
 class _Layout(NamedTuple):
     B: int
     Hn: int
@@ -82,14 +77,14 @@ def _layout(r, k, v, w, u, chunk, state, dtypes) -> _Layout:
         strides, u_bstride = (S * D, D, D), D
     else:
         B, S, Hn, D = r.shape
-        sb, ts, sh, sd = _strides(r)
+        sb, ts, sh, sd = _args.strides(r)
         _require(sd in (0, 1), "a (B, S, Hn, D) r must have D contiguous")
         u_shape, s_shape = (Hn, D), (B, Hn, D, D)
         strides, u_bstride = (sb, ts, sh), 0
     for name, x in (("k", k), ("v", v), ("w", w)):
         _require(isinstance(x, torch.Tensor) and x.device == r.device
                  and x.dtype == r.dtype and x.shape == r.shape
-                 and _strides(x) == _strides(r),
+                 and _args.strides(x) == _args.strides(r),
                  lambda name=name: f"{name} must be a {r.dtype} tensor of "
                  f"r's shape {tuple(r.shape)} and strides {r.stride()} on "
                  f"{r.device}")

@@ -5,13 +5,16 @@ reference's ``launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
 
 Runs the reduced config in f32, as the reference does, on the CUDA card
 unless ``--device cpu``.  :func:`serve` is the loop itself; ``chip_smoke.py``
 calls it at full width.  RWKV-6 (``rwkv6-3b``), the dense attention
 decoders (``llama3-8b``, ``h2o-danube-1.8b``, ``codeqwen1.5-7b``,
-``granite-20b``) and the MoE decoders (``phi3.5-moe-42b-a6.6b``,
-``dbrx-132b``) are ported; the other architectures raise
+``granite-20b``), the MoE decoders (``phi3.5-moe-42b-a6.6b``,
+``dbrx-132b``) and the Mamba / attention / MoE hybrid
+(``jamba-v0.1-52b``: its reduced config is one pattern block of 8
+layers) are served; the other architectures raise
 ``NotImplementedError`` (ROADMAP A11).
 
 Unlike the reference's serve loop, this one decodes from a cache with room

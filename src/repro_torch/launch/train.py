@@ -14,10 +14,11 @@ Runs the reduced config in f32 by default, as the reference does, and the
 full config in bf16 with ``--full``; on the CUDA card unless
 ``--device cpu``.  RWKV-6 (``rwkv6-3b``), the dense attention decoders
 (``llama3-8b``, ``h2o-danube-1.8b``, ``codeqwen1.5-7b``, ``granite-20b``)
-and the MoE decoders (``phi3.5-moe-42b-a6.6b``, ``dbrx-132b``) are
-ported; the other architectures raise ``NotImplementedError`` (ROADMAP
-A11).  At full width one 80 GB card
-trains rwkv6-3b and h2o-danube-1.8b; the 7–20 B decoders need the
+and the MoE decoders (``phi3.5-moe-42b-a6.6b``, ``dbrx-132b``) train;
+the Jamba hybrid (``jamba-v0.1-52b``) raises ``NotImplementedError``
+until its ``selective_scan`` kernel has a backward, and the other
+architectures until they are ported (ROADMAP A11).  At full width one
+80 GB card trains rwkv6-3b and h2o-danube-1.8b; the 7–20 B decoders need the
 sharded mesh.  ``--production-mesh`` (the reference's sharded mesh,
 ROADMAP A12) raises ``NotImplementedError``.
 
@@ -46,7 +47,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import neural
 from repro_torch.launch import steps
 from repro_torch.models import build_model
-from repro_torch.models.transformer import unported
+from repro_torch.models.transformer import require_trainable, unported
 from repro_torch.optim import adamw
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -99,6 +100,7 @@ def main(argv=None) -> List[Tuple[int, float]]:
             "(ROADMAP A12)")
 
     cfg = get_config(args.arch)
+    require_trainable(cfg)
     if args.reduced:
         cfg = cfg.reduced()
     dtype = torch.float32 if args.reduced else torch.bfloat16

@@ -12,8 +12,9 @@ module, as in the reference:
     decode_step(params, tokens, cache) -> (logits, cache)        # one token
 
 Only the decoder-only families the port has layers for are built (RWKV-6,
-the dense attention decoders and the MoE decoders); the hybrid layers, the
-vision and audio front-ends and the encoder-decoder wait for ROADMAP A11.
+the dense attention decoders, the MoE decoders and the Mamba / attention /
+MoE hybrid, which serves but does not train yet); the vision and audio
+front-ends and the encoder-decoder wait for ROADMAP A11.
 ``loss`` returns ce + the config's ``load_balance_weight`` · the MoE
 layers' summed load-balance loss (0 without MoE layers), with metrics
 ``{"ce", "aux"}``, as the reference's does.
@@ -165,8 +166,9 @@ def _build_decoder_only(cfg: ArchConfig, dtype: torch.dtype,
 def _prefill_cache_from_entries(cfg: ArchConfig, entries: List[Dict],
                                 seq_len: int) -> Dict:
     """Turn stack_forward's per-layer cache entries into the decode-cache
-    layout: recurrent entries carry their final states; an attention
-    layer's K and V (B, S, Hkv, Dh) become the cache, or, under a window
+    layout: recurrent entries (RWKV's, Mamba's ``ssm`` and ``conv``) carry
+    their final states; an attention layer's K and V (B, S, Hkv, Dh)
+    become the cache, or, under a window
     with S > W, its last W entries rolled by S mod W (position p at slot
     p mod W, the decode ring's layout)."""
     smax = T.cache_max_len(cfg, seq_len)
@@ -178,6 +180,8 @@ def _prefill_cache_from_entries(cfg: ArchConfig, entries: List[Dict],
                 k, v = (torch.roll(t[:, -smax:], shifts=seq_len % smax,
                                    dims=1) for t in (k, v))
             layers.append({"k": k, "v": v})
+        elif "ssm" in e:
+            layers.append({"ssm": e["ssm"], "conv": e["conv"]})
         elif "wkv" in e:
             layers.append({"wkv": e["wkv"], "shift_tm": e["shift_tm"],
                            "shift_cm": e.get("shift_cm", e["shift_tm"])})
@@ -192,8 +196,8 @@ def grow_cache(cfg: ArchConfig, cache: Dict, max_seq: int) -> Dict:
     ``max_seq`` tokens: an attention layer's K and V in
     ``cache_max_len(cfg, max_seq)`` slots, its ``len`` entries at slots
     0..len−1 (a layer that already has that many slots, a full window's
-    ring among them, is kept as it is); RWKV entries unchanged.  Raises
-    for a ring that has wrapped into fewer slots."""
+    ring among them, is kept as it is); RWKV and Mamba entries
+    unchanged.  Raises for a ring that has wrapped into fewer slots."""
     n = cache["len"]
     if max_seq < n:
         raise ValueError(f"max_seq {max_seq} is below the cache's {n} "

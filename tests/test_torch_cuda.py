@@ -13,7 +13,9 @@ PyTorch's, over 12 steps; the robust aggregation sums its rank window in
 another order (atol 1e-6 + rtol 1e-5); wkv6 adds the same f32 terms as
 its plain version in FMAs and its own order (1e-6 of max |plain| + rtol
 1e-5; a bf16 out one bf16 ulp, rtol 1e-2); wkv6_bwd likewise against
-autograd through the plain forward (1e-5 of max |plain| + rtol 1e-5).  The
+autograd through the plain forward (1e-5 of max |plain| + rtol 1e-5);
+selective_scan fuses a·h + b into one multiply-add and sums over the
+states in its own order (1e-5 of max |plain| + rtol 1e-5).  The
 threefry draws and everything made of them (fleet masks, fault kinds) are
 bit-equal to the CPU's.
 """
@@ -1405,6 +1407,107 @@ def test_small_moe_serve_on_the_card_matches_the_cpu(cuda, arch):
     before = ops.launch_counts()
     on_dev = serve(m_dev, p_dev, prompt.to(cuda), 5)
     assert ops.launch_counts() == before
+    assert torch.equal(on_dev.tokens.cpu(), on_cpu.tokens)
+    torch.testing.assert_close(on_dev.logits.cpu(), on_cpu.logits, rtol=1e-4,
+                               atol=1e-4 * float(on_cpu.logits.abs().max()))
+
+
+def _scan_inputs(dev, B, S, di, dtype, seed=0, given=True):
+    """selective_scan's inputs as mamba_fwd passes them: x (B, S, di) in
+    ``dtype``, dt_pre a (B, S, 1) column's view, B and C the halves of one
+    (B, S, 32) tensor, a_log near log(1..16), a start state or None."""
+    g = _gen(dev, seed)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    x = randn(B, S, di).to(dtype)
+    dt_pre = randn(B, S, 1)[..., 0]
+    bc = randn(B, S, 32)
+    a_log = (torch.log(torch.arange(1, 17, device=dev, dtype=torch.float32))
+             .repeat(di, 1) + 0.1 * randn(di, 16))
+    h0 = randn(B, di, 16) if given else None
+    return (x, dt_pre, 0.5 * randn(di), a_log, bc[..., :16], bc[..., 16:],
+            1 + 0.1 * randn(di), h0)
+
+
+def _scan_close(got, want):
+    """The kernel fuses a·h + b into one multiply-add and sums Σ_n h·C in
+    order, where the plain version rounds each operation and torch's sum
+    takes its own order: 1e-5 of max |plain| + rtol 1e-5 for y and the
+    last state."""
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32 and g_.shape == w_.shape
+        torch.testing.assert_close(g_, w_, rtol=1e-5,
+                                   atol=1e-5 * float(w_.abs().max()))
+
+
+@pytest.mark.parametrize("given", [True, False], ids=["h0", "zeros"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_selective_scan_matches_plain_at_full_width(cuda, dtype, given):
+    """One Jamba layer's width (di 8,192, N 16) at B 2, S 512: one launch,
+    counted."""
+    args = _scan_inputs(cuda, 2, 512, 8192, dtype, given=given)
+    before = ops.launch_counts()["selective_scan"]
+    got = ops.selective_scan(*args)
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    _scan_close(got, ref.selective_scan_ref(*args))
+
+
+@pytest.mark.parametrize("S", [1, 100, 64], ids=["decode", "ragged", "tile"])
+def test_selective_scan_at_a_step_and_a_ragged_tile(cuda, S):
+    """S = 1 (a decode step), S = 100 (no multiple of the 64-step tile) and
+    one whole tile, at di = 8,192 + 40 (a ragged last block) from h0."""
+    args = _scan_inputs(cuda, 3, S, 8232, torch.bfloat16, seed=S)
+    _scan_close(ops.selective_scan(*args), ref.selective_scan_ref(*args))
+
+
+def test_selective_scan_repeats_bit_for_bit(cuda):
+    args = _scan_inputs(cuda, 2, 300, 4096, torch.float32, seed=7)
+    y1, h1 = ops.selective_scan(*args)
+    y2, h2 = ops.selective_scan(*args)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_selective_scan_rejects_what_it_does_not_take(cuda):
+    x, dt_pre, dt_bias, a_log, b, c, d_skip, h0 = _scan_inputs(
+        cuda, 2, 8, 256, torch.float32)
+    with pytest.raises(ValueError, match="state size"):
+        ops.selective_scan(x, dt_pre, dt_bias, a_log[:, :8], b[..., :8],
+                           c[..., :8], d_skip)
+    with pytest.raises(ValueError, match="channels contiguous"):
+        ops.selective_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                           dt_pre, dt_bias, a_log, b, c, d_skip)
+    with pytest.raises(ValueError, match="one strides"):
+        ops.selective_scan(x, dt_pre, dt_bias, a_log, b.contiguous(), c,
+                           d_skip)
+    with pytest.raises(ValueError, match="h0"):
+        ops.selective_scan(x, dt_pre, dt_bias, a_log, b, c, d_skip,
+                           h0.transpose(1, 2))
+    with pytest.raises(NotImplementedError, match="A11"):
+        ops.selective_scan(x.requires_grad_(True), dt_pre, dt_bias, a_log,
+                           b, c, d_skip)
+
+
+def test_small_hybrid_serve_on_the_card_matches_the_cpu(cuda):
+    """The reduced jamba-v0.1-52b in f32 with the same weights on the card
+    and the CPU: ``serve`` of 2 × 64 tokens and 4 decode steps gives the
+    same tokens, logits to 1e-4 of their max; ``selective_scan`` runs once
+    a Mamba layer (7) in the prefill and in each decode step."""
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    m_cpu = build_model(cfg, torch.float32, device="cpu")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    m_dev = build_model(cfg, torch.float32)
+    p_dev = copy.deepcopy(p_cpu).to(cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    on_cpu = serve(m_cpu, p_cpu, prompt, 5)
+    before = ops.launch_counts()
+    on_dev = serve(m_dev, p_dev, prompt.to(cuda), 5)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"selective_scan": 7 * 5}
     assert torch.equal(on_dev.tokens.cpu(), on_cpu.tokens)
     torch.testing.assert_close(on_dev.logits.cpu(), on_cpu.logits, rtol=1e-4,
                                atol=1e-4 * float(on_cpu.logits.abs().max()))

@@ -336,12 +336,19 @@ def test_plain_versions_are_what_ops_runs_on_cpu():
     assert torch.equal(ops.segment_sum(plan, x[2], val, torch.empty(4, 5)),
                        ref.segment_sum_ref(plan, x[2], val,
                                            torch.empty(4, 5)))
+    # a selective scan of 4 sequences × 33 steps, 16 channels, N = 16
+    xs = x[0][:, :, None].expand(4, 33, 16) * x[1][0, :16]
+    bc = x[2][:, :, None].expand(4, 33, 32) * x[0][0, :32]
+    scan = (xs, x[1], x[2][0, :16], x[0][:, :16].abs().repeat(4, 1),
+            bc[..., :16], bc[..., 16:], x[1][0, 16:32])
+    assert all(torch.equal(a, b) for a, b in zip(
+        ops.selective_scan(*scan), ref.selective_scan_ref(*scan)))
     assert ops.launch_counts() == before
     assert set(before) == {"fused_aggregate", "fused_accumulate",
                            "fused_epilogue", "fsvrg_update", "fedavg_update",
                            "dane_update", "cocoa_sdca_update",
                            "cocoa_sdca_pass", "robust_aggregate", "wkv6",
-                           "wkv6_bwd", "segment_sum"}
+                           "wkv6_bwd", "segment_sum", "selective_scan"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
